@@ -1,0 +1,21 @@
+"""JeicybooDSP on PyTorch and CUDA: the port of :mod:`jeicyboodsp_tpu`.
+
+Same subfolder names as the JAX package, so each module's counterpart is
+found at the same path:
+
+- ``ops``       torch ops around the kernels (VAD, latch row pack, the
+                enhancement chain's entry points and constant bases).
+- ``kernels``   wrappers of the hand-written Hopper kernels, each beside its
+                plain PyTorch version and a launch counter; ``_build``
+                compiles ``csrc/`` with nvcc at first use.
+- ``csrc``      CUDA C++ sources (sm_90a).
+- ``io``        PCM16 file I/O.
+- ``pipelines`` file-in/file-out pipelines (wiener, specsub).
+- ``utils``     C-numeric emulation (``c_short``), SNR.
+
+The package imports torch and numpy only: never jax, never
+``jeicyboodsp_tpu``.  Ported so far: the Wiener / spectral-subtraction chain
+through engines ``mxu8f`` and ``mxu8t``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,44 @@
+"""Command-line entry point of the port.
+
+Usage::
+
+    python -m jeicyboodsp_tpu_torch.cli wiener IN OUT [--engine mxu8f|mxu8t] [--device cuda]
+    python -m jeicyboodsp_tpu_torch.cli specsub IN OUT [--engine ...] [--device ...]
+
+    wiener IN OUT     Wiener noise suppression   (WienerFilter_final)
+    specsub IN OUT    spectral subtraction       (SpectralSubtraction_final)
+
+The device defaults to the first CUDA card when there is one, else the CPU
+(which runs the kernels' plain PyTorch versions).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv=None):
+    from jeicyboodsp_tpu_torch.ops.enhance import ENGINES
+    from jeicyboodsp_tpu_torch.pipelines import PIPELINES
+
+    parser = argparse.ArgumentParser(
+        prog="jeicyboodsp_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    parser.add_argument("pipeline", choices=sorted(PIPELINES))
+    parser.add_argument("inp")
+    parser.add_argument("out")
+    parser.add_argument(
+        "--engine", default="mxu8f", choices=ENGINES,
+        help="mxu8f = int8 chain, hq (~84 dB vs the reference); "
+        "mxu8t = the same with a turbo inverse (~70 dB)",
+    )
+    parser.add_argument("--device", default=None, help="torch device (cuda, cuda:1, cpu)")
+    ns = parser.parse_args(argv)
+    PIPELINES[ns.pipeline](ns.inp, ns.out, fft_engine=ns.engine, device=ns.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,250 @@
+"""The enhancement chain of engines mxu8f / mxu8t: wrapper, plain version, count.
+
+Replaces the Pallas kernel ``jeicyboodsp_tpu/kernels/enhance_pallas.py:
+enhance_full8_pallas`` ("K1"): (T, 512) int16 blocks + a (T, 8) latch row
+pack -> (T, 512) int16 output, through the int8-split forward rDFT, the
+closed-form noise latch, the Wiener / spectral-subtraction gain, per-row
+two-level int8 quantization, the int8 inverse, the flip and the OLA.
+
+- :func:`enhance_full8` is the wrapper: on a CUDA tensor it launches the
+  hand-written kernels of ``csrc/enhance_full8.cu`` (and counts the launch
+  in ``enhance_full8.launches``); on a CPU tensor it runs the plain
+  version; anything else raises.
+- :func:`enhance_full8_plain` is the plain PyTorch version, written from
+  the same formulas: the int8 dots are float64 matmuls of int8-valued
+  tensors (exact: |sum| < 2^31 < 2^53) and the f32 epilogues are eager
+  torch ops in the JAX operand order.
+
+``hq=False`` (mxu8t) keeps the 16-dot forward -- the TPU kernel calls
+``_fwd8_plane`` without ``hq`` -- and makes only the inverse turbo: no
+``l@Wl`` dot and no level-2 plane.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from jeicyboodsp_tpu_torch.kernels import _build
+from jeicyboodsp_tpu_torch.utils.cnum import c_short
+
+N = 512
+NB = N + 1  # bins with the Nyquist one
+MODES = ("wiener", "specsub")
+
+# constant tensors the chain reads (built by ops.enhance.enhance_constants)
+CONST_SPECS = {
+    "fwd8": (torch.int8, (8, N, N)),   # WhCp WlCp WhCc WlCc WhSp WlSp WhSc WlSc, [n, k]
+    "fscales": (torch.float32, (8, N)),
+    "fcrows": (torch.float32, (2, N)),
+    "nyq": (torch.float32, (2 * N,)),
+    "back8": (torch.int8, (4, N, N)),  # Uh Ul Vh Vl, [s, k]
+    "bscales": (torch.float32, (4, N)),
+    "bcrows": (torch.float32, (2, N)),
+    "u_nyq": (torch.float32, (N,)),
+    "y512col": (torch.float32, (NB,)),
+}
+
+
+# ---------------------------------------------------------------- plain version
+
+
+def _i8dot(a, wt):
+    """Exact integer dot: (R, K) int-valued @ (N, K)^T, as float64."""
+    return a.to(torch.float64) @ wt.to(torch.float64).T
+
+
+def _split8(x):
+    """x = 256*xh + xl + 128 exactly, xh = floor(x/256), both in int8 range."""
+    xh = x >> 8
+    return xh, x - 256 * xh - 128
+
+
+def _fwd8_plane(ph, plo, ch, cl, W, s, crow):
+    """One spectral plane (enhance_pallas.py:_fwd8_plane, the hq form)."""
+    f32 = lambda v: v.to(torch.float32)  # noqa: E731
+    zh = 256 * _i8dot(ph, W[0]) + _i8dot(plo, W[0])
+    rh = 256 * _i8dot(ph, W[1]) + _i8dot(plo, W[1])
+    zc = 256 * _i8dot(ch, W[2]) + _i8dot(cl, W[2])
+    rc = 256 * _i8dot(ch, W[3]) + _i8dot(cl, W[3])
+    return (s[0] * f32(zh) + s[1] * f32(rh) + s[2] * f32(zc) + s[3] * f32(rc)
+            + crow)
+
+
+def forward8_plain(blocks, C):
+    """(T, 512) int16 -> re, im (T, 512) and the Nyquist bin ren (T,)."""
+    cur = blocks.to(torch.int32)
+    prev = torch.cat([torch.zeros_like(cur[:1]), cur[:-1]])
+    ph, plo = _split8(prev)
+    ch, cl = _split8(cur)
+    W, s, cr = C["fwd8"], C["fscales"], C["fcrows"]
+    re = _fwd8_plane(ph, plo, ch, cl, W[0:4], s[0:4], cr[0])
+    im = _fwd8_plane(ph, plo, ch, cl, W[4:8], s[4:8], cr[1])
+    nyq = C["nyq"]
+    ren = prev.to(torch.float32) @ nyq[:N] + cur.to(torch.float32) @ nyq[N:]
+    return re, im, ren
+
+
+def latch_from_rowpack(rowpack, mags, L: int):
+    """Closed-form noise latch (ops/enhance.py:_noise_latch_parts) from the
+    row pack [w, p, g, p[g]]: ns[t] = p_g*(A0[chunk(g)] + sum_{j<=g, same
+    chunk} w_j*m_j), 0 before the first latch.  mags: (T, nb), T % L == 0."""
+    T, nb = mags.shape
+    Cn = T // L
+    w, p, g, pg = (rowpack[:, i] for i in range(4))
+    S = (w[:, None] * mags).view(Cn, L, nb).cumsum(1)
+    a = p.view(Cn, L)[:, -1]
+    A0 = torch.empty(Cn, nb, dtype=mags.dtype, device=mags.device)
+    A = torch.zeros(nb, dtype=mags.dtype, device=mags.device)
+    for c in range(Cn):  # chunk-state composition; a_c is a power of two
+        A0[c] = A
+        A = a[c] * A + a[c] * S[c, -1]
+    gi = g.to(torch.int64).clamp(min=0)
+    ns = pg[:, None] * S.reshape(T, nb)[gi] + pg[:, None] * A0[gi // L]
+    return torch.where((g >= 0)[:, None], ns, torch.zeros((), dtype=ns.dtype, device=ns.device))
+
+
+def _gain(re, im, ren, ns, nsn, mode):
+    if mode == "wiener":
+        v = ns * ns / (re * re + im * im)  # 0/0 -> NaN, as the reference
+        g = 1.0 - torch.where(v >= 1.0, 1.0, v)
+        vn = nsn * nsn / (ren * ren)
+        gn = 1.0 - torch.where(vn >= 1.0, 1.0, vn)
+    else:
+        mag = torch.sqrt(re * re + im * im)
+        g = (mag - ns) / mag
+        magn = ren.abs()
+        gn = (magn - nsn) / magn
+    return g, gn
+
+
+def _quant_row_int8(Y, hq: bool):
+    """Per-row two-level quantization (enhance_pallas.py:_quant_row_int8).
+    Returns int-valued float planes h, l, z2 and row scales q, q2."""
+    tiny = torch.tensor(1e-30, dtype=Y.dtype, device=Y.device)
+    ms = torch.maximum(Y.abs().amax(1, keepdim=True), tiny)  # NaN propagates
+    Z = torch.round(Y * (32512.0 / ms))  # half to even, as jnp.rint
+    h = torch.floor(Z * (1.0 / 256.0))
+    l = Z - 256.0 * h - 128.0
+    q = ms * (1.0 / 32512.0)
+    if not hq:
+        return h, l, q, None, None
+    R = Y - q * Z
+    m2 = torch.maximum(R.abs().amax(1, keepdim=True), tiny)
+    Z2 = torch.round(R * (127.0 / m2))
+    return h, l, q, Z2, m2 * (1.0 / 127.0)
+
+
+def _inv_plane8(h, l, W, s1, s2, crow, q, z2, q2, hq: bool):
+    """q*(256h + l + 128) @ (s1*Wh + s2*Wl) [+ q2*z2 @ s1*Wh]."""
+    f32 = lambda v: v.to(torch.float32)  # noqa: E731
+    z = 256 * _i8dot(h, W[0]) + _i8dot(l, W[0])
+    r = 256 * _i8dot(h, W[1]) + (_i8dot(l, W[1]) if hq else 0)
+    out = q * (s1 * f32(z) + s2 * f32(r) + crow)
+    if hq:
+        out = out + (q2 * s1) * f32(_i8dot(z2, W[0]))
+    return out
+
+
+def enhance_full8_plain(blocks, rowpack, C, mode="wiener", hq=True,
+                        emit_all=False, L=64, return_planes=False):
+    """Plain PyTorch version of :func:`enhance_full8` (any device)."""
+    re, im, ren = forward8_plain(blocks, C)
+    mags = torch.cat([torch.sqrt(re * re + im * im), ren.abs()[:, None]], 1)
+    ns = latch_from_rowpack(rowpack, mags, L)
+    g, gn = _gain(re, im, ren, ns[:, :N], ns[:, N], mode)
+    Yre, Yim, Yren = re * g, im * g, ren * gn
+    hre, lre, qre, z2re, q2re = _quant_row_int8(Yre, hq)
+    him, lim, qim, z2im, q2im = _quant_row_int8(Yim, hq)
+    B, sv, cr = C["back8"], C["bscales"], C["bcrows"]
+    u = _inv_plane8(hre, lre, B[0:2], sv[0], sv[1], cr[0], qre, z2re, q2re, hq)
+    u = u + Yren[:, None] * C["u_nyq"]
+    v = _inv_plane8(him, lim, B[2:4], sv[2], sv[3], cr[1], qim, z2im, q2im, hq)
+    ycol = C["y512col"]
+    y512 = Yre @ ycol[:N] + Yren * ycol[N]
+    head = u - v
+    tail = torch.cat([y512[:, None], (u + v)[:, 1:].flip(1)], 1)  # the lane flip
+    out = _ola(head, tail, emit_all)
+    return (out, {"re": re, "im": im}) if return_planes else out
+
+
+def _ola(head, tail, emit_all):
+    T = head.shape[0]
+    tail_prev = torch.cat([torch.zeros_like(tail[:1]), tail[:-1]])
+    t = torch.arange(T, device=head.device)[:, None]
+    m1 = (t >= 1).to(head.dtype)
+    m2 = (t >= 2).to(head.dtype)
+    out = c_short((head + tail_prev * m2) * m1)
+    if not emit_all:  # warm-up rows t < 2 are not part of the stream
+        out = torch.where(t >= 2, out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return out
+
+
+# ---------------------------------------------------------------- wrapper
+
+
+def _check(blocks, rowpack, C, mode, L):
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if blocks.dtype != torch.int16 or blocks.dim() != 2 or blocks.shape[1] != N:
+        raise ValueError(f"blocks must be (T, {N}) int16, got {tuple(blocks.shape)} {blocks.dtype}")
+    T = blocks.shape[0]
+    if T == 0 or T % L or T % 8:
+        raise ValueError(f"T={T} must be a positive multiple of L={L} and of 8")
+    if rowpack.dtype != torch.float32 or tuple(rowpack.shape) != (T, 8):
+        raise ValueError(f"rowpack must be ({T}, 8) float32, got {tuple(rowpack.shape)} {rowpack.dtype}")
+    named = {"blocks": blocks, "rowpack": rowpack, **C}
+    for name, (dtype, shape) in CONST_SPECS.items():
+        if name not in C:
+            raise ValueError(f"constant {name!r} missing")
+        if C[name].dtype != dtype or tuple(C[name].shape) != shape:
+            raise ValueError(f"constant {name!r} must be {shape} {dtype}")
+    for name, x in named.items():
+        if x.device != blocks.device:
+            raise ValueError(f"{name} is on {x.device}, blocks on {blocks.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def enhance_full8(blocks, rowpack, C, mode="wiener", hq=True, emit_all=False,
+                  L=64, return_planes=False):
+    """(T, 512) int16 blocks + (T, 8) f32 latch row pack -> (T, 512) int16.
+
+    C: constants from ``ops.enhance.enhance_constants``, on blocks' device.
+    CUDA tensors launch the hand-written kernels (T a multiple of L and of
+    8); CPU tensors run :func:`enhance_full8_plain`.  ``return_planes``
+    also returns the forward re/im planes, for checks of the forward pass.
+    """
+    _check(blocks, rowpack, C, mode, L)
+    if blocks.device.type == "cpu":
+        return enhance_full8_plain(blocks, rowpack, C, mode, hq, emit_all, L,
+                                   return_planes)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"no kernel for device {blocks.device}")
+    lib = _build.load_library()
+    T = blocks.shape[0]
+    f32 = dict(dtype=torch.float32, device=blocks.device)
+    re = torch.empty(T, N, **f32)
+    im = torch.empty(T, N, **f32)
+    ren = torch.empty(T, **f32)
+    pfx = torch.empty(T, NB, **f32)
+    A0 = torch.empty(T // L, NB, **f32)
+    q8 = torch.empty(6, T, N, dtype=torch.int8, device=blocks.device)
+    rowsc = torch.empty(T, 8, **f32)
+    uv = torch.empty(2, T, N, **f32)
+    out = torch.empty(T, N, dtype=torch.int16, device=blocks.device)
+    p = lambda x: x.data_ptr()  # noqa: E731
+    with torch.cuda.device(blocks.device):  # launch on the tensors' card
+        rc = lib.jb_enhance_full8(
+            p(blocks), p(rowpack), T, L, int(mode == "wiener"), int(hq), int(emit_all),
+            p(C["fwd8"]), p(C["fscales"]), p(C["fcrows"]), p(C["nyq"]),
+            p(C["back8"]), p(C["bscales"]), p(C["bcrows"]), p(C["u_nyq"]),
+            p(C["y512col"]), p(re), p(im), p(ren), p(pfx), p(A0), p(q8), p(rowsc),
+            p(uv), p(out), torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"enhance_full8 kernel launch failed: CUDA error {rc}")
+    enhance_full8.launches += 1
+    return (out, {"re": re, "im": im}) if return_planes else out
+
+
+enhance_full8.launches = 0
