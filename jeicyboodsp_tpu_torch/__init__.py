@@ -15,7 +15,7 @@ found at the same path:
 
 The package imports torch and numpy only: never jax, never
 ``jeicyboodsp_tpu``.  Ported so far: the Wiener / spectral-subtraction chain
-through engines ``mxu8f`` and ``mxu8t``.
+through engines ``mxu8f``, ``mxu8t``, ``mxu8`` and ``mxu3``.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,230 @@
+// Engine mxu3 of the enhancement chain on Hopper (sm_90a): the f32 halves
+// of the chain around the noise latch, as two entries.
+//
+// K4, jb_enhance_fwd, replaces jeicyboodsp_tpu/kernels/enhance_pallas.py:
+// enhance_fwd_pallas (_fwd_kernel): int16 blocks -> re, im, |X| (T, 512)
+// and ren, |ren|, speech flags (T,), in two passes:
+//   1. fwd32_kernel   re = [prev, cur] @ WC, im = [prev, cur] @ WS, K = 1024
+//                     (the window is folded into the bases; prev = row t-1)
+//   2. rowstat_kernel per row: the Nyquist dot, |X|, |ren|, VAD flags
+//
+// K5, jb_enhance_back_ola3, replaces enhance_back_ola3_pallas
+// (_make_back_ola3_kernel): re, im, ren and the latched noise planes ->
+// int16 (T, 512), in three passes:
+//   1. gain_kernel    gain -> Yre, Yim planes, Yren and the y512 column
+//   2. inv32_kernel   u = Yre @ UC512 + Yren*u_nyq, v = Yim @ VS512
+//   3. ola_kernel     flip as an index permutation, OLA with row t-1's
+//                     tail (the TPU kernel's ctail carry), c_short, mask
+// The TPU kernel returns f32 c_short values that its caller casts to int16
+// and masks (ops/enhance.py:542-550); those values are exact integers, so
+// writing int16 with the mask here gives the same result.
+//
+// The TPU kernels run their f32 GEMMs as bf16x3 only because Mosaic has no
+// Precision.HIGH.  Here they are plain f32 FMA GEMMs on CUDA cores: a
+// 128 x 128 output tile per block of 256 threads, 8 x 8 outputs per
+// thread, K in steps of 8 through double-buffered shared memory.  Bound on
+// this card at T = 16384: K4 is 1.7e10 MACs (0.51 ms at the 67 TFLOP/s f32
+// CUDA-core peak, 0.10 ms as bf16x3 on tensor cores) against ~117 MB
+// (0.035 ms); K5 half that work.  So both are compute-bound; a
+// tensor-core form (bf16x3 or 3xTF32) is later work.
+
+#include "enhance_common.cuh"
+
+namespace {
+
+constexpr int BM = 128, BN = 128, BK = 8;
+constexpr int GT = 256;  // threads of a GEMM block: 16 x 16, 8 x 8 outputs each
+
+// The GEMMs' left operands: 4 consecutive values of row t at column k
+// (k a multiple of 4), zeros for rows t >= T.
+struct FramesA {  // K4: [prev | cur] int16 rows as f32, K = 1024
+  const int16_t* x;
+  int T;
+  __device__ float4 load(int t, int k) const {
+    if (t >= T || (k < N && t == 0)) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const int16_t* p = k < N ? x + (size_t)(t - 1) * N + k : x + (size_t)t * N + (k - N);
+    const short4 v = *reinterpret_cast<const short4*>(p);
+    return make_float4((float)v.x, (float)v.y, (float)v.z, (float)v.w);
+  }
+};
+
+struct PlaneA {  // K5: one (T, 512) f32 plane, K = 512
+  const float* a;
+  int T;
+  __device__ float4 load(int t, int k) const {
+    if (t >= T) return make_float4(0.f, 0.f, 0.f, 0.f);
+    return *reinterpret_cast<const float4*>(a + (size_t)t * N + k);
+  }
+};
+
+// the output tile's row (i) or column (j) offset of thread index v (ty or tx)
+__device__ __forceinline__ int sub(int v, int i) { return (i < 4 ? 0 : 64) + 4 * v + (i & 3); }
+
+// acc = A[m0:m0+128, :K] @ B[:K, n0:n0+128] for the block's tile, m0 =
+// blockIdx.x * BM.  B: (K, 512) row-major.  The sums are f32 FMAs in k
+// order (fmaf is exact-rounded; -fmad=false does not touch it).
+template <class A>
+__device__ __forceinline__ void sgemm_tile(const A a, int K, const float* __restrict__ B,
+                                           int n0, float (&acc)[8][8]) {
+  __shared__ __align__(16) float As[2][BK][BM + 4];  // transposed: [k][m]; pad: no bank conflicts
+  __shared__ __align__(16) float Bs[2][BK][BN];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM;
+  const int ar = tid >> 1, ak = (tid & 1) * 4;  // A loads: row, k offset
+  const int bk = tid >> 5, bc = (tid & 31) * 4;  // B loads: k row, column
+  const int ty = tid >> 4, tx = tid & 15;
+  for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  float4 ra = a.load(m0 + ar, ak);
+  float4 rb = *reinterpret_cast<const float4*>(B + (size_t)bk * N + n0 + bc);
+  As[0][ak + 0][ar] = ra.x;
+  As[0][ak + 1][ar] = ra.y;
+  As[0][ak + 2][ar] = ra.z;
+  As[0][ak + 3][ar] = ra.w;
+  *reinterpret_cast<float4*>(&Bs[0][bk][bc]) = rb;
+  __syncthreads();
+
+  for (int kt = 0; kt < K; kt += BK) {
+    const int cur = (kt / BK) & 1;
+    const bool more = kt + BK < K;
+    if (more) {  // next tile into registers while this one is multiplied
+      ra = a.load(m0 + ar, kt + BK + ak);
+      rb = *reinterpret_cast<const float4*>(B + (size_t)(kt + BK + bk) * N + n0 + bc);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][4 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][4 * tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + 4 * tx]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (more) {
+      As[cur ^ 1][ak + 0][ar] = ra.x;
+      As[cur ^ 1][ak + 1][ar] = ra.y;
+      As[cur ^ 1][ak + 2][ar] = ra.z;
+      As[cur ^ 1][ak + 3][ar] = ra.w;
+      *reinterpret_cast<float4*>(&Bs[cur ^ 1][bk][bc]) = rb;
+    }
+    __syncthreads();
+  }
+}
+
+// K4 pass 1.  Grid (ceil(T/BM), 2N/BN): columns [0, 512) are re, [512,
+// 1024) im.
+__global__ void __launch_bounds__(GT) fwd32_kernel(const int16_t* __restrict__ x, int T,
+                                                   const float* __restrict__ WC,
+                                                   const float* __restrict__ WS,
+                                                   float* __restrict__ re,
+                                                   float* __restrict__ im) {
+  const int nb = blockIdx.y * BN, plane = nb / N, n0 = nb % N;
+  float acc[8][8];
+  sgemm_tile(FramesA{x, T}, 2 * N, plane ? WS : WC, n0, acc);
+  float* out = plane ? im : re;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  for (int i = 0; i < 8; ++i) {
+    const int t = blockIdx.x * BM + sub(ty, i);
+    if (t >= T) continue;
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(out + (size_t)t * N + n0 + sub(tx, 4 * h)) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  }
+}
+
+__global__ void __launch_bounds__(ROW_THREADS) rowstat_kernel(
+    const int16_t* __restrict__ x, const float* __restrict__ nyq,
+    const float* __restrict__ w2, const float* __restrict__ re,
+    const float* __restrict__ im, float* __restrict__ ren,
+    float* __restrict__ mag, float* __restrict__ magn, float* __restrict__ sp) {
+  rowstat_body(x, nyq, w2, re, im, ren, mag, magn, sp);
+}
+
+// K5 pass 1, one block of N threads per row: Y (2, T, 512) = re*g, im*g;
+// rowsc[t]: slot 4 Yren, slot 5 y512 = Yre . ycol[:512] + Yren*ycol[512].
+__global__ void __launch_bounds__(N) gain_kernel(
+    const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ ren, const float* __restrict__ ns,
+    const float* __restrict__ nsn, const float* __restrict__ y512col,
+    float* __restrict__ Y, float* __restrict__ rowsc, int T, int wiener) {
+  __shared__ float red[32];
+  const int t = blockIdx.x, k = threadIdx.x;
+  const size_t i = (size_t)t * N + k;
+  float gk, gn;
+  bin_gain(re[i], im[i], ren[t], ns[i], nsn[t], wiener, &gk, &gn);
+  const float yre = re[i] * gk;
+  Y[i] = yre;
+  Y[(size_t)T * N + i] = im[i] * gk;
+  const float yren = ren[t] * gn;
+  const float y512 = block_reduce<false>(yre * y512col[k], red) + yren * y512col[N];
+  if (k == 0) {
+    rowsc[(size_t)t * RS + 4] = yren;
+    rowsc[(size_t)t * RS + 5] = y512;
+  }
+}
+
+// K5 pass 2.  Grid (ceil(T/BM), N/BN, 2): plane 0 u, plane 1 v.
+__global__ void __launch_bounds__(GT) inv32_kernel(const float* __restrict__ Y, int T,
+                                                   const float* __restrict__ UC,
+                                                   const float* __restrict__ VS,
+                                                   const float* __restrict__ rowsc,
+                                                   const float* __restrict__ u_nyq,
+                                                   float* __restrict__ uv) {
+  const int plane = blockIdx.z, n0 = blockIdx.y * BN;
+  const size_t pl = (size_t)T * N;
+  float acc[8][8];
+  sgemm_tile(PlaneA{Y + plane * pl, T}, N, plane ? VS : UC, n0, acc);
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  for (int i = 0; i < 8; ++i) {
+    const int t = blockIdx.x * BM + sub(ty, i);
+    if (t >= T) continue;
+    const float yren = rowsc[(size_t)t * RS + 4];
+    for (int j = 0; j < 8; ++j) {
+      const int s = n0 + sub(tx, j);
+      float o = acc[i][j];
+      if (plane == 0) o = o + yren * u_nyq[s];
+      uv[plane * pl + (size_t)t * N + s] = o;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(N) ola_kernel(const float* __restrict__ uv,
+                                                const float* __restrict__ rowsc,
+                                                int16_t* __restrict__ out, int T,
+                                                int emit_all) {
+  ola_body(uv, rowsc, out, T, emit_all);
+}
+
+}  // namespace
+
+// K4.  WC, WS: (1024, 512) f32 window-folded bases.  Outputs from the
+// caller: re, im, mag (T, 512) f32; ren, magn, sp (T,) f32.
+extern "C" int jb_enhance_fwd(const int16_t* x, int T, const float* WC,
+                              const float* WS, const float* nyq, const float* w2,
+                              float* re, float* im, float* ren, float* mag,
+                              float* magn, float* sp, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  fwd32_kernel<<<dim3((T + BM - 1) / BM, 2 * N / BN), GT, 0, st>>>(x, T, WC, WS, re, im);
+  rowstat_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, w2, re, im, ren, mag, magn, sp);
+  return (int)cudaGetLastError();
+}
+
+// K5.  UC, VS: (512, 512) f32 inverse bases.  Scratch from the caller: Y,
+// uv (2, T, 512) f32, rowsc (T, 8) f32; out (T, 512) int16.
+extern "C" int jb_enhance_back_ola3(
+    const float* re, const float* im, const float* ren, const float* ns,
+    const float* nsn, int T, int wiener, int emit_all, const float* UC,
+    const float* VS, const float* u_nyq, const float* y512col, float* Y,
+    float* rowsc, float* uv, int16_t* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gain_kernel<<<T, N, 0, st>>>(re, im, ren, ns, nsn, y512col, Y, rowsc, T, wiener);
+  inv32_kernel<<<dim3((T + BM - 1) / BM, N / BN, 2), GT, 0, st>>>(Y, T, UC, VS, rowsc,
+                                                                  u_nyq, uv);
+  ola_kernel<<<T, N, 0, st>>>(uv, rowsc, out, T, emit_all);
+  return (int)cudaGetLastError();
+}

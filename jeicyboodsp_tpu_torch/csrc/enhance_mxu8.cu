@@ -1,0 +1,108 @@
+// Engine mxu8 of the enhancement chain on Hopper (sm_90a): the two halves
+// of the chain around the noise latch, as two entries.
+//
+// K2, jb_enhance_fwd_int8, replaces jeicyboodsp_tpu/kernels/
+// enhance_pallas.py:enhance_fwd_int8_pallas (_fwd8_kernel): int16 blocks ->
+// re, im, |X| (T, 512) and ren, |ren|, speech flags (T,), in two passes:
+//   1. fwd8_kernel    the 16 int8 dots per bin (K1's forward pass)
+//   2. rowstat_kernel per row: the Nyquist dot, |X|, |ren|, VAD flags
+// The TPU kernel's carried prev row (cprev) is a halo read of row t-1.
+//
+// K3, jb_enhance_back_ola8, replaces enhance_back_ola8_pallas
+// (_make_back_ola8_kernel): re, im, ren and the latched noise planes ->
+// int16 (T, 512), in three passes:
+//   1. gain_quant_kernel  gain, two-level per-row int8 quantization, y512
+//   2. inv8_kernel        int8 inverse u, v (K1's inverse pass)
+//   3. ola_kernel         flip as an index permutation, OLA with row t-1's
+//                         tail (the TPU kernel's ctail carry), c_short, the
+//                         t < 2 mask
+//
+// Bound on this card at T = 16384: K2 does 16 int8 dots of (T, 512) x
+// (512, 512), 6.9e10 MACs (0.069 ms at the int8 tensor-core peak), and
+// moves ~117 MB; K3 (hq) 10 dots, 4.3e10 MACs (0.043 ms) against ~118 MB
+// (0.035 ms).  This first design runs the dots as __dp4a on CUDA cores,
+// so instruction throughput bounds it far above that; tensor-core MMA is
+// later work.
+
+#include "enhance_common.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(COLS) fwd8_kernel(const int16_t* __restrict__ x,
+                                                    const int* __restrict__ W,
+                                                    const float* __restrict__ scales,
+                                                    const float* __restrict__ crows,
+                                                    float* __restrict__ re,
+                                                    float* __restrict__ im) {
+  fwd8_body(x, W, scales, crows, re, im);
+}
+
+__global__ void __launch_bounds__(ROW_THREADS) rowstat_kernel(
+    const int16_t* __restrict__ x, const float* __restrict__ nyq,
+    const float* __restrict__ w2, const float* __restrict__ re,
+    const float* __restrict__ im, float* __restrict__ ren,
+    float* __restrict__ mag, float* __restrict__ magn, float* __restrict__ sp) {
+  rowstat_body(x, nyq, w2, re, im, ren, mag, magn, sp);
+}
+
+// one block of N threads per row; the noise estimate comes in as planes
+__global__ void __launch_bounds__(N) gain_quant_kernel(
+    const float* __restrict__ re, const float* __restrict__ im,
+    const float* __restrict__ ren, const float* __restrict__ ns,
+    const float* __restrict__ nsn, const float* __restrict__ y512col,
+    int8_t* __restrict__ q8, float* __restrict__ rowsc, int T, int wiener,
+    int hq) {
+  const size_t i = (size_t)blockIdx.x * N + threadIdx.x;
+  gain_quant_body(re[i], im[i], ren[blockIdx.x], ns[i], nsn[blockIdx.x],
+                  y512col, q8, rowsc, T, wiener, hq);
+}
+
+__global__ void __launch_bounds__(COLS) inv8_kernel(
+    const int8_t* __restrict__ q8, const int* __restrict__ B,
+    const float* __restrict__ scales, const float* __restrict__ crows,
+    const float* __restrict__ rowsc, const float* __restrict__ u_nyq,
+    float* __restrict__ uv, int T, int hq) {
+  inv8_body(q8, B, scales, crows, rowsc, u_nyq, uv, T, hq);
+}
+
+__global__ void __launch_bounds__(N) ola_kernel(const float* __restrict__ uv,
+                                                const float* __restrict__ rowsc,
+                                                int16_t* __restrict__ out, int T,
+                                                int emit_all) {
+  ola_body(uv, rowsc, out, T, emit_all);
+}
+
+}  // namespace
+
+// K2.  Outputs from the caller: re, im, mag (T, 512) f32; ren, magn, sp
+// (T,) f32.  T must be a multiple of 8.  Returns cudaGetLastError().
+extern "C" int jb_enhance_fwd_int8(const int16_t* x, int T, const int8_t* fwd8,
+                                   const float* fscales, const float* fcrows,
+                                   const float* nyq, const float* w2, float* re,
+                                   float* im, float* ren, float* mag,
+                                   float* magn, float* sp, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  fwd8_kernel<<<dim3(T / ROWS, N / COLS, 2), COLS, 0, st>>>(
+      x, reinterpret_cast<const int*>(fwd8), fscales, fcrows, re, im);
+  rowstat_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, w2, re, im, ren, mag, magn, sp);
+  return (int)cudaGetLastError();
+}
+
+// K3.  ns (T, 512) and nsn (T,) are the latched noise estimates.  Scratch
+// from the caller: q8 (6, T, 512) int8, rowsc (T, 8) f32, uv (2, T, 512)
+// f32; out (T, 512) int16.  T must be a multiple of 8.
+extern "C" int jb_enhance_back_ola8(
+    const float* re, const float* im, const float* ren, const float* ns,
+    const float* nsn, int T, int wiener, int hq, int emit_all,
+    const int8_t* back8, const float* bscales, const float* bcrows,
+    const float* u_nyq, const float* y512col, int8_t* q8, float* rowsc,
+    float* uv, int16_t* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gain_quant_kernel<<<T, N, 0, st>>>(re, im, ren, ns, nsn, y512col, q8, rowsc, T,
+                                     wiener, hq);
+  inv8_kernel<<<dim3(T / ROWS, N / COLS, 2), COLS, 0, st>>>(
+      q8, reinterpret_cast<const int*>(back8), bscales, bcrows, rowsc, u_nyq, uv,
+      T, hq);
+  ola_kernel<<<T, N, 0, st>>>(uv, rowsc, out, T, emit_all);
+  return (int)cudaGetLastError();
+}

@@ -1,6 +1,7 @@
 """Build the CUDA sources in ``csrc/`` into a shared library and load it.
 
-nvcc compiles every ``csrc/*.cu`` into one ``.so`` with a plain C
+nvcc compiles each ``csrc/*.cu`` into an object, all sources at once in
+parallel processes, and links the objects into one ``.so`` with a plain C
 interface at first use; the library lands in ``jeicyboodsp_tpu_torch/build/``
 under a name keyed on a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once.  There is no fallback: a
@@ -25,14 +26,29 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of each C entry: every pointer (and the stream) as c_void_p
+ENTRIES = {
+    # x, rowpack, T, L, wiener, hq, emit_all, 9 constants, 9 buffers, stream
+    "jb_enhance_full8": [_P, _P] + [_I] * 5 + [_P] * 19,
+    # mag, magn, rowpack, T, L, pfx, A0, ns, nsn, stream
+    "jb_noise_latch": [_P, _P, _P, _I, _I] + [_P] * 5,
+    # x, T, fwd8, fscales, fcrows, nyq, w2, re, im, ren, mag, magn, sp, stream
+    "jb_enhance_fwd_int8": [_P, _I] + [_P] * 12,
+    # re, im, ren, ns, nsn, T, wiener, hq, emit_all, 5 constants, q8, rowsc, uv, out, stream
+    "jb_enhance_back_ola8": [_P] * 5 + [_I] * 4 + [_P] * 10,
+    # x, T, WC, WS, nyq, w2, re, im, ren, mag, magn, sp, stream
+    "jb_enhance_fwd": [_P, _I] + [_P] * 11,
+    # re, im, ren, ns, nsn, T, wiener, emit_all, 4 constants, Y, rowsc, uv, out, stream
+    "jb_enhance_back_ola3": [_P] * 5 + [_I] * 3 + [_P] * 9,
+}
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None  # wall time of the nvcc run that built the loaded library
+build_seconds = None  # wall time of the nvcc runs that built the loaded library
 
 
 def _nvcc() -> str:
@@ -42,24 +58,50 @@ def _nvcc() -> str:
     return path
 
 
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
 def library_path() -> str:
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+    for p in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(p, "rb") as f:
             h.update(os.path.basename(p).encode() + f.read())
     return os.path.join(BUILD, f"libjeicyboo_cuda-{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Run the commands side by side; raise with the stderr of the failures."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errors = []
+    for p in procs:
+        try:
+            _, err = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            _, err = p.communicate()
+            err = f"timed out after 600 s\n{err}"
+        if p.returncode != 0:
+            errors.append(f"{os.path.basename(p.args[-1])}: {err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
 def _compile(so: str) -> float:
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sorted(glob.glob(os.path.join(CSRC, "*.cu")))]
+    nvcc = _nvcc()
+    objs = {src: f"{tmp}.{os.path.basename(src)}.o" for src in _sources()}
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in objs.items()])
+        _run_all([[nvcc, *ARCH, "-shared", "-o", tmp, *objs.values()]])
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for p in [tmp, *objs.values()]:
+            if os.path.exists(p):
+                os.remove(p)
     return time.perf_counter() - t0
 
 
@@ -72,11 +114,21 @@ def load_library() -> ctypes.CDLL:
             if not os.path.exists(so):
                 build_seconds = _compile(so)
             lib = ctypes.CDLL(so)
-            lib.jb_enhance_full8.restype = ctypes.c_int
-            lib.jb_enhance_full8.argtypes = (
-                [ctypes.c_void_p, ctypes.c_void_p]
-                + [ctypes.c_int] * 5
-                + [ctypes.c_void_p] * 19
-            )
+            for name, argtypes in ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             _lib = lib
         return _lib
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call the C entry ``entry`` on ``device``'s current stream (appended as
+    the last argument); raise if it reports a CUDA error."""
+    import torch
+
+    lib = load_library()
+    with torch.cuda.device(device):  # launch on the tensors' card
+        rc = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")

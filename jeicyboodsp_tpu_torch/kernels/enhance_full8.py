@@ -14,6 +14,9 @@ two-level int8 quantization, the int8 inverse, the flip and the OLA.
   the same formulas: the int8 dots are float64 matmuls of int8-valued
   tensors (exact: |sum| < 2^31 < 2^53) and the f32 epilogues are eager
   torch ops in the JAX operand order.
+- :func:`noise_latch` runs K1's latch passes alone over given magnitude
+  planes, for engines mxu8 and mxu3 (counted in ``noise_latch.launches``);
+  its plain version is :func:`latch_from_rowpack`.
 
 ``hq=False`` (mxu8t) keeps the 16-dot forward -- the TPU kernel calls
 ``_fwd8_plane`` without ``hq`` -- and makes only the inverse turbo: no
@@ -25,24 +28,14 @@ from __future__ import annotations
 import torch
 
 from jeicyboodsp_tpu_torch.kernels import _build
+from jeicyboodsp_tpu_torch.kernels._common import (  # noqa: F401  (CONST_SPECS re-exported)
+    CONST_SPECS, N, NB, check, check_mode, check_rows,
+)
 from jeicyboodsp_tpu_torch.utils.cnum import c_short
 
-N = 512
-NB = N + 1  # bins with the Nyquist one
-MODES = ("wiener", "specsub")
-
-# constant tensors the chain reads (built by ops.enhance.enhance_constants)
-CONST_SPECS = {
-    "fwd8": (torch.int8, (8, N, N)),   # WhCp WlCp WhCc WlCc WhSp WlSp WhSc WlSc, [n, k]
-    "fscales": (torch.float32, (8, N)),
-    "fcrows": (torch.float32, (2, N)),
-    "nyq": (torch.float32, (2 * N,)),
-    "back8": (torch.int8, (4, N, N)),  # Uh Ul Vh Vl, [s, k]
-    "bscales": (torch.float32, (4, N)),
-    "bcrows": (torch.float32, (2, N)),
-    "u_nyq": (torch.float32, (N,)),
-    "y512col": (torch.float32, (NB,)),
-}
+# the constants K1 reads
+CONSTS = ("fwd8", "fscales", "fcrows", "nyq", "back8", "bscales", "bcrows", "u_nyq",
+          "y512col")
 
 
 # ---------------------------------------------------------------- plain version
@@ -103,7 +96,8 @@ def latch_from_rowpack(rowpack, mags, L: int):
     return torch.where((g >= 0)[:, None], ns, torch.zeros((), dtype=ns.dtype, device=ns.device))
 
 
-def _gain(re, im, ren, ns, nsn, mode):
+def bin_gain(re, im, ren, ns, nsn, mode):
+    """Gain of every bin and of the Nyquist bin (ren, nsn: (T,))."""
     if mode == "wiener":
         v = ns * ns / (re * re + im * im)  # 0/0 -> NaN, as the reference
         g = 1.0 - torch.where(v >= 1.0, 1.0, v)
@@ -145,13 +139,20 @@ def _inv_plane8(h, l, W, s1, s2, crow, q, z2, q2, hq: bool):
     return out
 
 
-def enhance_full8_plain(blocks, rowpack, C, mode="wiener", hq=True,
-                        emit_all=False, L=64, return_planes=False):
-    """Plain PyTorch version of :func:`enhance_full8` (any device)."""
-    re, im, ren = forward8_plain(blocks, C)
-    mags = torch.cat([torch.sqrt(re * re + im * im), ren.abs()[:, None]], 1)
-    ns = latch_from_rowpack(rowpack, mags, L)
-    g, gn = _gain(re, im, ren, ns[:, :N], ns[:, N], mode)
+def flip_ola(u, v, Yre, Yren, C, emit_all):
+    """y512 column, head = u - v, tail = [y512, flip(u + v)[1:]], OLA with
+    row t-1's tail, ``c_short`` -> (T, 512) int16."""
+    ycol = C["y512col"]
+    y512 = Yre @ ycol[:N] + Yren * ycol[N]
+    head = u - v
+    tail = torch.cat([y512[:, None], (u + v)[:, 1:].flip(1)], 1)  # the lane flip
+    return _ola(head, tail, emit_all)
+
+
+def inverse8_plain(re, im, ren, ns, nsn, C, mode, hq, emit_all):
+    """Back half of the int8 chain (K3's function): gain, per-row two-level
+    quantization, int8 inverse, flip, OLA.  ren, nsn: (T,)."""
+    g, gn = bin_gain(re, im, ren, ns, nsn, mode)
     Yre, Yim, Yren = re * g, im * g, ren * gn
     hre, lre, qre, z2re, q2re = _quant_row_int8(Yre, hq)
     him, lim, qim, z2im, q2im = _quant_row_int8(Yim, hq)
@@ -159,11 +160,16 @@ def enhance_full8_plain(blocks, rowpack, C, mode="wiener", hq=True,
     u = _inv_plane8(hre, lre, B[0:2], sv[0], sv[1], cr[0], qre, z2re, q2re, hq)
     u = u + Yren[:, None] * C["u_nyq"]
     v = _inv_plane8(him, lim, B[2:4], sv[2], sv[3], cr[1], qim, z2im, q2im, hq)
-    ycol = C["y512col"]
-    y512 = Yre @ ycol[:N] + Yren * ycol[N]
-    head = u - v
-    tail = torch.cat([y512[:, None], (u + v)[:, 1:].flip(1)], 1)  # the lane flip
-    out = _ola(head, tail, emit_all)
+    return flip_ola(u, v, Yre, Yren, C, emit_all)
+
+
+def enhance_full8_plain(blocks, rowpack, C, mode="wiener", hq=True,
+                        emit_all=False, L=64, return_planes=False):
+    """Plain PyTorch version of :func:`enhance_full8` (any device)."""
+    re, im, ren = forward8_plain(blocks, C)
+    mags = torch.cat([torch.sqrt(re * re + im * im), ren.abs()[:, None]], 1)
+    ns = latch_from_rowpack(rowpack, mags, L)
+    out = inverse8_plain(re, im, ren, ns[:, :N], ns[:, N], C, mode, hq, emit_all)
     return (out, {"re": re, "im": im}) if return_planes else out
 
 
@@ -183,26 +189,12 @@ def _ola(head, tail, emit_all):
 
 
 def _check(blocks, rowpack, C, mode, L):
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if blocks.dtype != torch.int16 or blocks.dim() != 2 or blocks.shape[1] != N:
-        raise ValueError(f"blocks must be (T, {N}) int16, got {tuple(blocks.shape)} {blocks.dtype}")
-    T = blocks.shape[0]
-    if T == 0 or T % L or T % 8:
-        raise ValueError(f"T={T} must be a positive multiple of L={L} and of 8")
-    if rowpack.dtype != torch.float32 or tuple(rowpack.shape) != (T, 8):
-        raise ValueError(f"rowpack must be ({T}, 8) float32, got {tuple(rowpack.shape)} {rowpack.dtype}")
-    named = {"blocks": blocks, "rowpack": rowpack, **C}
-    for name, (dtype, shape) in CONST_SPECS.items():
-        if name not in C:
-            raise ValueError(f"constant {name!r} missing")
-        if C[name].dtype != dtype or tuple(C[name].shape) != shape:
-            raise ValueError(f"constant {name!r} must be {shape} {dtype}")
-    for name, x in named.items():
-        if x.device != blocks.device:
-            raise ValueError(f"{name} is on {x.device}, blocks on {blocks.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_mode(mode)
+    T = blocks.shape[0] if blocks.dim() == 2 else -1
+    check({"blocks": (blocks, torch.int16, (T, N)), "rowpack": (rowpack, torch.float32, (T, 8))},
+          C, CONSTS)
+    check_rows(T, L)
+    check_rows(T, 8)
 
 
 def enhance_full8(blocks, rowpack, C, mode="wiener", hq=True, emit_all=False,
@@ -218,9 +210,6 @@ def enhance_full8(blocks, rowpack, C, mode="wiener", hq=True, emit_all=False,
     if blocks.device.type == "cpu":
         return enhance_full8_plain(blocks, rowpack, C, mode, hq, emit_all, L,
                                    return_planes)
-    if blocks.device.type != "cuda":
-        raise ValueError(f"no kernel for device {blocks.device}")
-    lib = _build.load_library()
     T = blocks.shape[0]
     f32 = dict(dtype=torch.float32, device=blocks.device)
     re = torch.empty(T, N, **f32)
@@ -233,18 +222,47 @@ def enhance_full8(blocks, rowpack, C, mode="wiener", hq=True, emit_all=False,
     uv = torch.empty(2, T, N, **f32)
     out = torch.empty(T, N, dtype=torch.int16, device=blocks.device)
     p = lambda x: x.data_ptr()  # noqa: E731
-    with torch.cuda.device(blocks.device):  # launch on the tensors' card
-        rc = lib.jb_enhance_full8(
-            p(blocks), p(rowpack), T, L, int(mode == "wiener"), int(hq), int(emit_all),
-            p(C["fwd8"]), p(C["fscales"]), p(C["fcrows"]), p(C["nyq"]),
-            p(C["back8"]), p(C["bscales"]), p(C["bcrows"]), p(C["u_nyq"]),
-            p(C["y512col"]), p(re), p(im), p(ren), p(pfx), p(A0), p(q8), p(rowsc),
-            p(uv), p(out), torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"enhance_full8 kernel launch failed: CUDA error {rc}")
+    _build.launch(
+        "jb_enhance_full8", blocks.device,
+        p(blocks), p(rowpack), T, L, int(mode == "wiener"), int(hq), int(emit_all),
+        *(p(C[k]) for k in CONSTS), p(re), p(im), p(ren), p(pfx), p(A0), p(q8), p(rowsc),
+        p(uv), p(out),
+    )
     enhance_full8.launches += 1
     return (out, {"re": re, "im": im}) if return_planes else out
 
 
 enhance_full8.launches = 0
+
+
+def noise_latch(rowpack, mag, magn, L: int = 64):
+    """The closed-form noise latch of engines mxu8 / mxu3 over the 513 bins
+    of the magnitude planes mag (T, 512) and magn (T, 1): the latched
+    estimates ns (T, 512) and nsn (T, 1), from the (T, 8) row pack of
+    ``ops.enhance._latch_rowpack``.  T % L == 0.
+
+    In the JAX package this is XLA glue (``ops/enhance.py:_noise_latch_parts``),
+    not a Pallas kernel.  A CUDA tensor launches ``jb_noise_latch`` (K1's
+    latch passes, counted in ``noise_latch.launches``); a CPU tensor runs
+    :func:`latch_from_rowpack`.
+    """
+    T = mag.shape[0] if mag.dim() == 2 else -1
+    dev = check({"rowpack": (rowpack, torch.float32, (T, 8)),
+                 "mag": (mag, torch.float32, (T, N)), "magn": (magn, torch.float32, (T, 1))})
+    check_rows(T, L)
+    if dev.type == "cpu":
+        ns = latch_from_rowpack(rowpack, torch.cat([mag, magn], 1), L)
+        return ns[:, :N].contiguous(), ns[:, N:].contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    pfx = torch.empty(T, NB, **f32)
+    A0 = torch.empty(T // L, NB, **f32)
+    ns = torch.empty(T, N, **f32)
+    nsn = torch.empty(T, 1, **f32)
+    p = lambda x: x.data_ptr()  # noqa: E731
+    _build.launch("jb_noise_latch", dev, p(mag), p(magn), p(rowpack), T, L, p(pfx), p(A0),
+                  p(ns), p(nsn))
+    noise_latch.launches += 1
+    return ns, nsn
+
+
+noise_latch.launches = 0

@@ -2,7 +2,9 @@
 ``jeicyboodsp_tpu/pipelines/registry.py``).  Ported so far: the enhancement
 chain, ``wiener`` and ``specsub``.  Both read the input from byte 0: the
 reference never skips the 44-byte header (WienerFilter_final.cpp:81 is
-commented out)."""
+commented out).  ``kw``: ``fft_engine`` (mxu8f, mxu8t, mxu8, mxu3) and
+``device`` (a CUDA card by default; "cpu" runs the plain versions), as
+:func:`jeicyboodsp_tpu_torch.ops.enhance.run_stream` takes them."""
 
 from __future__ import annotations
 

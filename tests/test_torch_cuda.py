@@ -1,5 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, and the
-wrapper's contract.  Imports neither jax nor the JAX package, so it runs on
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+wrappers' contract.  Imports neither jax nor the JAX package, so it runs on
 a card's host that has no jax:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -17,11 +17,19 @@ import torch
 
 from chip_smoke import make_signal
 from jeicyboodsp_tpu_torch.kernels import _build
+from jeicyboodsp_tpu_torch.kernels import enhance_back_ola3 as K5
+from jeicyboodsp_tpu_torch.kernels import enhance_back_ola8 as K3
 from jeicyboodsp_tpu_torch.kernels import enhance_full8 as K
+from jeicyboodsp_tpu_torch.kernels import enhance_fwd as K4
+from jeicyboodsp_tpu_torch.kernels import enhance_fwd_int8 as K2
 from jeicyboodsp_tpu_torch.ops import enhance as E
 from jeicyboodsp_tpu_torch.utils.metrics import snr_db
 
 KERNEL_VS_PLAIN_DB = 90.0
+FWD = {"K2": (K2.enhance_fwd_int8, K2.enhance_fwd_int8_plain),
+       "K4": (K4.enhance_fwd, K4.enhance_fwd_plain)}
+BACK = {"K3": (K3.enhance_back_ola8, K3.enhance_back_ola8_plain, "K2"),
+        "K5": (K5.enhance_back_ola3, K5.enhance_back_ola3_plain, "K4")}
 
 
 def _signal(n_blocks, seed):
@@ -137,3 +145,176 @@ def test_library_path_keys_on_sources():
     p = _build.library_path()
     assert p.startswith(_build.BUILD) and p.endswith(".so")
     assert p == _build.library_path()
+
+
+def _rel(got, want):
+    """max over rows of the max error over the row's max (0 on zero rows)"""
+    return ((got - want).abs().amax(1) / want.abs().amax(1).clamp_min(1e-30)).max().item()
+
+
+def _back_inputs(fwd_name, blocks, C):
+    """K3 / K5 inputs from a forward kernel's outputs and the noise latch."""
+    re, im, re_n, mag, mag_n, sp = FWD[fwd_name][0](blocks, C)
+    ns, ns_n = K.noise_latch(E._latch_rowpack(sp[:, 0] > 0.5), mag, mag_n)
+    return re, im, re_n, ns, ns_n
+
+
+@pytest.mark.parametrize("name", sorted(FWD))
+def test_forward_kernels_match_plain(cuda, name):
+    """K2's planes are bit-equal to the plain version (exact int dots, the
+    same f32 epilogue).  K4's f32 sums may run in another order than the
+    plain matmul's (cuBLAS may split K): each output within 2^-16 of the
+    sum of |a*b| over its contraction.  Flags equal."""
+    blocks, _, C = _inputs(cuda)
+    kernel, plain = FWD[name]
+    before = kernel.launches
+    got, want = kernel(blocks, C), plain(blocks, C)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+    assert torch.equal(got[5], want[5])
+    absf = K4.frames_f32(blocks).abs().double()
+    scale = torch.maximum(absf @ C["WC"].abs().double(), absf @ C["WS"].abs().double())
+    tol = 2.0 ** -16 * scale.amax(1, keepdim=True)  # |X| mixes re and im
+    for i in (0, 1, 3):  # re, im, |X|
+        if name == "K2":
+            assert torch.equal(got[i], want[i]), i
+        else:
+            assert ((got[i] - want[i]).abs() <= tol).all(), i
+    tol_n = 2.0 ** -16 * (absf @ C["nyq"].abs().double())[:, None]
+    assert ((got[2] - want[2]).abs() <= tol_n).all()  # the Nyquist bin, an f32 dot
+
+
+def test_noise_latch_kernel_matches_plain(cuda):
+    blocks, _, C = _inputs(cuda)
+    _, _, _, mag, mag_n, sp = K2.enhance_fwd_int8(blocks, C)
+    rowpack = E._latch_rowpack(sp[:, 0] > 0.5)
+    assert rowpack[:, 2].max() >= 0  # the probe reaches the latch
+    before = K.noise_latch.launches
+    ns, ns_n = K.noise_latch(rowpack, mag, mag_n)
+    want = K.latch_from_rowpack(rowpack, torch.cat([mag, mag_n], 1), 64)
+    torch.cuda.synchronize()
+    assert K.noise_latch.launches == before + 1
+    assert (ns - want[:, :512]).abs().max() <= 1e-6 * want.abs().max()
+    assert (ns_n - want[:, 512:]).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.parametrize("emit_all", [False, True])
+@pytest.mark.parametrize("mode", ["wiener", "specsub"])
+@pytest.mark.parametrize("name", sorted(BACK))
+def test_back_kernels_match_plain(cuda, name, mode, emit_all):
+    blocks, _, C = _inputs(cuda)
+    kernel, plain, fwd = BACK[name]
+    ins = _back_inputs(fwd, blocks, C)
+    before = kernel.launches
+    got = kernel(*ins, C, mode, emit_all=emit_all)
+    want = plain(*ins, C, mode, emit_all=emit_all)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == torch.int16 and got.shape == want.shape
+    assert got[:1].eq(0).all() and (emit_all or got[:2].eq(0).all())
+    assert snr_db(want.cpu().numpy(), got.cpu().numpy()) >= KERNEL_VS_PLAIN_DB
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("name", sorted(BACK))
+def test_back_zero_bins_give_zero_rows(name, device, request):
+    """Bins with re = im = 0 before any latch make the Wiener gain 0/0 =
+    NaN.  K3's NaN row max zeroes the row; in K5 the NaN crosses the whole
+    row through the inverse GEMM, and c_short(NaN) = 0 per sample."""
+    dev = request.getfixturevalue("cuda") if device == "cuda" else torch.device("cpu")
+    blocks, _, C = _inputs(dev, n_blocks=64)
+    kernel, plain, fwd = BACK[name]
+    re, im, re_n, mag, mag_n, sp = FWD[fwd][1](blocks, C)
+    re, im, mag = re.clone(), im.clone(), mag.clone()
+    for plane in (re, im, mag):
+        plane[:, 100:110] = 0.0
+    rowpack = E._latch_rowpack(sp[:, 0] > 0.5)
+    ns, ns_n = K.noise_latch(rowpack, mag, mag_n)
+    out = kernel(re, im, re_n, ns, ns_n, C, "wiener", emit_all=True)
+    latched = (rowpack[:, 2] >= 0).nonzero()
+    first_latch = int(latched[0]) if len(latched) else 64
+    assert out[: first_latch + 1].eq(0).all()
+    if device == "cuda":
+        want = plain(re, im, re_n, ns, ns_n, C, "wiener", emit_all=True)
+        assert torch.equal(out.cpu()[: first_latch + 1], want.cpu()[: first_latch + 1])
+
+
+@pytest.mark.parametrize("engine", ["mxu8", "mxu3"])
+def test_fused3_odd_lengths(cuda, engine):
+    """enhance_blocks pads T to a multiple of 64 and masks warm-up rows.
+    Against the CPU run at most one int16 step apart on under 0.5% of the
+    samples: f32 sums run in other orders there (in K5's GEMMs above all),
+    and on these short quiet probes one flipped step is already ~53 dB."""
+    for T in (3, 65, 200):
+        blocks = torch.from_numpy(_signal(T, T).reshape(-1, 512)).to(cuda)
+        for emit_all in (False, True):
+            out, mask = E.enhance_blocks(blocks, "wiener", emit_all, fft_engine=engine)
+            out_c, mask_c = E.enhance_blocks(blocks.cpu(), "wiener", emit_all, fft_engine=engine)
+            assert out.shape == (T, 512) and mask.tolist() == mask_c.tolist()
+            assert out[:1].eq(0).all() and (emit_all or out[:2].eq(0).all())
+            d = (out.cpu().to(torch.int32) - out_c.to(torch.int32)).abs()
+            assert d.max() <= 1 and d.gt(0).double().mean() < 0.005
+
+
+def test_new_cpu_wrappers_run_plain_without_counting():
+    blocks, _, C = _inputs("cpu", n_blocks=64)
+    for name, (kernel, plain) in FWD.items():
+        before = kernel.launches
+        got = kernel(blocks, C)
+        assert kernel.launches == before, name
+        assert all(torch.equal(g, w) for g, w in zip(got, plain(blocks, C))), name
+    for name, (kernel, plain, fwd) in BACK.items():
+        ins = _back_inputs(fwd, blocks, C)
+        before = kernel.launches
+        got = kernel(*ins, C, "specsub")
+        assert kernel.launches == before, name
+        assert torch.equal(got, plain(*ins, C, "specsub")), name
+
+
+@pytest.mark.parametrize("bad", ["dtype", "width", "rows", "const", "noncontig", "device"])
+@pytest.mark.parametrize("name", sorted(FWD))
+def test_forward_wrappers_reject(name, bad):
+    blocks, _, C = _inputs("cpu", n_blocks=64)
+    if bad == "dtype":
+        blocks = blocks.to(torch.int32)
+    elif bad == "width":
+        blocks = blocks[:, :256]
+    elif bad == "rows":
+        blocks = blocks[:60]  # not a multiple of 8
+    elif bad == "const":
+        C = dict(C, nyq=C["nyq"][:512])
+    elif bad == "noncontig":
+        blocks = blocks.t().contiguous().t()
+    elif bad == "device":
+        blocks = blocks.to("meta")
+    with pytest.raises(ValueError):
+        FWD[name][0](blocks, C)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "width", "rows", "column", "mode", "const",
+                                 "noncontig", "device"])
+@pytest.mark.parametrize("name", sorted(BACK))
+def test_back_wrappers_reject(name, bad):
+    blocks, _, C = _inputs("cpu", n_blocks=64)
+    kernel, _, fwd = BACK[name]
+    re, im, re_n, ns, ns_n = _back_inputs(fwd, blocks, C)
+    mode = "wiener"
+    if bad == "dtype":
+        re = re.double()
+    elif bad == "width":
+        ns = ns[:, :256]
+    elif bad == "rows":
+        re, im, re_n, ns, ns_n = (v[:60] for v in (re, im, re_n, ns, ns_n))
+    elif bad == "column":
+        ns_n = ns_n[:, 0]
+    elif bad == "mode":
+        mode = "mmse"
+    elif bad == "const":
+        C = dict(C, y512col=C["y512col"][:512])
+    elif bad == "noncontig":
+        im = im.t().contiguous().t()
+    elif bad == "device":
+        re = re.to("meta")
+    with pytest.raises(ValueError):
+        kernel(re, im, re_n, ns, ns_n, C, mode)

@@ -27,6 +27,7 @@ from jeicyboodsp_tpu_torch.utils.cnum import c_short
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLOOR = {True: 78.0, False: 65.0}  # vs the oracle: mxu8f (hq), mxu8t (turbo)
+ENGINE_FLOOR = {"mxu8f": 78.0, "mxu8t": 65.0, "mxu8": 78.0, "mxu3": 85.0}
 PORT_VS_JAX_DB = 90.0
 
 
@@ -222,13 +223,12 @@ def test_chip_smoke_reference_matches_oracle():
             np.testing.assert_array_equal(chip_smoke.reference_enhance(x, mode), oenh.run(x, mode))
 
 
-@pytest.mark.parametrize("engine", ["mxu8f", "mxu8t"])
+@pytest.mark.parametrize("engine", sorted(ENGINE_FLOOR))
 def test_pipeline_file_end_to_end(tmp_path, engine):
     from jeicyboodsp_tpu_torch.cli import main
     from jeicyboodsp_tpu_torch.pipelines import registry
 
     x = _signal(*PROBES["latch64"])
-    hq = engine == "mxu8f"
     cases = {"full": x, "partial": x[: 40 * 512 + 300], "empty": x[:0], "header_only": x[:22]}
     for name, data in cases.items():
         inp = tmp_path / f"{name}.pcm"
@@ -241,7 +241,7 @@ def test_pipeline_file_end_to_end(tmp_path, engine):
             want = oenh.run(data, mode)  # header NOT skipped, as the reference
             assert got.shape == want.shape, (name, mode)
             if len(want):
-                assert snr_db(want, got) >= FLOOR[hq], (name, mode)
+                assert snr_db(want, got) >= ENGINE_FLOOR[engine], (name, mode)
     # the CLI is the same path
     out_cli = tmp_path / "cli.pcm"
     assert main(["wiener", str(tmp_path / "full.pcm"), str(out_cli), "--engine", engine,
@@ -250,7 +250,7 @@ def test_pipeline_file_end_to_end(tmp_path, engine):
                                   np.fromfile(tmp_path / "full_wiener.pcm", "<i2"))
 
 
-@pytest.mark.parametrize("engine", ["xla", "mxu", "mxu3", "mxu8"])
+@pytest.mark.parametrize("engine", ["xla", "mxu"])
 def test_unported_engines_raise(engine):
     b = torch.zeros(4, 512, dtype=torch.int16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
