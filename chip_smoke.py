@@ -3,26 +3,47 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- the Wiener / spectral-subtraction chain of
-engines mxu8f, mxu8t (kernel K1), mxu8 (K2, K3) and mxu3 (K4, K5) -- at
-its full size (T = 16384 blocks of 512 samples per call, 8.39 M samples),
-in phases that each print lines and raise on failure:
+Drives the port's main paths at their full size -- the Wiener /
+spectral-subtraction chain of engines mxu8f, mxu8t (kernel K1), mxu8 (K2,
+K3) and mxu3 (K4, K5) at T = 16384 blocks of 512 samples per call (8.39 M
+samples); the 7-band GEQ (K6, and K7 for its linear engine) at 2048 streams
+x 49,152 samples; the NLMS (K8) and BNLMS (K9) echo cancellers at 1024
+streams x 65,536 samples -- in phases that each print lines and raise on
+failure:
 
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA sources with nvcc and prints the seconds;
-3. each kernel against its plain version at T = 16384, wiener and specsub:
-   K1 >= 90 dB of the int16 outputs with bit-equal forward planes; K2
-   re/im planes bit-equal and flags equal; K4 planes within 1e-5 of their
-   row max and flags equal; the noise latch within 1e-6; K3 and K5
-   >= 90 dB;
-4. main path: the file-in/file-out pipelines of every engine on a 192-block
-   probe and on the full-size signal, against a float64 numpy reference of
-   the reference program (floors: mxu8f and mxu8 78 dB, mxu8t 65 dB, mxu3
-   85 dB), plus the empty-payload and partial-final-block cases; every
-   kernel's launch count over this phase must be > 0;
-5. timing: ``enhance_blocks`` of each engine and each kernel alone against
-   its plain version and one PyTorch call of its GEMM core, CUDA events,
-   median of 7 after warm-up.
+3. each kernel against its plain version on the same inputs:
+   - at T = 16384, wiener and specsub: K1 >= 90 dB of the int16 outputs with
+     bit-equal forward planes; K2 re/im planes bit-equal and flags equal; K4
+     planes within 1e-5 of their row max and flags equal; the noise latch
+     within 1e-6; K3 and K5 >= 90 dB;
+   - at the full stream counts and a shorter T for the plain loops: K6 and K7
+     (T = 4096), K8 (T = 2048, both update pairings), K9 (8 blocks) and K6 at
+     B = 3072, each bit-equal (else the differing samples are printed and
+     the phase fails);
+4. main paths, every launch counter set to 0 just before each and read just
+   after, each kernel launched at least once:
+   - enhancement: the file-in/file-out pipelines of every engine on a
+     192-block probe and on the full-size signal, against a float64 numpy
+     reference of the reference program (floors: mxu8f and mxu8 78 dB, mxu8t
+     65 dB, mxu3 85 dB), plus the empty-payload and partial-final-block cases;
+   - GEQ, NLMS, BNLMS: the ``geq``, ``nlms`` and ``bnlms`` pipelines on probe
+     files against the script's own float64 numpy copies of the oracles
+     (GEQ byte-identical with a full-scale wrap-stress section, a partial
+     last block and an empty payload; NLMS and BNLMS int16-equal; the BNLMS
+     gate decisions that differ from the direct f64 sums printed), and the
+     batched ops at full size, where two chained calls with state must
+     equal one whole call (K6, K8, K9), sampled streams (for NLMS and
+     BNLMS every block of an echo and a double-talk stream) must equal the
+     references, B = 3072 runs (K6), and the GEQ's linear engine (K7)
+     must come within 55 dB of a float64 linear cascade;
+5. timing: ``enhance_blocks`` of each engine, the ops ``geq_apply``,
+   ``nlms_apply`` and ``bnlms_apply`` at full size, and each kernel alone
+   against its plain version (K6-K9 at their shorter T) and one PyTorch call
+   of its GEMM core where there is one, CUDA events, median of 7 after
+   warm-up (median of 3 for the plain loops of K6-K9), with the bytes,
+   operations and dependency-chain bounds.
 
 Then the card's line, one JSON line of per-kernel results and, last, the
 ``{"ok": true, ...}`` line.  Imports neither jax nor the JAX package.
@@ -49,8 +70,27 @@ PLANE_RTOL = 1e-6   # K1's int8 forward planes against the plain version's
 F32_RTOL = 1e-5     # K4's f32 planes: its sums run in another order than cuBLAS's
 LATCH_RTOL = 1e-6
 REPS = 7
+# the recursions at the sizes of the JAX package's benchmark (bench/all_configs.py:278, :498,
+# :730), the shorter T of their plain loops, and their plain versions' timing T and repeats
+GEQ_B, GEQ_T = 2048, 49152
+AEC_B, AEC_T = 1024, 65536
+PLAIN_T = {"K6": 4096, "K7": 4096, "K8": 2048, "K9": 8 * 1024}
+PLAIN_TIME_T = {"K6": 256, "K7": 256, "K8": 256, "K9": 1024}
+PLAIN_REPS = 3
+GEQ_LINEAR_DB = 55.0  # K7's f32 cascade against a float64 one (tests/test_pallas_kernels.py:17)
 # published H100 SXM peaks (dense): bytes/s of HBM3, int8 and bf16 tensor-core op/s
 HBM_BPS, INT8_OPS, BF16_OPS = 3.35e12, 1979e12, 989e12
+# f64 and f32 outside the tensor cores (NVIDIA's H100 SXM data sheet), FMA counted as two
+F64_OPS, F32_OPS = 34e12, 67e12
+# dependent cycles per step of each recursion's longest chain, an estimate from the
+# kernels' instruction chains at ~8 cycles per f64 op, ~4 per f32 op, ~30 per shuffle,
+# ~40 per f64 division (not measured): K6 per sample one band's y1 -> a1*y1 -> two
+# adds -> c_short (the skewed cascade runs the seven bands side by side); K7 per
+# sample one band's s0 -> y -> c3*y -> two adds; K8 per sample the estimate (a product,
+# 7 adds, 5 shuffle-adds), c_short, the update's product and division and add; K9 per
+# block 128 sequential estimate adds and 1024 sequential gradient adds
+CHAIN_CYCLES = {"K6": 60, "K7": 16, "K8": 380, "K9": 9300}
+CHAIN_STEPS = {"K6": GEQ_T, "K7": GEQ_T, "K8": AEC_T, "K9": AEC_T // 1024}
 
 
 def make_signal(n, rng):
@@ -114,6 +154,139 @@ def reference_enhance(x, mode="wiener"):
     return out.reshape(-1)
 
 
+def _c_short_int(v):
+    """The reference's double -> short store of one value (see _c_short)."""
+    if not -2147483649.0 < v < 2147483648.0:  # out of int32 range, or NaN
+        return 0
+    t = int(v) & 0xFFFF
+    return t - 0x10000 if t >= 0x8000 else t
+
+
+def _stale_blocks(x, n):
+    """x cut into n-sample blocks, a partial last block keeping the previous
+    block's stale tail (the reference's fread)."""
+    x = np.asarray(x, np.int16)
+    full, rem = divmod(len(x), n)
+    if rem:
+        prev = x[(full - 1) * n: full * n] if full else np.zeros(n, np.int16)
+        x = np.concatenate([x, prev[rem:]])
+    return x.reshape(-1, n)
+
+
+def reference_geq(x, b, a):
+    """float64 reference of 7Band_GEQ.cpp on one signal: 512-sample blocks,
+    seven direct-form-I biquads in series, each output stored into a short
+    inside the recursion, every sum in the reference's order
+    b2*x2 - a2*y2 + b1*x1 - a1*y1 + b0*x0 (7Band_GEQ.cpp:279-300)."""
+    cur = [float(v) for v in _stale_blocks(x, 512).reshape(-1)]
+    for k in range(7):
+        b0, b1, b2 = (float(v) for v in b[k])
+        a1, a2 = float(a[k][1]), float(a[k][2])
+        x1 = x2 = y1 = y2 = 0.0
+        out = []
+        for v in cur:
+            acc = b2 * x2
+            acc -= a2 * y2
+            acc += b1 * x1
+            acc -= a1 * y1
+            acc += b0 * v
+            y = float(_c_short_int(acc))
+            x2, x1, y2, y1 = x1, v, y1, y
+            out.append(y)
+        cur = out
+    return np.array(cur, np.int16)
+
+
+def reference_geq_linear(x, b, a):
+    """The same cascade in float64 with no store into a short inside it (the
+    GEQ's linear engine), stored into int16 once at the end."""
+    cur = [float(v) for v in _stale_blocks(x, 512).reshape(-1)]
+    for k in range(7):
+        x1 = x2 = y1 = y2 = 0.0
+        out = []
+        for v in cur:
+            y = b[k][0] * v + b[k][1] * x1 + b[k][2] * x2 - a[k][1] * y1 - a[k][2] * y2
+            x2, x1, y2, y1 = x1, v, y1, y
+            out.append(y)
+        cur = out
+    return _c_short(np.array(cur))
+
+
+def reference_nlms_blocks(xb, rb):
+    """float64 reference of NormalLMS.cpp over (nb, 1024) blocks, every
+    block's est and err: 256 taps, mu 1e-4, the estimate against the reversed
+    coefficients summed tap by tap (add.accumulate is sequential), the update
+    2.0*u*MU*e/(norm + eps) per tap against the direct ones."""
+    c = np.zeros(256)
+    u = np.zeros(255 + 1024)
+    est = np.zeros(xb.shape, np.int16)
+    err = np.zeros(xb.shape, np.int16)
+    for t in range(len(xb)):
+        u[255:] = xb[t]
+        for i in range(1024):
+            w = u[i:i + 256]
+            y = _c_short_int(np.add.accumulate(c[::-1] * w)[-1])
+            e = int(rb[t, i]) - y
+            c = c + 2.0 * w * 0.0001 * float(e) / (float(w @ w) + 0.0001)
+            est[t, i], err[t, i] = y, _c_short_int(float(e))
+        u[:255] = u[-255:]
+    return est, err
+
+
+def _double_talk(u, r):
+    """BNLMS.cpp:164-186, reads past the 1151-sample buffers zero: True for
+    double talk.  The correlations as direct float64 dot products."""
+    up = np.zeros(2048)
+    rp = np.zeros(3072)
+    up[:len(u)] = u
+    rp[:len(r)] = r
+    best = 0.0
+    for k in range(1024):
+        m = 2048 - k
+        best = max(best, float(np.dot(up[:m], rp[k:k + m])) / m)
+    return not best > 0.0
+
+
+def reference_bnlms_blocks(xb, rb):
+    """float64 reference of BNLMS.cpp over (nb, 1024) blocks: every block's
+    est and err and its gate (True = update).  128 taps, mu 0.01, the
+    estimate tap by tap with the block's frozen coefficients, the gradient
+    summed sample by sample, averaged by 1024 and applied when the
+    double-talk test allows."""
+    c = np.zeros(128)
+    u = np.zeros(127 + 1024)
+    r = np.zeros(127 + 1024)
+    est = np.zeros(xb.shape, np.int16)
+    err = np.zeros(xb.shape, np.int16)
+    gates = []
+    for t in range(len(xb)):
+        u[127:], r[127:] = xb[t], rb[t]
+        W = np.lib.stride_tricks.sliding_window_view(u, 128)[:1024]
+        y = _c_short(np.add.accumulate(W * c[::-1], axis=1)[:, -1]).astype(np.int64)
+        e = rb[t].astype(np.int64) - y
+        est[t], err[t] = y, _c_short(e)
+        gates.append(not _double_talk(u, r))
+        if gates[-1]:
+            d = (W * W).sum(1) + 0.00001  # exact integer energies
+            terms = 2.0 * W * 0.01 * e[:, None].astype(np.float64) / d[:, None]
+            c = c + np.add.accumulate(terms, axis=0)[-1] / 1024
+        u[:127], r[:127] = u[-127:], r[-127:]
+    return est, err, gates
+
+
+def reference_nlms(x, ref, bnlms=False):
+    """run_nlms / run_bnlms of the reference programs: as many 1024-sample
+    blocks as the shorter signal starts, each signal's blocks with its own
+    stale tails, the first block's output not written.  Returns est, err
+    (and the gates for BNLMS)."""
+    nb = -(-min(len(x), len(ref)) // 1024)
+    if nb == 0:
+        return (np.zeros(0, np.int16), np.zeros(0, np.int16)) + (([],) if bnlms else ())
+    xb, rb = _stale_blocks(x, 1024)[:nb], _stale_blocks(ref, 1024)[:nb]
+    out = reference_bnlms_blocks(xb, rb) if bnlms else reference_nlms_blocks(xb, rb)
+    return (out[0][1:].reshape(-1), out[1][1:].reshape(-1)) + tuple(out[2:])
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -122,13 +295,22 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, sync):
+def card_clock_hz():
+    """The card's highest SM clock, from nvidia-smi."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def median_ms(fn, sync, reps=REPS):
     import torch
 
     fn()  # warm-up
     sync()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -185,8 +367,15 @@ def _port():
     from jeicyboodsp_tpu_torch.ops import enhance as E
     from jeicyboodsp_tpu_torch.pipelines import registry
 
+    from jeicyboodsp_tpu_torch.kernels import bnlms as K9
+    from jeicyboodsp_tpu_torch.kernels import geq_cascade as K7
+    from jeicyboodsp_tpu_torch.kernels import geq_cascade_quant as K6
+    from jeicyboodsp_tpu_torch.kernels import nlms as K8
+    from jeicyboodsp_tpu_torch.ops import geq as G
+    from jeicyboodsp_tpu_torch.ops import nlms as N
+
     return SimpleNamespace(_build=_build, K1=K1, K2=K2, K3=K3, K4=K4, K5=K5, E=E,
-                           registry=registry)
+                           registry=registry, K6=K6, K7=K7, K8=K8, K9=K9, G=G, N=N)
 
 
 K1_ENGINES = {"mxu8f": True, "mxu8t": False}  # the engines of K1: hq
@@ -412,12 +601,383 @@ def time_chains(P, blocks, C, card, sync):
               f"{T_FULL * 512 / (plain_ms * 1e-3):.4g} samples/s")
 
 
-SOURCES = {  # kernel: wrapper name, CUDA source, line of the TPU wrapper it replaces
-    "K1": ("enhance_full8", "enhance_full8.cu", 737),
-    "K2": ("enhance_fwd_int8", "enhance_mxu8.cu", 217),
-    "K3": ("enhance_back_ola8", "enhance_mxu8.cu", 491),
-    "K4": ("enhance_fwd", "enhance_mxu3.cu", 87),
-    "K5": ("enhance_back_ola3", "enhance_mxu3.cu", 337),
+def make_geq_streams(B, T, dev):
+    """(B, T) int16 audio at 48 kHz: per stream a tone (50-8050 Hz, amplitude
+    up to 8000) over N(0, 500) noise; the first B/8 streams full-scale random
+    int16, where the +12 dB bands overflow and wrap.  Made on the card from
+    SEED."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    f32 = dict(dtype=torch.float32, device=dev)
+    t = torch.arange(T, **f32) / 48000.0
+    f = 50.0 + 8000.0 * torch.rand(B, 1, generator=g, **f32)
+    amp = 8000.0 * torch.rand(B, 1, generator=g, **f32)
+    x = amp * torch.sin(2 * np.pi * f * t) + 500.0 * torch.randn(B, T, generator=g, **f32)
+    x = x.clamp(-32768, 32767).to(torch.int16)
+    x[: B // 8] = torch.randint(-32768, 32768, (B // 8, T), generator=g, device=dev,
+                                dtype=torch.int32).to(torch.int16)
+    return x
+
+
+def make_aec_streams(B, T, dev):
+    """(B, T) int16 far ends N(0, 3000) and near ends: the far end's echo
+    (0.5 x[t] + 0.2 x[t-7] - 0.1 x[t-19]) plus N(0, 50) noise; in the last
+    quarter of the streams an independent N(0, 2000) near-end talker too
+    (double talk).  Made on the card from SEED."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = (3000.0 * torch.randn(B, T, generator=g, **f32)).clamp(-32768, 32767).round()
+
+    def delay(v, k):
+        return torch.nn.functional.pad(v, (k, 0))[:, :T]
+
+    r = 0.5 * x + 0.2 * delay(x, 7) - 0.1 * delay(x, 19)
+    r = r + 50.0 * torch.randn(B, T, generator=g, **f32)
+    r[3 * B // 4:] += 2000.0 * torch.randn(B - 3 * B // 4, T, generator=g, **f32)
+    return x.to(torch.int16), r.clamp(-32768, 32767).to(torch.int16)
+
+
+def _bit_equal(name, what, pairs):
+    """Fails unless every (kernel, plain) pair is bit-equal; returns the max
+    |difference| (0)."""
+    pairs = list(pairs)
+    diff = sum(int((g != w).sum()) for g, w in pairs)
+    worst = max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
+                for g, w in pairs)
+    print(f"[3 kernel-vs-plain] {name} {what}: bit-equal {diff == 0}, differing values {diff}, "
+          f"max |diff| {worst:g}")
+    if diff:
+        raise RuntimeError(f"{name} {what}: {diff} values differ from the plain version")
+    return worst
+
+
+def check_recursions(P, geq, aec, sync):
+    """Phase 3 for K6-K9: each kernel against its plain version at the full
+    stream count and the shorter T of PLAIN_T.  Returns the max |kernel -
+    plain| of each."""
+    import torch
+
+    dev = geq.device
+    b, a = P.G.geq_coefficients()
+    c64 = torch.from_numpy(P.K7.pack_coefficients(b, a, np.float64)).to(dev)
+    c32 = torch.from_numpy(P.K7.pack_coefficients(b, a)).to(dev)
+    err = {}
+    x = geq[:, :PLAIN_T["K6"]].contiguous()
+    got = P.K6.geq_cascade_quant(x, c64)
+    want = P.K6.geq_cascade_quant_plain(x, c64, P.K6.init_state(len(x), dev))
+    sync()
+    err["K6"] = _bit_equal("K6", f"B={len(x)} T={x.shape[1]} (y, state)", zip(got, want))
+    x3 = geq.repeat(-(-3072 // len(geq)), 1)[:3072, :512].contiguous()  # B = 3072
+    got = P.K6.geq_cascade_quant(x3, c64)
+    want = P.K6.geq_cascade_quant_plain(x3, c64, P.K6.init_state(len(x3), dev))
+    sync()
+    err["K6"] = max(err["K6"], _bit_equal("K6", "B=3072 T=512 (y, state)", zip(got, want)))
+    xf = geq[:, :PLAIN_T["K7"]].float().contiguous()
+    got, want = P.K7.geq_cascade(xf, c32), P.K7.geq_cascade_plain(xf, c32)
+    sync()
+    err["K7"] = _bit_equal("K7", f"B={len(xf)} T={xf.shape[1]}", [(got, want)])
+    xa, ra = (v[:, :PLAIN_T["K8"]].contiguous() for v in aec)
+    err["K8"] = 0.0
+    for compat in (True, False):
+        got = P.K8.nlms(xa, ra, compat=compat)
+        want = P.K8.nlms_plain(xa, ra, *P.K8.init_state(len(xa), dev), compat=compat)
+        sync()
+        pairs = list(zip(got[:2], want[:2])) + list(zip(got[2], want[2]))
+        err["K8"] = max(err["K8"], _bit_equal(
+            "K8", f"compat={compat} B={len(xa)} T={xa.shape[1]} (est, err, coef, hist)", pairs))
+    xa, ra = (v[:, :PLAIN_T["K9"]].contiguous() for v in aec)
+    keep = torch.zeros(len(xa), 127, dtype=torch.int16, device=dev)
+    gates = P.K9.bnlms_gates(xa, ra, keep, keep)
+    gates[::3, 1::2] = False  # random audio opens every gate: shut some for the kernel's other path
+    got = P.K9.bnlms(xa, ra, gates)
+    want = P.K9.bnlms_plain(xa, ra, gates, *P.K9.init_state(len(xa), dev))
+    sync()
+    pairs = list(zip(got[:2], want[:2])) + list(zip(got[2], want[2]))
+    err["K9"] = _bit_equal("K9", f"B={len(xa)} {xa.shape[1] // 1024} blocks, "
+                           f"{int(gates.sum())} of {gates.numel()} gates open "
+                           "(est, err, coef, keep)", pairs)
+    return err
+
+
+def _probe_signals():
+    """The pipelines' probe signals, from SEED: a GEQ probe of 8 blocks of
+    tone and 2 of full-scale random int16; an echo pair of 6 blocks; and a
+    pair whose gate stays shut (a non-negative far end against a
+    non-positive near end)."""
+    rng = np.random.default_rng(SEED + 2)
+    n = 8 * 512
+    t = np.arange(n) / 48000.0
+    tone = 8000 * np.sin(2 * np.pi * 440 * t) + 4000 * np.sin(2 * np.pi * 3000 * t)
+    tone = np.clip(tone + rng.normal(0, 500, n), -32768, 32767).astype(np.int16)
+    geq = np.concatenate([tone, rng.integers(-32768, 32768, 2 * 512).astype(np.int16)])
+    m = 6 * 1024
+    x = np.clip(rng.normal(0, 3000, m), -32768, 32767).astype(np.int16)
+    h = rng.normal(0, 0.1, 32)
+    h[0] = 0.5
+    r = np.clip(np.convolve(x.astype(np.float64), h)[:m] + rng.normal(0, 50, m),
+                -32768, 32767).astype(np.int16)
+    xs = np.abs(x[:3 * 1024].astype(np.int32)).clip(0, 32767).astype(np.int16)
+    return geq, {"echo": (x, r), "partial": (x[:4 * 1024 + 300], r[:4 * 1024 + 500]),
+                 "shut": (xs, -(xs // 2)), "empty": (x[:0], r[:0])}
+
+
+def drive_recursions(P, geq, aec, sync):
+    """Phase 4 for the GEQ, NLMS and BNLMS paths, every K6-K9 launch counter
+    set to 0 just before and read just after: the file pipelines on the
+    probes, then the batched ops at full size, chained and whole.  Returns
+    the counts."""
+    import torch
+
+    G, N, dev = P.G, P.N, geq.device
+    counted = {"K6": P.K6.geq_cascade_quant, "K7": P.K7.geq_cascade, "K8": P.K8.nlms,
+               "K9": P.K9.bnlms}
+    work = os.path.join(ROOT, "jeicyboodsp_tpu_torch", "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    b, a = G.geq_coefficients()
+    c32 = torch.from_numpy(P.K7.pack_coefficients(b, a)).to(dev)
+    gprobe, pairs = _probe_signals()
+    geq_cases = {"probe": gprobe, "partial": gprobe[: 5 * 512 + 300], "empty": gprobe[:0]}
+    hdr = np.arange(22, dtype=np.int16)  # 44 header bytes, skipped by geq and for IN
+    for c, x in geq_cases.items():
+        np.concatenate([hdr, x]).tofile(os.path.join(work, f"geq_{c}.wav"))
+    for c, (x, r) in pairs.items():
+        np.concatenate([hdr, x]).tofile(os.path.join(work, f"aec_{c}_in.wav"))
+        r.tofile(os.path.join(work, f"aec_{c}_ref.pcm"))
+    refs = {("geq", c): reference_geq(x, b, a) for c, x in geq_cases.items()}
+    for c, (x, r) in pairs.items():
+        refs["nlms", c] = reference_nlms(x, r)
+        refs["bnlms", c] = reference_nlms(x, r, bnlms=True)
+    zeros = {"xh": torch.zeros(GEQ_B, 2, dtype=torch.int32),
+             "yh": torch.zeros(GEQ_B, 7, 2, dtype=torch.int32)}
+    half = GEQ_T // 2
+
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = {}
+    for c in geq_cases:
+        path = os.path.join(work, f"geq_{c}.pcm")
+        P.registry.geq(os.path.join(work, f"geq_{c}.wav"), path, device=dev)
+        out["geq", c] = np.fromfile(path, "<i2")
+    for prog in ("nlms", "bnlms"):
+        for c in pairs:
+            est, errp = (os.path.join(work, f"{prog}_{c}_{k}.pcm") for k in ("est", "err"))
+            getattr(P.registry, prog)(os.path.join(work, f"aec_{c}_in.wav"),
+                                      os.path.join(work, f"aec_{c}_ref.pcm"), est, errp, device=dev)
+            out[prog, c] = (np.fromfile(est, "<i2"), np.fromfile(errp, "<i2"))
+    # the batched ops at full size: one whole call, and two chained with state;
+    # the GEQ's fast engine, which callers run as the kernel wrapper
+    yl = P.K7.geq_cascade(geq.float(), c32)
+    yw, sw = G.geq_apply(geq, b, a, zeros)
+    y1, s1 = G.geq_apply(geq[:, :half], b, a, zeros)
+    y2, s2 = G.geq_apply(geq[:, half:], b, a, s1)
+    x, r = aec
+    n0 = N.nlms_init_state()
+    nz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in n0.items()}
+    ew, rw, nw = N.nlms_apply(x, r, nz)
+    e1, r1, ns = N.nlms_apply(x[:, :AEC_T // 2], r[:, :AEC_T // 2], nz)
+    e2, r2, ns = N.nlms_apply(x[:, AEC_T // 2:], r[:, AEC_T // 2:], ns)
+    bz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in N.bnlms_init_state().items()}
+    xb, rb = x.reshape(AEC_B, -1, 1024), r.reshape(AEC_B, -1, 1024)
+    nb2 = xb.shape[1] // 2
+    bw, bew, bsw = N.bnlms_apply(xb, rb, bz)
+    b1, be1, bs = N.bnlms_apply(xb[:, :nb2], rb[:, :nb2], bz)
+    b2, be2, bs = N.bnlms_apply(xb[:, nb2:], rb[:, nb2:], bs)
+    # B = 3072 (the JAX op raises there): the streams repeated
+    g3 = geq.repeat(-(-3072 // len(geq)), 1)[:3072, :2048]
+    z3 = {k: torch.zeros(3072, *v.shape[1:], dtype=v.dtype) for k, v in zeros.items()}
+    y3, _ = G.geq_apply(g3, b, a, z3)
+    sync()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    main_s = time.perf_counter() - t0
+
+    for c, want in [(c, refs["geq", c]) for c in geq_cases]:
+        got = out["geq", c]
+        ok = got.shape == want.shape and np.array_equal(got, want)
+        print(f"[4 main-path] geq {c}: {len(got)} samples, byte-identical to the reference {ok}")
+        if not ok:
+            raise RuntimeError(f"geq {c}: differs from the reference")
+    from jeicyboodsp_tpu_torch.utils.metrics import snr_db
+
+    for i in (0, GEQ_B - 1):  # a wrap-stress stream and a tone
+        got = _c_short(yl[i].cpu().numpy())
+        snr = snr_db(reference_geq_linear(geq[i].cpu().numpy(), b, a), got)
+        print(f"[4 main-path] full size, K7 (the linear engine) stream {i}: {snr:.2f} dB vs a "
+              f"float64 linear cascade (floor {GEQ_LINEAR_DB})")
+        if not snr >= GEQ_LINEAR_DB:
+            raise RuntimeError(f"K7 stream {i}: {snr:.2f} dB < {GEQ_LINEAR_DB}")
+    for prog in ("nlms", "bnlms"):
+        for c in pairs:
+            want = refs[prog, c]
+            got = out[prog, c]
+            ok = all(g.shape == w.shape and np.array_equal(g, w) for g, w in zip(got, want))
+            print(f"[4 main-path] {prog} {c}: {len(got[0])} samples, est and err int16-equal to "
+                  f"the reference {ok}")
+            if not ok:
+                raise RuntimeError(f"{prog} {c}: differs from the reference")
+    # the gate: the port's float64 matmul DFT against the direct float64 sums
+    gdiff, gn = 0, 0
+    for c, (xp, rp) in pairs.items():
+        nb = -(-min(len(xp), len(rp)) // 1024)
+        if nb == 0:
+            continue
+        xs = torch.from_numpy(_stale_blocks(xp, 1024)[:nb].reshape(1, -1)).to(dev)
+        rs = torch.from_numpy(_stale_blocks(rp, 1024)[:nb].reshape(1, -1)).to(dev)
+        keep = torch.zeros(1, 127, dtype=torch.int16, device=dev)
+        got = P.K9.bnlms_gates(xs, rs, keep, keep)[0, 1:].tolist()  # the written blocks
+        gdiff += sum(g != w for g, w in zip(got, refs["bnlms", c][2][1:]))
+        gn += len(got)
+    S = 8  # full-size streams whose every gate is checked
+    keep = torch.zeros(S, 127, dtype=torch.int16, device=dev)
+    xs8, rs8 = x[-S:].contiguous(), r[-S:].contiguous()  # double-talk streams
+    got8 = P.K9.bnlms_gates(xs8, rs8, keep, keep).cpu().numpy()
+    for i in range(S):
+        u = np.concatenate([np.zeros(127), xs8[i].cpu().numpy().astype(np.float64)])
+        v = np.concatenate([np.zeros(127), rs8[i].cpu().numpy().astype(np.float64)])
+        for k in range(AEC_T // 1024):
+            want = not _double_talk(u[k * 1024:k * 1024 + 1151], v[k * 1024:k * 1024 + 1151])
+            gdiff += int(bool(got8[i, k]) != want)
+            gn += 1
+    print(f"[4 main-path] bnlms gate decisions differing from the direct float64 sums: {gdiff} "
+          f"of {gn} (probes, and all blocks of {S} full-size double-talk streams)")
+
+    chained = {
+        "K6 geq_apply": (torch.equal(torch.cat([y1, y2], 1), yw)
+                         and all(torch.equal(s2[k], sw[k]) for k in sw)),
+        "K8 nlms_apply": (torch.equal(torch.cat([e1, e2], 1), ew)
+                          and torch.equal(torch.cat([r1, r2], 1), rw)
+                          and all(torch.equal(ns[k], nw[k]) for k in nw)),
+        "K9 bnlms_apply": (torch.equal(torch.cat([b1, b2], 1), bw)
+                           and torch.equal(torch.cat([be1, be2], 1), bew)
+                           and all(torch.equal(bs[k], bsw[k]) for k in bsw)),
+    }
+    for what, ok in chained.items():
+        print(f"[4 main-path] {what} at full size: two chained calls with state equal one "
+              f"whole call {ok}")
+        if not ok:
+            raise RuntimeError(f"{what}: chained calls differ from the whole call")
+    sampled = {
+        "full size, geq stream 0 (wrap stress)": (yw[0].cpu().numpy(),
+                                                  reference_geq(geq[0].cpu().numpy(), b, a)),
+        f"full size, geq stream {GEQ_B - 1} (tone)": (yw[-1].cpu().numpy(),
+                                          reference_geq(geq[-1].cpu().numpy(), b, a)),
+    }
+    for i in (0, 2047, 2048, 3071):
+        sampled[f"geq B=3072 T=2048 stream {i}"] = (y3[i].cpu().numpy(),
+                                                     reference_geq(g3[i].cpu().numpy(), b, a))
+    # every block of an echo stream and of a double-talk stream, est and err
+    for i, kind in ((0, "echo"), (AEC_B - 1, "double talk")):
+        xi, ri = (v[i].cpu().numpy().reshape(-1, 1024) for v in (x, r))
+        ref_n = reference_nlms_blocks(xi, ri)
+        sampled[f"full size, nlms stream {i} ({kind}), all {len(xi)} blocks"] = (
+            np.concatenate([ew[i].cpu().numpy(), rw[i].cpu().numpy()]),
+            np.concatenate([ref_n[0].reshape(-1), ref_n[1].reshape(-1)]))
+        ref_b = reference_bnlms_blocks(xi, ri)
+        sampled[f"full size, bnlms stream {i} ({kind}), all {len(xi)} blocks"] = (
+            np.concatenate([bw[i].cpu().numpy().reshape(-1), bew[i].cpu().numpy().reshape(-1)]),
+            np.concatenate([ref_b[0].reshape(-1), ref_b[1].reshape(-1)]))
+    for what, (got, want) in sampled.items():
+        ok = np.array_equal(got, want)
+        print(f"[4 main-path] {what}: equal to the reference {ok} "
+              f"({int((got != want).sum()) if got.shape == want.shape else 'shape'} differ)")
+        if not ok:
+            raise RuntimeError(f"{what}: differs from the reference")
+    print(f"[4 main-path] GEQ {GEQ_B}x{GEQ_T}, NLMS/BNLMS {AEC_B}x{AEC_T}: launches "
+          f"{json.dumps(launches)} in {main_s:.1f} s")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"the main path did not launch {missing}")
+    return launches
+
+
+def time_recursions(P, geq, aec, card, sync):
+    """Phase 5 for K6-K9: each kernel at full size (median of REPS) and its
+    plain version at PLAIN_TIME_T (median of PLAIN_REPS), with the bytes,
+    operations and chain bounds.  Returns the numbers per kernel."""
+    import torch
+
+    dev = geq.device
+    b, a = P.G.geq_coefficients()
+    c64 = torch.from_numpy(P.K7.pack_coefficients(b, a, np.float64)).to(dev)
+    c32 = torch.from_numpy(P.K7.pack_coefficients(b, a)).to(dev)
+    gf = geq.float()
+    x, r = aec
+    keep = torch.zeros(AEC_B, 127, dtype=torch.int16, device=dev)
+    gates = P.K9.bnlms_gates(x, r, keep, keep)
+    n_open = int(gates.sum())
+    gate_ms = median_ms(lambda: P.K9.bnlms_gates(x, r, keep, keep), sync)
+    st6 = P.K6.init_state(GEQ_B, dev)
+    st8, st9 = P.K8.init_state(AEC_B, dev), P.K9.init_state(AEC_B, dev)
+    cut = lambda v, k: v[:, :PLAIN_TIME_T[k]].contiguous()  # noqa: E731
+    n_geq, n_aec = GEQ_B * GEQ_T, AEC_B * AEC_T
+    runs = {  # kernel, plain at its timing T, bytes in + out, operations, peak of their type
+        "K6": (lambda: P.K6.geq_cascade_quant(geq, c64),
+               lambda: P.K6.geq_cascade_quant_plain(cut(geq, "K6"), c64, st6),
+               nbytes(geq, c64, st6, geq, st6), 9 * 7 * n_geq, F64_OPS),
+        "K7": (lambda: P.K7.geq_cascade(gf, c32),
+               lambda: P.K7.geq_cascade_plain(cut(gf, "K7"), c32),
+               nbytes(gf, c32, gf), 9 * 7 * n_geq, F32_OPS),
+        "K8": (lambda: P.K8.nlms(x, r),
+               lambda: P.K8.nlms_plain(cut(x, "K8"), cut(r, "K8"), *st8),
+               nbytes(x, r, *st8, x, r, *st8),
+               (511 + 5 + 5 * 256) * n_aec, F64_OPS),  # dot, energy and divisor, update
+        "K9": (lambda: P.K9.bnlms(x, r, gates),
+               lambda: P.K9.bnlms_plain(cut(x, "K9"), cut(r, "K9"), cut(gates, "K9"), *st9),
+               nbytes(x, r, gates, *st9, x, r, *st9),
+               # per block the dot (2 ops per tap and sample); per open gate the energies,
+               # the gradient (5 per tap and sample) and the update
+               2 * 128 * n_aec + n_open * (1024 * (2 * 128 + 1 + 5 * 128) + 2 * 128), F64_OPS),
+    }
+    clock_hz = card_clock_hz()
+    times = {}
+    for name, (kern, plain, nb, ops, peak) in runs.items():
+        ms = median_ms(kern, sync)
+        plain_ms = median_ms(plain, sync, reps=PLAIN_REPS)
+        b_ms, b_by = bound(nb, ops, peak)
+        chain_ms = CHAIN_STEPS[name] * CHAIN_CYCLES[name] / clock_hz * 1e3
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        T = GEQ_T if name in ("K6", "K7") else AEC_T
+        print(f"[5 timing] {name} {GEQ_B if T == GEQ_T else AEC_B}x{T} on {card}: kernel "
+              f"{ms:.3f} ms = {(n_geq if T == GEQ_T else n_aec) / (ms * 1e-3):.4g} samples/s; "
+              f"plain {plain_ms:.3f} ms at T={PLAIN_TIME_T[name]}; bound {b_ms:.4f} ms by {b_by} "
+              f"({nb / 1e6:.1f} MB, {ops:.3g} ops); chain bound {chain_ms:.3f} ms "
+              f"({CHAIN_CYCLES[name]} cycles x {CHAIN_STEPS[name]} steps at "
+              f"{clock_hz / 1e6:.0f} MHz); library call: none")
+    print(f"[5 timing] bnlms gates {AEC_B}x{AEC_T} (float64 matmul DFT, torch.matmul) on {card}: "
+          f"{gate_ms:.3f} ms; {n_open} of {gates.numel()} open")
+    # the ops a user calls, state dicts in and out (through the host), as one call each
+    G, N = P.G, P.N
+    gz = {"xh": torch.zeros(GEQ_B, 2, dtype=torch.int32),
+          "yh": torch.zeros(GEQ_B, 7, 2, dtype=torch.int32)}
+    nz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in N.nlms_init_state().items()}
+    bz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in N.bnlms_init_state().items()}
+    xb, rb = x.reshape(AEC_B, -1, 1024), r.reshape(AEC_B, -1, 1024)
+    op_runs = {  # op, its shape, and the time of its device work alone (above)
+        "geq_apply": (lambda: G.geq_apply(geq, b, a, gz), (GEQ_B, GEQ_T), times["K6"]["ms"]),
+        "nlms_apply": (lambda: N.nlms_apply(x, r, nz), (AEC_B, AEC_T), times["K8"]["ms"]),
+        "bnlms_apply": (lambda: N.bnlms_apply(xb, rb, bz), (AEC_B, AEC_T),
+                        times["K9"]["ms"] + gate_ms)}
+    for op, (fn, (B, T), alone) in op_runs.items():
+        ms = median_ms(fn, sync)
+        print(f"[5 timing] op {op} {B}x{T} on {card}: {ms:.3f} ms = {B * T / (ms * 1e-3):.4g} "
+              f"samples/s; its kernels (and gates) alone {alone:.3f} ms, the rest "
+              f"{ms - alone:.3f} ms")
+    return times
+
+
+SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (file:line)
+    "K1": ("enhance_full8", "enhance_full8.cu", "enhance_pallas.py:737"),
+    "K2": ("enhance_fwd_int8", "enhance_mxu8.cu", "enhance_pallas.py:217"),
+    "K3": ("enhance_back_ola8", "enhance_mxu8.cu", "enhance_pallas.py:491"),
+    "K4": ("enhance_fwd", "enhance_mxu3.cu", "enhance_pallas.py:87"),
+    "K5": ("enhance_back_ola3", "enhance_mxu3.cu", "enhance_pallas.py:337"),
+    "K6": ("geq_cascade_quant", "biquad.cu", "biquad_pallas.py:336"),
+    "K7": ("geq_cascade", "biquad.cu", "biquad_pallas.py:102"),
+    "K8": ("nlms", "nlms.cu", "nlms_pallas.py:317"),
+    "K9": ("bnlms", "nlms.cu", "nlms_pallas.py:261"),
 }
 
 
@@ -457,23 +1017,27 @@ def main() -> int:
     rowpack = P.E._latch_rowpack(speech)
 
     # 3. kernels against plain versions; 4. main path; 5. timing
+    geq, aec = make_geq_streams(GEQ_B, GEQ_T, dev), make_aec_streams(AEC_B, AEC_T, dev)
     err, back_ins = check_kernels(P, blocks, C, rowpack, speech, sync)
+    err.update(check_recursions(P, geq, aec, sync))
     cases = {"probe": probe, "full": x_full, "partial": probe[: T_PROBE * 512 - 100],
              "empty": probe[:0]}
     launches = drive_main_path(P, dev, cases, sync)
+    launches.update(drive_recursions(P, geq, aec, sync))
     time_chains(P, blocks, C, card, sync)
     times = time_kernels(P, blocks, C, rowpack, back_ins, card, sync)
+    times.update(time_recursions(P, geq, aec, card, sync))
 
     print(card)
     print(json.dumps({"kernels": [{
         "name": fn,
         "route": "cuda",
         "source": f"jeicyboodsp_tpu_torch/csrc/{src}",
-        "replaces": f"jeicyboodsp_tpu/kernels/enhance_pallas.py:{line}",
+        "replaces": f"jeicyboodsp_tpu/kernels/{tpu}",
         "launches": launches[name],
         "max_abs_err": err[name],
         **times[name],
-    } for name, (fn, src, line) in SOURCES.items()]}))
+    } for name, (fn, src, tpu) in SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

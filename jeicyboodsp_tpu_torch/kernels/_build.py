@@ -7,9 +7,10 @@ under a name keyed on a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once.  There is no fallback: a
 missing nvcc or a failed compile raises with the compiler's stderr.
 
-Flags: ``-fmad=false`` keeps every f32 ``a*b + c`` of the epilogues as two
-roundings, in the JAX package's operand order (the kernels' exactness
-notes rely on it).
+Flags: ``-fmad=false`` keeps every ``a*b + c`` as two roundings, in f32 (the
+enhancement epilogues, in the JAX package's operand order) and in f64 (the
+GEQ, NLMS and BNLMS recursions, in the reference's order): the kernels'
+exactness notes rely on it.
 """
 
 from __future__ import annotations
@@ -44,6 +45,14 @@ ENTRIES = {
     "jb_enhance_fwd": [_P, _I] + [_P] * 11,
     # re, im, ren, ns, nsn, T, wiener, emit_all, 4 constants, Y, rowsc, uv, out, stream
     "jb_enhance_back_ola3": [_P] * 5 + [_I] * 3 + [_P] * 9,
+    # x, coef, state in, y, state out, B, T, stream
+    "jb_geq_cascade_quant": [_P] * 5 + [_I] * 2 + [_P],
+    # x, coef, y, B, T, stream
+    "jb_geq_cascade": [_P] * 3 + [_I] * 2 + [_P],
+    # x, ref, coef in, hist in, est, err, coef out, hist out, B, T, compat, stream
+    "jb_nlms": [_P] * 8 + [_I] * 3 + [_P],
+    # x, ref, gates, coef in, keep in, est, err, coef out, keep out, B, nb, stream
+    "jb_bnlms": [_P] * 9 + [_I] * 2 + [_P],
 }
 
 _lock = threading.Lock()

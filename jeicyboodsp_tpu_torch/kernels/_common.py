@@ -1,6 +1,6 @@
-"""What the enhancement chain's kernel wrappers share: the constant tensors
-they read (built by ``ops.enhance.enhance_constants``) and the checks every
-wrapper makes before it hands pointers to a kernel."""
+"""What the kernel wrappers share: the checks every wrapper makes before it
+hands pointers to a kernel, and the constant tensors the enhancement chain's
+kernels read (built by ``ops.enhance.enhance_constants``)."""
 
 from __future__ import annotations
 
@@ -39,6 +39,13 @@ def check_mode(mode):
 def check_rows(T, multiple):
     if T == 0 or T % multiple:
         raise ValueError(f"T={T} must be a positive multiple of {multiple}")
+
+
+def check_2d(x, name):
+    """The (streams, samples) shape of ``x``; raises unless ``x`` is 2-D."""
+    if x.dim() != 2:
+        raise ValueError(f"{name} must be 2-D (streams, samples), got {tuple(x.shape)}")
+    return tuple(x.shape)
 
 
 def check(specs, C=None, consts=()):

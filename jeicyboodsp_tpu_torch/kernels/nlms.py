@@ -1,0 +1,122 @@
+"""Per-sample NLMS ("K8"): wrapper, plain version, count.
+
+Replaces the Pallas kernel ``jeicyboodsp_tpu/kernels/nlms_pallas.py:
+nlms_pallas`` (``_nlms_kernel_impl``): ``NormalLMS.cpp``'s 256-tap NLMS,
+mu = 1e-4, the coefficients updated every sample, with the reference's
+pairing quirk (estimate against the reversed coefficients, update against
+the direct ones; ``NormalLMS.cpp:113``, ``:125``).  The TPU kernel keeps
+double-single f32 state; this one keeps f64 state, and its state is carried
+across calls, so a stream can be cut into chunks:
+
+    coef (B, 256) float64, hist (B, 255) int16 (the samples before the call's
+    first, oldest first)
+
+Arithmetic, shared by the kernel and its plain version: the estimate sums
+each 8-tap group in tap order and then the 32 group sums as a fixed tree
+(:func:`tree_dot`); the window energy is a running sum of exact integers
+(equal to the oracle's sequential sum); the update is the oracle's per-tap
+``((2.0*w[j])*MU*e)/d`` (``compat=True``), or ``nlms_apply(compat=False)``'s
+``g = (2*MU)*e/d; c[j] += g*w[255-j]``.
+
+- :func:`nlms` is the wrapper: on a CUDA tensor it launches the hand-written
+  kernel of ``csrc/nlms.cu`` (counted in ``nlms.launches``); on a CPU tensor
+  it runs the plain version; anything else raises.
+- :func:`nlms_plain` is the plain PyTorch version: a loop over samples of
+  separate f64 torch ops in the kernel's order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from jeicyboodsp_tpu_torch.kernels import _build
+from jeicyboodsp_tpu_torch.kernels._common import check, check_2d
+from jeicyboodsp_tpu_torch.utils.cnum import c_short
+
+TAPS = 256  # NormalLMS.cpp NLMS_TAPS
+KEEP = TAPS - 1
+MU = 0.0001
+EPS = 0.0001
+GROUP = 8  # taps per lane of the kernel's warp
+
+
+def init_state(B: int, device=None):
+    """Fresh streams: zero coefficients, zero history."""
+    return (torch.zeros(B, TAPS, dtype=torch.float64, device=device),
+            torch.zeros(B, KEEP, dtype=torch.int16, device=device))
+
+
+def tree_dot(c, v):
+    """sum_j c[j] * v[j] over the last axis (256) in the kernel's order: each
+    lane's 8 products in tap order, then the lanes' sums pairwise at
+    distance 16, 8, 4, 2, 1 (the xor-shuffle tree)."""
+    p = (c * v).reshape(*c.shape[:-1], TAPS // GROUP, GROUP)
+    s = p[..., 0]
+    for m in range(1, GROUP):
+        s = s + p[..., m]
+    n = TAPS // GROUP
+    while n > 1:
+        n //= 2
+        s = s[..., :n] + s[..., n:2 * n]
+    return s[..., 0]
+
+
+def nlms_plain(x, ref, coef, hist, compat=True):
+    """Plain PyTorch version of :func:`nlms` (any device)."""
+    B, T = x.shape
+    f64 = dict(dtype=torch.float64, device=x.device)
+    c = coef.clone()
+    # the window before the first sample; its oldest value (not kept) leaves at once
+    w = torch.cat([torch.zeros(B, 1, **f64), hist.to(torch.float64)], 1)
+    norm = (w * w).sum(1)  # exact: integers below 2^38
+    xf, ri = x.to(torch.float64), ref.to(torch.int32)
+    est = torch.empty_like(x)
+    err = torch.empty_like(x)
+    for t in range(T):
+        xt, old = xf[:, t], w[:, 0]
+        w = torch.cat([w[:, 1:], xt[:, None]], 1)
+        v = w.flip(1)
+        norm = (norm + xt * xt) - old * old
+        y = c_short(tree_dot(c, v)).to(torch.int32)
+        e = ri[:, t] - y
+        ef = e.to(torch.float64)[:, None]
+        d = (norm + EPS)[:, None]
+        if compat:
+            c = c + (((2.0 * w) * MU) * ef) / d
+        else:
+            c = c + (((2.0 * MU) * ef) / d) * v
+        est[:, t] = y.to(torch.int16)
+        err[:, t] = e.to(torch.int16)  # low 16 bits: c_short(double(e))
+    return est, err, (c, w[:, 1:].to(torch.int16))
+
+
+def nlms(x, ref, state=None, compat=True):
+    """(B, T) int16 far-end x and near-end ref -> (est, err (B, T) int16,
+    state).  state: ``(coef (B, 256) f64, hist (B, 255) int16)`` from an
+    earlier call, or None for fresh streams.
+
+    The TPU kernel's ``fast`` mode (an O(1) window energy) needs no flag
+    here: the running energy is this kernel's only one, and exact.  CUDA
+    tensors launch ``jb_nlms``; CPU tensors run :func:`nlms_plain`.
+    """
+    B, T = check_2d(x, "x")
+    if state is None:
+        state = init_state(B, x.device)
+    coef, hist = state
+    dev = check({"x": (x, torch.int16, (B, T)), "ref": (ref, torch.int16, (B, T)),
+                 "coef": (coef, torch.float64, (B, TAPS)),
+                 "hist": (hist, torch.int16, (B, KEEP))})
+    if dev.type == "cpu":
+        return nlms_plain(x, ref, coef, hist, compat)
+    if B * T == 0:
+        return torch.empty_like(x), torch.empty_like(x), (coef.clone(), hist.clone())
+    est, err = torch.empty_like(x), torch.empty_like(x)
+    new = (torch.empty_like(coef), torch.empty_like(hist))
+    _build.launch("jb_nlms", dev, x.data_ptr(), ref.data_ptr(), coef.data_ptr(), hist.data_ptr(),
+                  est.data_ptr(), err.data_ptr(), new[0].data_ptr(), new[1].data_ptr(), B, T,
+                  int(bool(compat)))
+    nlms.launches += 1
+    return est, err, new
+
+
+nlms.launches = 0

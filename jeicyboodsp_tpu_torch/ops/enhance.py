@@ -32,6 +32,7 @@ from jeicyboodsp_tpu_torch.kernels.enhance_fwd import enhance_fwd
 from jeicyboodsp_tpu_torch.kernels.enhance_fwd_int8 import enhance_fwd_int8, vad_rows
 from jeicyboodsp_tpu_torch.ops.dft import int8_col_split
 from jeicyboodsp_tpu_torch.utils.cnum import REF_PI, hamming_ref
+from jeicyboodsp_tpu_torch.utils.device import entry_device
 
 BLOCK_LEN = 512
 FFT_SIZE = 1024
@@ -274,10 +275,7 @@ def run_stream(x, mode: str = "wiener", fft_engine: str = "mxu8f", device="cuda"
     (``device="cpu"`` runs the kernels' plain versions); raises if that card
     is missing.
     """
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"run_stream: device {device!r} asked for, but there is no "
-                           "CUDA device; pass device='cpu' to run the plain versions")
+    dev = entry_device(device)
     x = np.asarray(x, dtype=np.int16)
     if len(x) == 0:  # the reference emits nothing on an empty payload
         return np.zeros(0, np.int16)

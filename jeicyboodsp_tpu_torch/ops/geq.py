@@ -1,0 +1,210 @@
+"""The 7-band graphic EQ (counterpart of ``jeicyboodsp_tpu/ops/geq.py``, with
+its own copy of the constants and coefficient math of
+``jeicyboodsp_tpu/oracle/geq.py``).
+
+Reference: ``7Band_GEQ.cpp``.  48 kHz int16 in 512-sample blocks through
+seven biquads; the direct-form-I output is stored into a ``short`` inside
+the recursion (``:284``), so the feedback runs on int16 values and every
+band's input is the previous band's int16 output.
+
+- The reference's semantics, bit-exact: :func:`geq_apply` (streaming, the
+  JAX state dict) and :func:`run_quant` (a whole signal; the pipeline's
+  route) go through K6 (``kernels.geq_cascade_quant``) in f64.  Only f64
+  is ported: the ops take no dtype.
+- The fast engine: the cascade without the in-loop quantization, by design
+  not the reference's output.  Batches of streams go through K7
+  (``kernels.geq_cascade.geq_cascade``, in f32), which callers use directly,
+  as the JAX package's benchmark uses ``geq_cascade_pallas``.
+
+Entry points run on a CUDA card unless the caller passes ``device="cpu"``
+(the kernels' plain versions).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from jeicyboodsp_tpu_torch.kernels.geq_cascade import pack_coefficients
+from jeicyboodsp_tpu_torch.kernels.geq_cascade_quant import geq_cascade_quant
+from jeicyboodsp_tpu_torch.utils.cnum import REF_PI
+from jeicyboodsp_tpu_torch.utils.device import entry_device
+
+SAMPLING_RATE = 48000.0  # 7Band_GEQ.cpp:33
+TOTAL_BANDS = 7
+BLOCK_LEN = 512  # 7Band_GEQ.cpp:43
+Q = 4.318  # 7Band_GEQ.cpp:45
+ROOT2 = 1.0 / Q  # 7Band_GEQ.cpp:59
+CENTER_FREQS = (44.0, 125.0, 250.0, 500.0, 2000.0, 6000.0, 11313.0)  # :47
+GAINS_DB = (12.0, 12.0, 0.0, 0.0, 3.0, 0.0, -12.0)  # 7Band_GEQ.cpp:51-57
+
+
+def calc_coefficients(
+    gains_db=GAINS_DB, center_freqs=CENTER_FREQS, fs=SAMPLING_RATE, compat: bool = True
+):
+    """Return (b, a) arrays of shape (7, 3), a[:,0] == 0 as in the reference.
+
+    ``compat=True`` reproduces the reference's coefficient quirks
+    (``K_band[k-1]`` in peak a2; V-vs-K mixups in the bass-cut branch);
+    ``compat=False`` computes the textbook formulas.
+    """
+    K = [math.tan(REF_PI * f / fs) for f in center_freqs]
+    # 7Band_GEQ.cpp:139-142 -- invert gain if a cut, so V >= 1 always
+    V = [10.0 ** (g / 20.0) for g in gains_db]
+    V = [1.0 / v if v < 1 else v for v in V]
+    G = list(gains_db)
+    r = ROOT2
+
+    b = np.zeros((TOTAL_BANDS, 3), dtype=np.float64)
+    a = np.zeros((TOTAL_BANDS, 3), dtype=np.float64)
+
+    # --- band 0: bass shelf (7Band_GEQ.cpp:144-175)
+    k0, v0 = K[0], V[0]
+    if G[0] > 0:  # booster, :144-159
+        d = 1 + r * k0 + k0 ** 2
+        b[0] = [
+            (1 + math.sqrt(v0) * r * k0 + v0 * k0 ** 2) / d,
+            (2 * (v0 * k0 ** 2 - 1)) / d,
+            (1 - math.sqrt(v0) * r * k0 + v0 * k0 ** 2) / d,
+        ]
+        a[0] = [0.0, (2 * (k0 ** 2 - 1)) / d, (1 - r * k0 + k0 ** 2) / d]
+    else:  # cut, :160-175 (reference has V/K mixups in a1/a2 -- compat quirk)
+        d = 1 + r * math.sqrt(v0) * k0 + v0 * k0 ** 2
+        b[0] = [
+            (1 + r * k0 + k0 ** 2) / d,
+            (2 * (k0 ** 2 - 1)) / d,
+            (1 - r * k0 + k0 ** 2) / d,
+        ]
+        if compat:
+            # 7Band_GEQ.cpp:173-174: uses K_band[0] where V_band[0] belongs
+            a[0] = [
+                0.0,
+                (2 * (k0 * k0 ** 2 - 1)) / d,
+                (1 - r * math.sqrt(k0) * k0 + k0 * k0 ** 2) / d,
+            ]
+        else:
+            a[0] = [
+                0.0,
+                (2 * (v0 * k0 ** 2 - 1)) / d,
+                (1 - r * math.sqrt(v0) * k0 + v0 * k0 ** 2) / d,
+            ]
+
+    # --- band 6: treble shelf (7Band_GEQ.cpp:177-210)
+    k6, v6 = K[6], V[6]
+    if G[6] > 0:  # booster, :177-192
+        d = 1 + r * k6 + k6 ** 2
+        b[6] = [
+            (v6 + r * math.sqrt(v6) * k6 + k6 ** 2) / d,
+            (2 * (k6 ** 2 - v6)) / d,
+            (v6 - r * math.sqrt(v6) * k6 + k6 ** 2) / d,
+        ]
+        a[6] = [0.0, (2 * (k6 ** 2 - 1)) / d, (1 - r * k6 + k6 ** 2) / d]
+    else:  # cut, :193-210
+        d = v6 + r * math.sqrt(v6) * k6 + k6 ** 2
+        b[6] = [
+            (1 + r * k6 + k6 ** 2) / d,
+            (2 * (k6 ** 2 - 1)) / d,
+            (1 - r * k6 + k6 ** 2) / d,
+        ]
+        d2 = 1 + r / math.sqrt(v6) * k6 + (k6 ** 2) / v6
+        a[6] = [
+            0.0,
+            (2 * ((k6 ** 2) / v6 - 1)) / d2,
+            (1 - r / math.sqrt(v6) * k6 + (k6 ** 2) / v6) / d2,
+        ]
+
+    # --- bands 1..5: peak/notch (7Band_GEQ.cpp:212-249)
+    for kk in range(1, 6):
+        kb, vb = K[kk], V[kk]
+        ka2 = K[kk - 1] if compat else kb  # quirk: 7Band_GEQ.cpp:231,247
+        if G[kk] > 0:  # boost peak, :217-232
+            d = 1 + (1 / Q) * kb + kb ** 2
+            b[kk] = [
+                (1 + (vb / Q) * kb + kb ** 2) / d,
+                (2 * (kb ** 2 - 1)) / d,
+                (1 - (vb / Q) * kb + kb ** 2) / d,
+            ]
+            a[kk] = [0.0, b[kk][1], (1 - (1 / Q) * ka2 + kb ** 2) / d]
+        else:  # cut peak, :233-248
+            d = 1 + (vb / Q) * kb + kb ** 2
+            b[kk] = [
+                (1 + (1.0 / Q) * kb + kb ** 2) / d,
+                (2 * (kb ** 2 - 1)) / d,
+                (1 - (1.0 / Q) * kb + kb ** 2) / d,
+            ]
+            a[kk] = [0.0, b[kk][1], (1 - (vb / Q) * ka2 + kb ** 2) / d]
+
+    return b, a
+
+
+def geq_coefficients(gains_db=GAINS_DB, center_freqs=CENTER_FREQS, compat=True):
+    b, a = calc_coefficients(gains_db=gains_db, center_freqs=center_freqs, compat=compat)
+    return np.asarray(b), np.asarray(a)
+
+
+def init_state():
+    """Per-band int16 keep buffers as the JAX op keeps them: x history (2,)
+    and per-band y history (7, 2), oldest first, int32."""
+    return {"xh": torch.zeros(2, dtype=torch.int32),
+            "yh": torch.zeros(TOTAL_BANDS, 2, dtype=torch.int32)}
+
+
+def state_to_port(state) -> torch.Tensor:
+    """JAX state dict ``{"xh": (..., 2), "yh": (..., 7, 2)}`` -> the kernel's
+    (..., 7, 4) int16 state [x1, x2, y1, y2] per band.  Band k > 0 takes
+    band k-1's output history as its input history."""
+    xh = torch.as_tensor(np.array(state["xh"])).to(torch.int16)
+    yh = torch.as_tensor(np.array(state["yh"])).to(torch.int16)
+    xin = torch.cat([xh.unsqueeze(-2), yh[..., :-1, :]], -2)  # (..., 7, 2) input histories
+    return torch.stack([xin[..., 1], xin[..., 0], yh[..., 1], yh[..., 0]], -1)
+
+
+def state_to_jax(state: torch.Tensor):
+    """The kernel's (..., 7, 4) state -> the JAX dict (int32, on the CPU)."""
+    s = state.cpu().to(torch.int32)
+    return {"xh": torch.stack([s[..., 0, 1], s[..., 0, 0]], -1),
+            "yh": torch.stack([s[..., 3], s[..., 2]], -1)}
+
+
+def geq_apply(x, b, a, state):
+    """Compat-mode cascade in float64 (the JAX op with ``dtype=float64``).
+    x: int16-valued (N,) or (B, N) tensor -> (y int16 of x's shape,
+    new_state), state as :func:`init_state` (with a leading B for a (B, N)
+    x).  Runs on x's device through K6."""
+    coef = torch.from_numpy(pack_coefficients(b, a, np.float64)).to(x.device)
+    s = state_to_port(state).to(x.device)
+    xs = x.to(torch.int16).reshape(-1, x.shape[-1]).contiguous()
+    y, new = geq_cascade_quant(xs, coef, s.reshape(-1, TOTAL_BANDS, 4).contiguous())
+    return y.reshape(x.shape), state_to_jax(new.reshape(s.shape))
+
+
+def _pad_stale_tail(x) -> np.ndarray:
+    """Round a signal up to whole 512-sample blocks the way the reference's
+    fread does: a partial last block keeps the previous block's tail."""
+    xx = np.asarray(x, np.int16)
+    n_full, rem = divmod(len(xx), BLOCK_LEN)
+    if rem:
+        prev = (xx[(n_full - 1) * BLOCK_LEN: n_full * BLOCK_LEN] if n_full
+                else np.zeros(BLOCK_LEN, np.int16))
+        xx = np.concatenate([xx, prev[rem:]])
+    return xx
+
+
+def run_quant(x, gains_db=GAINS_DB, compat=True, device="cuda"):
+    """Whole-signal compat GEQ through K6 (counterpart of
+    ``run_pallas_quant`` and ``stream_blocks``): equals ``oracle.geq.run()``
+    byte for byte.  The output length is rounded up to a 512 multiple with
+    the reference's stale-tail semantics; an empty payload gives 0 samples.
+    The kernel carries each band's keep buffers along the signal, so one
+    call is the block-by-block stream."""
+    dev = entry_device(device)
+    if len(x) == 0:  # the reference emits nothing on an empty payload
+        return np.zeros(0, np.int16)
+    b, a = geq_coefficients(gains_db=gains_db, compat=compat)
+    coef = torch.from_numpy(pack_coefficients(b, a, np.float64)).to(dev)
+    xx = torch.from_numpy(_pad_stale_tail(x)[None]).to(dev)
+    y, _ = geq_cascade_quant(xx, coef)
+    return y[0].cpu().numpy()
+

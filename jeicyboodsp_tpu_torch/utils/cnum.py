@@ -8,6 +8,9 @@ a 16-bit move:
     * otherwise truncate toward zero to int32, keep the low 16 bits
 
 ``REF_PI`` is the reference's truncated pi (``#define PI 3.141592``).
+
+The kernels apply the same rule on the card (``csrc/cnum.cuh``), checking the
+range before they convert: a GPU's double->int conversion saturates instead.
 """
 
 from __future__ import annotations

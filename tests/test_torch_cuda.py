@@ -318,3 +318,166 @@ def test_back_wrappers_reject(name, bad):
         re = re.to("meta")
     with pytest.raises(ValueError):
         kernel(re, im, re_n, ns, ns_n, C, mode)
+
+
+# ---- the GEQ (K6, K7) and the echo cancellers (K8, K9) ----------------------
+
+from jeicyboodsp_tpu_torch.kernels import bnlms as K9  # noqa: E402
+from jeicyboodsp_tpu_torch.kernels import geq_cascade as K7  # noqa: E402
+from jeicyboodsp_tpu_torch.kernels import geq_cascade_quant as K6  # noqa: E402
+from jeicyboodsp_tpu_torch.kernels import nlms as K8  # noqa: E402
+from jeicyboodsp_tpu_torch.ops import geq as G  # noqa: E402
+
+
+def _geq_coef(dtype=np.float64):
+    return torch.from_numpy(K7.pack_coefficients(*G.geq_coefficients(), dtype))
+
+
+def _int16(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-32768, 32768, shape).astype(np.int16))
+
+
+def _echo_pair(B, T, seed):
+    """Far ends N(0, 3000) and their echoes (lead tap 0.5) plus noise."""
+    rng = np.random.default_rng(seed)
+    x = np.clip(rng.normal(0, 3000, (B, T)), -32768, 32767)
+    h = rng.normal(0, 0.1, 32)
+    h[0] = 0.5
+    r = np.stack([np.convolve(xi, h)[:T] for xi in x]) + rng.normal(0, 50, (B, T))
+    return (torch.from_numpy(x.astype(np.int16)),
+            torch.from_numpy(np.clip(r, -32768, 32767).astype(np.int16)))
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (37, 1000), (3072, 300)])
+def test_geq_quant_kernel_matches_plain(cuda, B, T):
+    """K6 bit-equal to its plain version for odd B and T, wrapping input, and
+    B = 3072, where the JAX op raises; state threaded across two calls."""
+    x = _int16((B, T), B + T).to(cuda)
+    coef = _geq_coef().to(cuda)
+    before = K6.geq_cascade_quant.launches
+    y1, s1 = K6.geq_cascade_quant(x[:, : T // 2].contiguous(), coef)
+    y2, s2 = K6.geq_cascade_quant(x[:, T // 2:].contiguous(), coef, s1)
+    yw, sw = K6.geq_cascade_quant(x, coef)
+    torch.cuda.synchronize()
+    assert K6.geq_cascade_quant.launches == before + 2 + (T // 2 > 0)
+    want, want_s = K6.geq_cascade_quant_plain(x, coef, K6.init_state(B, cuda))
+    assert torch.equal(yw, want) and torch.equal(sw, want_s)
+    assert torch.equal(torch.cat([y1, y2], 1), yw) and torch.equal(s2, sw)
+
+
+@pytest.mark.parametrize("B,T", [(5, 777), (64, 2048)])
+def test_geq_linear_kernel_matches_plain(cuda, B, T):
+    """K7 bit-equal to its plain version: the same f32 ops in the same order,
+    no FMA contraction (-fmad=false)."""
+    x = (_int16((B, T), T).float() * 0.5).to(cuda)
+    coef = _geq_coef(np.float32).to(cuda)
+    before = K7.geq_cascade.launches
+    got = K7.geq_cascade(x, coef)
+    torch.cuda.synchronize()
+    assert K7.geq_cascade.launches == before + 1
+    assert torch.equal(got, K7.geq_cascade_plain(x, coef))
+
+
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("B,T", [(3, 1100), (33, 400)])
+def test_nlms_kernel_matches_plain(cuda, B, T, compat):
+    """K8 bit-equal to its plain version (est, err, coefficients, history),
+    also when the stream is cut into two calls."""
+    x, r = (v.to(cuda) for v in _echo_pair(B, T, B))
+    before = K8.nlms.launches
+    e1, r1, s = K8.nlms(x[:, :333].contiguous(), r[:, :333].contiguous(), compat=compat)
+    e2, r2, s = K8.nlms(x[:, 333:].contiguous(), r[:, 333:].contiguous(), s, compat=compat)
+    torch.cuda.synchronize()
+    assert K8.nlms.launches == before + 2
+    we, wr, (wc, wh) = K8.nlms_plain(x, r, *K8.init_state(B, cuda), compat=compat)
+    assert torch.equal(torch.cat([e1, e2], 1), we) and torch.equal(torch.cat([r1, r2], 1), wr)
+    assert torch.equal(s[0], wc) and torch.equal(s[1], wh)
+
+
+def test_nlms_kernel_wraps_diverged_estimates(cuda):
+    """Coefficients far too large give estimates beyond int32: c_short maps
+    them to 0 (the reference's cvttsd2si), never the GPU's saturated value."""
+    x, r = (v.to(cuda) for v in _echo_pair(2, 64, 9))
+    coef = torch.full((2, K8.TAPS), 1e6, dtype=torch.float64, device=cuda)
+    hist = _int16((2, K8.KEEP), 3).to(cuda)
+    got = K8.nlms(x, r, (coef, hist))
+    want = K8.nlms_plain(x, r, coef, hist)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0].eq(0).any()
+
+
+@pytest.mark.parametrize("B,nb", [(1, 2), (7, 3)])
+def test_bnlms_kernel_matches_plain(cuda, B, nb):
+    """K9 bit-equal to its plain version with open and shut gates, also when
+    the stream is cut into two calls."""
+    x, r = (v.to(cuda) for v in _echo_pair(B, nb * 1024, 10 + B))
+    gates = torch.from_numpy(np.random.default_rng(B).random((B, nb)) < 0.7).to(cuda)
+    before = K9.bnlms.launches
+    e1, r1, s = K9.bnlms(x[:, :1024].contiguous(), r[:, :1024].contiguous(),
+                         gates[:, :1].contiguous())
+    e2, r2, s = K9.bnlms(x[:, 1024:].contiguous(), r[:, 1024:].contiguous(),
+                         gates[:, 1:].contiguous(), s)
+    torch.cuda.synchronize()
+    assert K9.bnlms.launches == before + 2
+    we, wr, (wc, wk) = K9.bnlms_plain(x, r, gates, *K9.init_state(B, cuda))
+    assert torch.equal(torch.cat([e1, e2], 1), we) and torch.equal(torch.cat([r1, r2], 1), wr)
+    assert torch.equal(s[0], wc) and torch.equal(s[1], wk)
+
+
+def test_bnlms_gates_on_card_match_cpu(cuda):
+    x, r = _echo_pair(4, 4096, 12)
+    keep = torch.zeros(4, 127, dtype=torch.int16)
+    r[1] = -r[1]
+    got = K9.bnlms_gates(x.to(cuda), r.to(cuda), keep.to(cuda), keep.to(cuda))
+    assert torch.equal(got.cpu(), K9.bnlms_gates(x, r, keep, keep))
+
+
+def test_recursion_cpu_wrappers_run_plain_without_counting():
+    x, r = _echo_pair(2, 2048, 13)
+    coef = _geq_coef()
+    counts = [f.launches for f in (K6.geq_cascade_quant, K7.geq_cascade, K8.nlms, K9.bnlms)]
+    y, s = K6.geq_cascade_quant(x[:, :64].contiguous(), coef)
+    assert torch.equal(y, K6.geq_cascade_quant_plain(x[:, :64].contiguous(), coef,
+                                                     K6.init_state(2))[0])
+    xf = x[:, :64].float().contiguous()
+    assert torch.equal(K7.geq_cascade(xf, coef.float()), K7.geq_cascade_plain(xf, coef.float()))
+    assert torch.equal(K8.nlms(x, r)[0], K8.nlms_plain(x, r, *K8.init_state(2))[0])
+    gates = torch.ones(2, 2, dtype=torch.bool)
+    assert torch.equal(K9.bnlms(x, r, gates)[1], K9.bnlms_plain(x, r, gates, *K9.init_state(2))[1])
+    assert counts == [f.launches for f in (K6.geq_cascade_quant, K7.geq_cascade, K8.nlms, K9.bnlms)]
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rank", "state", "coef", "noncontig", "device"])
+@pytest.mark.parametrize("name", ["K6", "K7", "K8", "K9"])
+def test_recursion_wrappers_reject(name, bad):
+    x, r = _echo_pair(2, 2048, 14)
+    coef = _geq_coef(np.float32 if name == "K7" else np.float64)
+    if name == "K7":
+        x = x.float()
+    state = {"K6": K6.init_state(2), "K8": K8.init_state(2), "K9": K9.init_state(2)}.get(name)
+    if bad == "dtype":
+        x = x.to(torch.int32) if name != "K7" else x.double()
+    elif bad == "rank":
+        x = x[0]
+    elif bad == "state":
+        state = {"K6": K6.init_state(3), "K8": K8.init_state(3), "K9": K9.init_state(3)}.get(name)
+        if name == "K7":
+            coef = coef[:6]
+    elif bad == "coef":
+        coef = coef.float() if name != "K7" else coef.double()
+        if name == "K8":
+            state = (state[0].float(), state[1])
+        elif name == "K9":
+            state = (state[0], state[1].to(torch.int32))
+    elif bad == "noncontig":
+        x = x[:, ::2]
+    elif bad == "device":
+        x = x.to("meta")
+    call = {"K6": lambda: K6.geq_cascade_quant(x, coef, state),
+            "K7": lambda: K7.geq_cascade(x, coef),
+            "K8": lambda: K8.nlms(x, r, state),
+            "K9": lambda: K9.bnlms(x, r, torch.ones(2, 2, dtype=torch.bool), state)}[name]
+    with pytest.raises(ValueError):
+        call()
