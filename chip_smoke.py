@@ -8,8 +8,10 @@ spectral-subtraction chain of engines mxu8f, mxu8t (kernel K1), mxu8 (K2,
 K3) and mxu3 (K4, K5) at T = 16384 blocks of 512 samples per call (8.39 M
 samples); the 7-band GEQ (K6, and K7 for its linear engine) at 2048 streams
 x 49,152 samples; the NLMS (K8) and BNLMS (K9) echo cancellers at 1024
-streams x 65,536 samples -- in phases that each print lines and raise on
-failure:
+streams x 65,536 samples; the MFCC (K10) over 8192 blocks of 1024 samples
+with speech classification against 25 class models, and pitch method 2
+(K11) over 16,384 frames of 1024 -- in phases that each print lines and
+raise on failure:
 
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA sources with nvcc and prints the seconds;
@@ -22,6 +24,9 @@ failure:
      (T = 4096), K8 (T = 2048, both update pairings), K9 (8 blocks) and K6 at
      B = 3072, each bit-equal (else the differing samples are printed and
      the phase fails);
+   - at full size: K10 >= 90 dB over the finite features with equal NaN and
+     infinity masks (a silent stretch gives NaN frames); K11 bit-equal at
+     lo = 96 and lo = 0;
 4. main paths, every launch counter set to 0 just before each and read just
    after, each kernel launched at least once:
    - enhancement: the file-in/file-out pipelines of every engine on a
@@ -38,12 +43,25 @@ failure:
      BNLMS every block of an echo and a double-talk stream) must equal the
      references, B = 3072 runs (K6), and the GEQ's linear engine (K7)
      must come within 55 dB of a float64 linear cascade;
+   - features, against the script's own float64 numpy copies of the MFCC,
+     pitch and GMM-scoring oracles: the ``pitch1``-``pitch3`` pipelines in
+     f64 and ``pitch2`` through K11 in f64 and from the CLI with ``--fast
+     --engine mxu`` on a speech probe with a silent stretch, a partial last
+     block and an empty payload (lags equal; f64 values and f0 equal, to
+     1e-9 for method 1's FFT); the ``mfcc`` pipeline in f64 and f32 xla/mxu3
+     (>= 100 dB); ``mfcc_blocks(mxu3)`` at full size through K10 (>= 85 dB);
+     ``speech_classify(mxu3)`` of 25 utterances against 25 class models the
+     script builds from the reference's features (every argmax the class,
+     scores within 1e-4); ``pitch_frames(method=2, mxu)`` at full size
+     through K11 (256 frames: f64 equal, f32 lags equal up to f32 ties);
 5. timing: ``enhance_blocks`` of each engine, the ops ``geq_apply``,
-   ``nlms_apply`` and ``bnlms_apply`` at full size, and each kernel alone
-   against its plain version (K6-K9 at their shorter T) and one PyTorch call
-   of its GEMM core where there is one, CUDA events, median of 7 after
-   warm-up (median of 3 for the plain loops of K6-K9), with the bytes,
-   operations and dependency-chain bounds.
+   ``nlms_apply`` and ``bnlms_apply``, ``mfcc_blocks(mxu3)``,
+   ``pitch_frames(method=2, mxu)`` and ``speech_classify`` at full size, and
+   each kernel alone against its plain version (K6-K9 at their shorter T)
+   and one PyTorch call of its GEMM core where there is one, CUDA events,
+   median of 7 after warm-up (median of 3 for the plain versions of K6-K11),
+   with the bytes, operations and dependency-chain bounds; ``speech_classify``
+   once more under ``torch.profiler`` (device busy time, host ops).
 
 Then the card's line, one JSON line of per-kernel results and, last, the
 ``{"ok": true, ...}`` line.  Imports neither jax nor the JAX package.
@@ -321,6 +339,35 @@ def median_ms(fn, sync, reps=REPS):
     return float(np.median(times))
 
 
+def profile_call(fn, sync, top=8):
+    """One warm-up call of fn, then one under torch.profiler: its wall ms
+    (CUDA events), the device busy ms, and the ``top`` kernels by device time
+    and host ops by self CPU time, each as (ms, count, name)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a.record()
+        fn()
+        b.record()
+        sync()
+    kernels, host = [], []
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.self_cuda_time_total
+            kernels.append((dev_us / 1e3, ev.count, ev.key))
+        else:
+            host.append((ev.self_cpu_time_total / 1e3, ev.count, ev.key))
+    busy = sum(k[0] for k in kernels)
+    return a.elapsed_time(b), busy, sorted(kernels, reverse=True)[:top], sorted(host, reverse=True)[:top]
+
+
 def bound(nbytes, ops, peak):
     """The least time (ms) of a kernel on this card: its bytes (each input
     read once, each output written once) over the memory rate, or its
@@ -374,8 +421,16 @@ def _port():
     from jeicyboodsp_tpu_torch.ops import geq as G
     from jeicyboodsp_tpu_torch.ops import nlms as N
 
+    from jeicyboodsp_tpu_torch import cli
+    from jeicyboodsp_tpu_torch.kernels import amdf as K11
+    from jeicyboodsp_tpu_torch.kernels import mfcc_fused as K10
+    from jeicyboodsp_tpu_torch.models import gmm as GM
+    from jeicyboodsp_tpu_torch.ops import features as F
+    from jeicyboodsp_tpu_torch.pipelines import speech as S
+
     return SimpleNamespace(_build=_build, K1=K1, K2=K2, K3=K3, K4=K4, K5=K5, E=E,
-                           registry=registry, K6=K6, K7=K7, K8=K8, K9=K9, G=G, N=N)
+                           registry=registry, K6=K6, K7=K7, K8=K8, K9=K9, G=G, N=N,
+                           K10=K10, K11=K11, GM=GM, F=F, S=S, cli=cli)
 
 
 K1_ENGINES = {"mxu8f": True, "mxu8t": False}  # the engines of K1: hq
@@ -968,6 +1023,438 @@ def time_recursions(P, geq, aec, card, sync):
     return times
 
 
+# ---- speech features: MFCC (K10) with GMM classification, AMDF pitch (K11) ---
+
+MFCC_T = 8192     # blocks of 1024 per call: 16,384 frames, 8.39 M samples (bench/all_configs.py:612)
+PITCH_T = 16384   # frames of 1024 at hop 512: 8.39 M samples (bench/all_configs.py:681)
+CLASSES = 25      # the class models gmm_train trains (jeicyboodsp_tpu/pipelines/registry.py:159)
+TRAIN_BLOCKS, UTT_BLOCKS = 64, 32  # blocks of 1024 behind a class model / in an utterance
+MFCC_FULL_DB = 85.0   # mfcc_blocks(mxu3) at full size vs the f64 reference: the TPU kernel's level
+MFCC_PIPE_DB = 100.0  # the mfcc pipeline vs the reference (config.ENGINE_FIDELITY["mfcc", "mxu3"])
+SCORE_RTOL = 1e-4     # speech_classify's scores (f32 features) vs the f64 reference's
+PITCH_SAMPLED = 256   # full-size frames held against the reference
+AMDF_LO = 96          # K11's first lag on the pitch path
+REF_PI = 3.141592
+# integer instructions an H100 SM dispatches per clock: one warp instruction per clock on each
+# of its 4 partitions, on the ALU pipe (IADD3, IABS: 16 lanes) and the FMA pipe (IMAD: 16
+# lanes) together (NVIDIA's Hopper white paper)
+INT_OPS_PER_CLOCK = 128
+AMDF_PAIR_OPS = 2     # what an AMDF pair needs: |u_i - u_{i+k}| and its add into the sum
+# a real 1024-point FFT (2.5 n log2 n flops), then per frame pre-emphasis and window (3 per
+# sample), |X| (4 per bin), the mel runs (<= 2 weights per bin, 4 flops), the DCT (38 x 12)
+MFCC_FRAME_FLOPS = 2.5 * 1024 * 10 + 3 * 1024 + 4 * 512 + 4 * 512 + 2 * 38 * 12
+MFCC_MEL, MFCC_CEP = 38, 12
+
+
+def speech_signal(n, rng, silent=None):
+    """Speech-like int16 at 16 kHz: f0 gliding over 80-150 Hz with a third
+    harmonic over N(0, 300); the sample range ``silent`` (start, stop) set
+    to digital silence."""
+    t = np.arange(n) / FS
+    phase = 2 * np.pi * np.cumsum(115.0 + 35.0 * np.sin(2 * np.pi * 0.7 * t)) / FS
+    x = 8000 * np.sin(phase) + 2000 * np.sin(3 * phase) + rng.normal(0, 300, n)
+    x = np.clip(x, -32768, 32767).astype(np.int16)
+    if silent:
+        x[silent[0]:silent[1]] = 0
+    return x
+
+
+def class_signal(c, n, rng):
+    """Class c of the classification probe: a tone at 150 Hz x 1.12^c with a
+    3% vibrato and a second harmonic, amplitude-modulated, over N(0, 300)."""
+    t = np.arange(n) / FS
+    f0 = 150.0 * 1.12 ** c
+    phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.03 * np.sin(2 * np.pi * 1.3 * t))) / FS
+    amp = 6000 * (0.6 + 0.4 * np.sin(2 * np.pi * 2.1 * t + rng.uniform(0, 6)) ** 2)
+    x = amp * (np.sin(phase) + 0.4 * np.sin(2 * phase)) + rng.normal(0, 300, n)
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+def mfcc_tables():
+    """float64 (512, 38) mel weights and (38, 12) DCT-II + lifter matrix of
+    MFCCFeatureExtraction_auto_version1.cpp: the mel filterbank built from
+    equal splits of the 0..22050 Hz mel axis (:118-152), a triangular weight
+    per bin towards the next channel edge (:154-174), DCT over channels 1..38
+    with sqrt(2/38), sinusoidal lifter L = 22 (:176-192)."""
+    unit = 1127.0 * np.log(1 + 22050.0 / 700.0) / (MFCC_MEL + 1)
+    edges = 700.0 * (np.exp(unit * np.arange(1, MFCC_MEL + 2) / 1127.0) - 1.0)
+    f = np.arange(512) / 511 * 22050.0
+    bins, k = np.zeros(512, np.int64), 0
+    for i in range(512):
+        if f[i] > edges[k] and k < MFCC_MEL:
+            k += 1
+        bins[i] = k
+    lower = np.where(bins == 0, 0.0, edges[np.maximum(bins - 1, 0)])
+    fb = np.maximum((edges[bins] - f) / (edges[bins] - lower), 0.0)
+    M = np.zeros((512, MFCC_MEL))
+    for i in range(512):
+        if bins[i] == 0:
+            M[i, 0] += 1 - fb[i]
+        else:
+            M[i, bins[i] - 1] += fb[i]
+            if bins[i] != MFCC_MEL:
+                M[i, bins[i]] += 1 - fb[i]
+    i, k = np.arange(1, MFCC_CEP + 1)[None, :], np.arange(1, MFCC_MEL + 1)[:, None]
+    lift = 1 + 0.5 * 22 * np.sin(REF_PI * np.arange(1, MFCC_CEP + 1) / 22)
+    D = np.sqrt(2.0 / MFCC_MEL) * np.cos(REF_PI * i * (k - 0.5) / MFCC_MEL) * lift[None, :]
+    return M, D
+
+
+def reference_mfcc_frames(frames):
+    """float64 MFCC of (F, 1024) int16 frames: pre-emphasis 0.96 from i = 1
+    (frame[0] stays 0), the Hamming window with REF_PI, |FFT| of bins
+    0..511, mel, log (log 0 = -inf), DCT + lifter."""
+    M, D = mfcc_tables()
+    f = frames.astype(np.float64)
+    pre = np.zeros_like(f)
+    pre[:, 1:] = f[:, 1:] - 0.96 * f[:, :-1]
+    w = 0.54 - 0.46 * np.cos(2.0 * REF_PI * np.arange(1024) / 1023)
+    X = np.fft.fft(pre * w, axis=1)[:, :512]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.log(np.sqrt(X.real ** 2 + X.imag ** 2) @ M) @ D
+
+
+def reference_mfcc(x, skip_first=True):
+    """MFCCFeatureExtraction_auto_version1.cpp on one signal: 1024-sample
+    blocks (a partial last block keeps the previous block's stale tail), two
+    frames per block at hop 512 over [keep, block], the run's first frame
+    skipped (:95-97)."""
+    flat = np.concatenate([np.zeros(512, np.int16), _stale_blocks(x, 1024).reshape(-1)])
+    n = len(flat) // 512 - 1
+    frames = flat[np.arange(n)[:, None] * 512 + np.arange(1024)[None, :]]
+    feats = reference_mfcc_frames(frames)
+    return feats[1:] if skip_first else feats
+
+
+def reference_pitch_frames(frames, method):
+    """PitchEstimation_method{1,2,3}.cpp on (T, 1024) int16 frames [previous
+    block, block]: the autocorrelation by FFT (1), the AMDF (2) or the
+    direct autocorrelation (3) over lags 0..511, each lag's integer sum as
+    a double divided by 1024 - k (2, 3); the descending scan from 511 to 101
+    keeps the smallest lag at the extremum.  Returns lag, value, f0."""
+    u = frames.astype(np.int64)
+    if method == 1:
+        X = np.fft.fft(u.astype(np.float64), axis=1)
+        ac = np.fft.ifft(X.real ** 2 + X.imag ** 2, axis=1).real[:, :512]
+    else:
+        ac = np.stack([(np.abs(u[:, :1024 - k] - u[:, k:]) if method == 2
+                        else u[:, :1024 - k] * u[:, k:]).sum(1) / (1024 - k)
+                       for k in range(512)], 1)
+    sl = ac[:, 101:]
+    ext = sl.min(1) if method == 2 else sl.max(1)
+    lag = 101 + np.argmax(sl == ext[:, None], 1)
+    return lag, ext, FS / lag
+
+
+def reference_pitch(x, method):
+    """The pitch program on one signal: 512-sample blocks with stale tails,
+    frames [previous block, block]; nothing for an empty payload."""
+    blocks = _stale_blocks(x, 512)
+    if not len(blocks):
+        return np.zeros(0, np.int64), np.zeros(0), np.zeros(0)
+    prev = np.concatenate([np.zeros((1, 512), np.int16), blocks[:-1]])
+    return reference_pitch_frames(np.concatenate([prev, blocks], 1), method)
+
+
+def reference_score(frames, alpha, mean, cov, eig4):
+    """GMMAlgorithm_Test_Auto_ver2.cpp:151-236 on (N, 12) features: each
+    frame projected on a mixture's 4 eigenvectors, a diagonal Gaussian
+    product there, the mixtures weighted and summed, log; the mean over
+    frames.  Model in the test layout (projected mean in mean[k][:4],
+    variances on cov[k]'s diagonal)."""
+    s = 0.0
+    for k in range(4):
+        var = np.diagonal(cov[k])[:4]
+        with np.errstate(over="ignore", divide="ignore", invalid="ignore"):
+            terms = (1.0 / np.sqrt(2.0 * REF_PI)) * (1.0 / np.sqrt(var)) * np.exp(
+                -0.5 * (frames @ eig4[k] - mean[k][:4]) ** 2 / var)
+        s = s + alpha[k] * np.prod(terms, 1)
+    with np.errstate(divide="ignore"):
+        return float(np.mean(np.log(s)))
+
+
+def class_models(feats):
+    """Class models in the test layout from each class's float64 features:
+    four contiguous quarters of the frames as the mixtures, each with its
+    mean and covariance and their top-4 eigenpairs (numpy.linalg.eigh).
+    Returns alphas (C, 4), means (C, 4, 12), covs (C, 4, 12, 12), eigvecs
+    (C, 4, 12, 4)."""
+    C = len(feats)
+    alphas = np.full((C, 4), 0.25)
+    means, covs, eigs = np.zeros((C, 4, 12)), np.zeros((C, 4, 12, 12)), np.zeros((C, 4, 12, 4))
+    for c, f in enumerate(feats):
+        q = len(f) // 4
+        for k in range(4):
+            seg = f[k * q:(k + 1) * q]
+            vals, vecs = np.linalg.eigh(np.cov(seg.T, bias=True))
+            top = np.argsort(-vals, kind="stable")[:4]
+            means[c, k, :4] = seg.mean(0) @ vecs[:, top]
+            covs[c, k, np.arange(4), np.arange(4)] = vals[top]
+            eigs[c, k] = vecs[:, top]
+    return alphas, means, covs, eigs
+
+
+
+def feature_inputs(dev):
+    """The full-size inputs, from SEED: MFCC_T blocks of speech with 8192
+    samples of digital silence (14 whole frames, NaN features), as the
+    signal and its zero-prefixed (2T + 1, 512) row view whose rows[:-1],
+    rows[1:] are K10's frame halves; PITCH_T frames [previous block, block]
+    of speech with a silent stretch (every lag ties: lag 101)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 3)
+    x = speech_signal(MFCC_T * 1024, rng, silent=(300_000, 308_192))
+    flat = torch.from_numpy(np.concatenate([np.zeros(512, np.int16), x])).to(dev)
+    blocks = speech_signal(PITCH_T * 512, rng, silent=(1_000_000, 1_010_000)).reshape(-1, 512)
+    prev = np.concatenate([np.zeros((1, 512), np.int16), blocks[:-1]])
+    frames = torch.from_numpy(np.concatenate([prev, blocks], 1)).to(dev)
+    return x, flat.reshape(-1, 512), frames
+
+
+def _finite_db(got, want, what, floor):
+    """SNR over the finite features; fails below ``floor`` or unless the NaN
+    and infinity masks (with signs) agree.  Returns the dB and the max
+    |diff| over the finite features."""
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    fin = np.isfinite(w)
+    same = (g.shape == w.shape and np.array_equal(np.isnan(g), np.isnan(w))
+            and np.array_equal(np.isinf(g), np.isinf(w)) and np.array_equal(g[~fin & ~np.isnan(w)],
+                                                                             w[~fin & ~np.isnan(w)]))
+    err = g[fin] - w[fin] if same else np.array([np.inf])
+    db = 10 * np.log10(np.sum(w[fin] ** 2) / max(np.sum(err ** 2), 1e-300))
+    print(f"{what}: {db:.2f} dB over {int(fin.sum())} finite values, NaN {int(np.isnan(w).sum())}, "
+          f"masks equal {same}, max |diff| {np.abs(err).max():.3e}")
+    if not (same and db >= floor):
+        raise RuntimeError(f"{what}: {db:.2f} dB (floor {floor}), masks equal {same}")
+    return db, float(np.abs(err).max())
+
+
+def check_features(P, feat, sync):
+    """Phase 3 for K10 and K11: each against its plain version at full size.
+    Returns the max |kernel - plain| of each."""
+    import torch
+
+    _, rows, frames = feat
+    got, want = P.K10.mfcc_fused(rows[:-1], rows[1:]), P.K10.mfcc_fused_plain(rows[:-1], rows[1:])
+    sync()
+    _, err10 = _finite_db(got.cpu(), want.cpu(), f"[3 kernel-vs-plain] K10 N={len(got)}",
+                          KERNEL_VS_PLAIN_DB)
+    pairs = []
+    for lo in (AMDF_LO, 0):
+        pairs.append((P.K11.amdf(frames, lo), P.K11.amdf_plain(frames, lo)))
+        sync()
+    if any(g.dtype != torch.float64 for g, _ in pairs):
+        raise RuntimeError("K11 must return float64")
+    err11 = _bit_equal("K11", f"T={PITCH_T} lo={AMDF_LO} and lo=0 (f64)", pairs)
+    return {"K10": err10, "K11": err11}
+
+
+def _write_probe(work, name, x):
+    path = os.path.join(work, f"{name}.wav")
+    np.concatenate([np.arange(22, dtype=np.int16), x]).tofile(path)  # 44 header bytes, skipped
+    return path
+
+
+def _pitch_lines(text):
+    """(lag, value, f0) arrays from the pitch pipeline's printed lines."""
+    rows = [line.split() for line in text.splitlines() if line.startswith("Estimation arg")]
+    return (np.array([int(r[2]) for r in rows], np.int64), np.array([float(r[5]) for r in rows]),
+            np.array([float(r[7]) for r in rows]))
+
+
+def drive_features(P, feat, dev, sync):
+    """Phase 4 for the speech features, the K10 and K11 launch counters set
+    to 0 just before and read just after: the pitch and mfcc pipelines and
+    CLI on probe files, mfcc_blocks(mxu3) and pitch_frames(method=2, mxu)
+    at full size, speech_classify(mxu3) of CLASSES utterances against
+    CLASSES class models.  Returns the counts and the classification
+    inputs."""
+    import contextlib
+    import io
+
+    import torch
+
+    counted = {"K10": P.K10.mfcc_fused, "K11": P.K11.amdf}
+    work = os.path.join(ROOT, "jeicyboodsp_tpu_torch", "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    rng = np.random.default_rng(SEED + 4)
+    probe = speech_signal(40 * 512 + 300, rng, silent=(4096, 8192))  # partial last blocks
+    cases = {"probe": probe, "empty": probe[:0]}
+    paths = {c: _write_probe(work, f"feat_{c}", x) for c, x in cases.items()}
+    mfcc_runs = {"f64 xla": (torch.float64, "xla"), "f32 xla": (torch.float32, "xla"),
+                 "f32 mxu3": (torch.float32, "mxu3")}
+    lists = {}
+    for r in mfcc_runs:  # the probe first: its first frame is the run's, skipped
+        tag = r.replace(" ", "_")
+        lists[r] = os.path.join(work, f"mfcc_{tag}.list")
+        with open(lists[r], "w") as f:
+            f.writelines(f"{paths[c]} {os.path.join(work, f'{c}_{tag}.mfc')}\n" for c in cases)
+    x, rows, frames = feat
+    train = [class_signal(c, TRAIN_BLOCKS * 1024, rng) for c in range(CLASSES)]
+    utts = [class_signal(c, UTT_BLOCKS * 1024, rng) for c in range(CLASSES)]
+    model = class_models([reference_mfcc(t, skip_first=False) for t in train])
+    tmodel = P.GM.model_to_port(*model, dev)
+    ublocks = [torch.from_numpy(u.reshape(-1, 1024)).to(dev) for u in utts]
+
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    printed = {}
+    for c in cases:
+        for m in (1, 2, 3):
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                P.registry.pitch(paths[c], m, dtype=torch.float64, device=dev)
+            printed[f"pitch{m} f64 xla", c] = out.getvalue()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            P.registry.pitch(paths[c], 2, dtype=torch.float64, fft_engine="mxu", device=dev)
+        printed["pitch2 f64 mxu (K11)", c] = out.getvalue()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            P.cli.main(["pitch2", paths[c], "--fast", "--engine", "mxu", "--device", str(dev)])
+        printed["cli pitch2 --fast --engine mxu (K11)", c] = out.getvalue()
+    for r, (dtype, eng) in mfcc_runs.items():
+        P.registry.mfcc(lists[r], dtype=dtype, fft_engine=eng, device=dev)
+    mel_m, dct_m = P.F.mel_dct(torch.float32, dev)
+    full_blocks = rows[1:].reshape(MFCC_T, 1024)
+    feats_full = P.F.mfcc_blocks(full_blocks, mel_m, dct_m, dtype=torch.float32, fft_engine="mxu3")
+    scores = [P.S.speech_classify(b, *tmodel, dtype=torch.float32, fft_engine="mxu3")
+              for b in ublocks]
+    lag64, val64, f064 = P.F.pitch_frames(frames, method=2, dtype=torch.float64, fft_engine="mxu")
+    lag32, val32, _ = P.F.pitch_frames(frames, method=2, dtype=torch.float32, fft_engine="mxu")
+    sync()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    main_s = time.perf_counter() - t0
+
+    for (run, c), text in printed.items():
+        m = int(run.split("pitch")[1][0])
+        want = reference_pitch(cases[c], m)
+        got = _pitch_lines(text)
+        ok = got[0].shape == want[0].shape and np.array_equal(got[0], want[0])
+        if "--fast" not in run:  # f64: values and f0 too
+            if m == 1:  # the FFTs' last bits differ between libraries
+                ok = ok and np.allclose(got[1], want[1], rtol=1e-9, atol=0)
+            else:  # exact integer sums and one IEEE division
+                ok = ok and np.array_equal(got[1], want[1])
+            ok = ok and np.array_equal(got[2], want[2])
+        print(f"[4 main-path] {run} {c}: {len(got[0])} blocks, equal to the reference {ok}")
+        if not ok:
+            raise RuntimeError(f"{run} {c}: differs from the reference")
+    for r in mfcc_runs:
+        first = True
+        for c, x_c in cases.items():
+            got = np.fromfile(os.path.join(work, f"{c}_{r.replace(' ', '_')}.mfc"), "<f8")
+            want = reference_mfcc(x_c, skip_first=first).reshape(-1)
+            first = False
+            if not len(want):
+                if len(got):
+                    raise RuntimeError(f"mfcc {r} {c}: {len(got)} values, want 0")
+                continue
+            _finite_db(got, want, f"[4 main-path] mfcc pipeline {r} {c}", MFCC_PIPE_DB)
+    _finite_db(feats_full.cpu(), reference_mfcc(x, skip_first=False),
+               f"[4 main-path] mfcc_blocks(mxu3) {MFCC_T}x1024 (K10)", MFCC_FULL_DB)
+    worst, argmax_ok = 0.0, True
+    for c, u in enumerate(utts):
+        f = reference_mfcc(u, skip_first=False)
+        want = np.array([reference_score(f, *(m[j] for m in model)) for j in range(CLASSES)])
+        got = scores[c].cpu().numpy()
+        worst = max(worst, float(np.max(np.abs(got - want) / np.abs(want))))
+        argmax_ok &= int(np.argmax(got)) == int(np.argmax(want)) == c
+    print(f"[4 main-path] speech_classify(mxu3, K10) {CLASSES} utterances x {CLASSES} classes: "
+          f"every argmax the reference's and the class {argmax_ok}, largest relative score "
+          f"difference {worst:.3e} (limit {SCORE_RTOL})")
+    if not (argmax_ok and worst <= SCORE_RTOL):
+        raise RuntimeError("speech_classify differs from the reference")
+    idx = np.linspace(0, PITCH_T - 1, PITCH_SAMPLED).astype(np.int64)
+    idx[1] = 1_000_000 // 512 + 2  # a frame inside the silent stretch
+    wl, wv, wf = reference_pitch_frames(frames[torch.from_numpy(idx).to(dev)].cpu().numpy(), 2)
+    gl, gv, gf = (v.cpu().numpy()[idx] for v in (lag64, val64, f064))
+    ok64 = np.array_equal(gl, wl) and np.array_equal(gv, wv) and np.array_equal(gf, wf)
+    l32, v32 = lag32.cpu().numpy()[idx], val32.cpu().numpy()[idx]
+    ties = np.flatnonzero(l32 != wl)  # an f32 tie with a smaller lag is allowed
+    ok32 = all(np.float32(wv[i]) == v32[i] for i in ties)
+    print(f"[4 main-path] pitch_frames(method=2, mxu, K11) {PITCH_T} frames, {PITCH_SAMPLED} "
+          f"sampled: f64 lags, values and f0 equal to the reference {ok64}; f32 lags differing "
+          f"{len(ties)}, each an f32 tie {ok32}; the silent frame's lag {int(gl[1])}")
+    if not (ok64 and ok32 and gl[1] == 101):
+        raise RuntimeError("pitch_frames(method=2, mxu) differs from the reference")
+    print(f"[4 main-path] features: launches {json.dumps(launches)} in {main_s:.1f} s")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"the main path did not launch {missing}")
+    return launches, (ublocks, tmodel)
+
+
+def time_features(P, feat, classify, card, sync):
+    """Phase 5 for K10 and K11: the ops at full size, each kernel alone, its
+    plain version and (K10) one f32 torch.matmul of its GEMM core, with the
+    bounds.  Returns the numbers per kernel."""
+    import torch
+
+    _, rows, frames = feat
+    prev, cur = rows[:-1], rows[1:]
+    N = prev.shape[0]
+    mel_m, dct_m = P.F.mel_dct(torch.float32, frames.device)
+    full_blocks = rows[1:].reshape(MFCC_T, 1024)
+    frames_f32 = torch.cat([prev, cur], 1).float()
+    cs = torch.cat([torch.from_numpy(a) for a in P.K10.mfcc_consts()[:2]], 1).to(frames.device)
+    ops_ms = {
+        "mfcc_blocks(mxu3)": median_ms(lambda: P.F.mfcc_blocks(
+            full_blocks, mel_m, dct_m, dtype=torch.float32, fft_engine="mxu3"), sync),
+        "pitch_frames(method=2, mxu, f32)": median_ms(lambda: P.F.pitch_frames(
+            frames, method=2, dtype=torch.float32, fft_engine="mxu"), sync),
+    }
+    for op, ms in ops_ms.items():
+        print(f"[5 timing] {op} {MFCC_T * 1024 if 'mfcc' in op else PITCH_T * 512} samples on "
+              f"{card}: {ms:.3f} ms = {(MFCC_T * 1024 if 'mfcc' in op else PITCH_T * 512) / (ms * 1e-3):.4g} samples/s")
+    ublocks, tmodel = classify
+    per_utt = median_ms(lambda: [P.S.speech_classify(b, *tmodel, dtype=torch.float32,
+                                                      fft_engine="mxu3") for b in ublocks],
+                        sync) / len(ublocks)
+    print(f"[5 timing] speech_classify(mxu3) of a {UTT_BLOCKS}-block utterance against "
+          f"{CLASSES} classes on {card}: {per_utt:.3f} ms per utterance")
+    wall, busy, kernels, host = profile_call(
+        lambda: [P.S.speech_classify(b, *tmodel, dtype=torch.float32, fft_engine="mxu3")
+                 for b in ublocks], sync)
+    n = len(ublocks)
+    top = lambda rows: ", ".join(f"{k[:60]} x{c / n:g} {ms / n:.4f}" for ms, c, k in rows)  # noqa: E731
+    print(f"[5 profile] speech_classify under torch.profiler, ms per utterance: wall "
+          f"{wall / n:.3f}, device busy {busy / n:.4f} (idle {100 * (1 - busy / wall):.1f}%); "
+          f"kernels by device time: {top(kernels)}; host ops by self CPU time: {top(host)}")
+    clock_hz = card_clock_hz()
+    sms = torch.cuda.get_device_properties(frames.device).multi_processor_count
+    pairs = PITCH_T * sum(1024 - k for k in range(AMDF_LO, 512))
+    out10 = P.K10.mfcc_fused(prev, cur)
+    runs = {  # kernel, plain, bytes in + out, (operations, peak of their type), library call
+        # K10: the function's own work, the MFCC through a real FFT, not the dense DFT
+        # GEMM that the kernel runs
+        "K10": (lambda: P.K10.mfcc_fused(prev, cur), lambda: P.K10.mfcc_fused_plain(prev, cur),
+                nbytes(prev, cur, out10), (MFCC_FRAME_FLOPS * N, F32_OPS),
+                lambda: frames_f32 @ cs),
+        "K11": (lambda: P.K11.amdf(frames, AMDF_LO), lambda: P.K11.amdf_plain(frames, AMDF_LO),
+                nbytes(frames) + PITCH_T * (512 - AMDF_LO) * 8,
+                (AMDF_PAIR_OPS * pairs, sms * INT_OPS_PER_CLOCK * clock_hz), None),
+    }
+    times = {}
+    for name, (kern, plain, nb, (ops, peak), lib) in runs.items():
+        ms = median_ms(kern, sync)
+        plain_ms = median_ms(plain, sync, reps=PLAIN_REPS)
+        lib_ms = median_ms(lib, sync) if lib else None
+        b_ms, b_by = bound(nb, ops, peak)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        n_samples = MFCC_T * 1024 if name == "K10" else PITCH_T * 512
+        print(f"[5 timing] {name} at full size on {card}: kernel {ms:.3f} ms = "
+              f"{n_samples / (ms * 1e-3):.4g} samples/s; plain {plain_ms:.3f} ms; "
+              f"{'f32 matmul core %.3f ms' % lib_ms if lib_ms else 'library call: none'}; bound "
+              f"{b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops)")
+    gemm_ms = 3 * 2 * N * 1024 * 1024 / BF16_OPS * 1e3
+    lds_ms = 2 * pairs / (sms * 32 * clock_hz) * 1e3
+    print(f"[5 timing] the kernels' own formulations: K10's dense DFT GEMM as bf16x3 on "
+          f"tensor cores {gemm_ms:.4f} ms; K11's two shared-memory loads per pair {lds_ms:.3f} ms "
+          f"at 32 lanes per SM per cycle, {clock_hz / 1e6:.0f} MHz")
+    return times
+
+
+
 SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (file:line)
     "K1": ("enhance_full8", "enhance_full8.cu", "enhance_pallas.py:737"),
     "K2": ("enhance_fwd_int8", "enhance_mxu8.cu", "enhance_pallas.py:217"),
@@ -978,6 +1465,8 @@ SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (f
     "K7": ("geq_cascade", "biquad.cu", "biquad_pallas.py:102"),
     "K8": ("nlms", "nlms.cu", "nlms_pallas.py:317"),
     "K9": ("bnlms", "nlms.cu", "nlms_pallas.py:261"),
+    "K10": ("mfcc_fused", "mfcc.cu", "mfcc_pallas.py:89"),
+    "K11": ("amdf", "amdf.cu", "amdf_pallas.py:85"),
 }
 
 
@@ -1020,13 +1509,18 @@ def main() -> int:
     geq, aec = make_geq_streams(GEQ_B, GEQ_T, dev), make_aec_streams(AEC_B, AEC_T, dev)
     err, back_ins = check_kernels(P, blocks, C, rowpack, speech, sync)
     err.update(check_recursions(P, geq, aec, sync))
+    feat = feature_inputs(dev)
+    err.update(check_features(P, feat, sync))
     cases = {"probe": probe, "full": x_full, "partial": probe[: T_PROBE * 512 - 100],
              "empty": probe[:0]}
     launches = drive_main_path(P, dev, cases, sync)
     launches.update(drive_recursions(P, geq, aec, sync))
+    feat_launches, classify = drive_features(P, feat, dev, sync)
+    launches.update(feat_launches)
     time_chains(P, blocks, C, card, sync)
     times = time_kernels(P, blocks, C, rowpack, back_ins, card, sync)
     times.update(time_recursions(P, geq, aec, card, sync))
+    times.update(time_features(P, feat, classify, card, sync))
 
     print(card)
     print(json.dumps({"kernels": [{

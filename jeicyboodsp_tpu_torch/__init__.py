@@ -5,20 +5,23 @@ found at the same path:
 
 - ``ops``       torch ops around the kernels (VAD, latch row pack, the
                 enhancement chain's entry points and constant bases; the
-                GEQ and the NLMS/BNLMS echo cancellers).
+                GEQ and the NLMS/BNLMS echo cancellers; MFCC and pitch;
+                the matmul DFTs).
+- ``models``    the GMM class scorer.
 - ``kernels``   wrappers of the hand-written Hopper kernels, each beside its
                 plain PyTorch version and a launch counter; ``_build``
                 compiles ``csrc/`` with nvcc at first use.
 - ``csrc``      CUDA C++ sources (sm_90a).
 - ``io``        PCM16 file I/O.
 - ``pipelines`` file-in/file-out pipelines (wiener, specsub, geq, nlms,
-                bnlms).
+                bnlms, pitch1-3, mfcc) and speech classification.
 - ``utils``     C-numeric emulation (``c_short``), SNR, the entry device.
 
 The package imports torch and numpy only: never jax, never
 ``jeicyboodsp_tpu``.  Ported so far: the Wiener / spectral-subtraction chain
 through engines ``mxu8f``, ``mxu8t``, ``mxu8`` and ``mxu3``; the 7-band GEQ
-(kernels K6, K7); the NLMS and BNLMS echo cancellers (K8, K9).
+(kernels K6, K7); the NLMS and BNLMS echo cancellers (K8, K9); MFCC (K10)
+with GMM classification, and pitch (K11 for the AMDF of method 2).
 """
 
 __version__ = "0.1.0"

@@ -20,20 +20,17 @@
 // writing int16 with the mask here gives the same result.
 //
 // The TPU kernels run their f32 GEMMs as bf16x3 only because Mosaic has no
-// Precision.HIGH.  Here they are plain f32 FMA GEMMs on CUDA cores: a
-// 128 x 128 output tile per block of 256 threads, 8 x 8 outputs per
-// thread, K in steps of 8 through double-buffered shared memory.  Bound on
-// this card at T = 16384: K4 is 1.7e10 MACs (0.51 ms at the 67 TFLOP/s f32
-// CUDA-core peak, 0.10 ms as bf16x3 on tensor cores) against ~117 MB
-// (0.035 ms); K5 half that work.  So both are compute-bound; a
-// tensor-core form (bf16x3 or 3xTF32) is later work.
+// Precision.HIGH.  Here they are plain f32 FMA GEMMs on CUDA cores, the tile
+// GEMM of sgemm.cuh (shared with K10, mfcc.cu).  Bound on this card at
+// T = 16384: K4 is 1.7e10 MACs (0.51 ms at the 67 TFLOP/s f32 CUDA-core
+// peak, 0.10 ms as bf16x3 on tensor cores) against ~117 MB (0.035 ms); K5
+// half that work.  So both are compute-bound; a tensor-core form (bf16x3 or
+// 3xTF32) is later work.
 
 #include "enhance_common.cuh"
+#include "sgemm.cuh"
 
 namespace {
-
-constexpr int BM = 128, BN = 128, BK = 8;
-constexpr int GT = 256;  // threads of a GEMM block: 16 x 16, 8 x 8 outputs each
 
 // The GEMMs' left operands: 4 consecutive values of row t at column k
 // (k a multiple of 4), zeros for rows t >= T.
@@ -57,65 +54,6 @@ struct PlaneA {  // K5: one (T, 512) f32 plane, K = 512
   }
 };
 
-// the output tile's row (i) or column (j) offset of thread index v (ty or tx)
-__device__ __forceinline__ int sub(int v, int i) { return (i < 4 ? 0 : 64) + 4 * v + (i & 3); }
-
-// acc = A[m0:m0+128, :K] @ B[:K, n0:n0+128] for the block's tile, m0 =
-// blockIdx.x * BM.  B: (K, 512) row-major.  The sums are f32 FMAs in k
-// order (fmaf is exact-rounded; -fmad=false does not touch it).
-template <class A>
-__device__ __forceinline__ void sgemm_tile(const A a, int K, const float* __restrict__ B,
-                                           int n0, float (&acc)[8][8]) {
-  __shared__ __align__(16) float As[2][BK][BM + 4];  // transposed: [k][m]; pad: no bank conflicts
-  __shared__ __align__(16) float Bs[2][BK][BN];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int ar = tid >> 1, ak = (tid & 1) * 4;  // A loads: row, k offset
-  const int bk = tid >> 5, bc = (tid & 31) * 4;  // B loads: k row, column
-  const int ty = tid >> 4, tx = tid & 15;
-  for (int i = 0; i < 8; ++i)
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  float4 ra = a.load(m0 + ar, ak);
-  float4 rb = *reinterpret_cast<const float4*>(B + (size_t)bk * N + n0 + bc);
-  As[0][ak + 0][ar] = ra.x;
-  As[0][ak + 1][ar] = ra.y;
-  As[0][ak + 2][ar] = ra.z;
-  As[0][ak + 3][ar] = ra.w;
-  *reinterpret_cast<float4*>(&Bs[0][bk][bc]) = rb;
-  __syncthreads();
-
-  for (int kt = 0; kt < K; kt += BK) {
-    const int cur = (kt / BK) & 1;
-    const bool more = kt + BK < K;
-    if (more) {  // next tile into registers while this one is multiplied
-      ra = a.load(m0 + ar, kt + BK + ak);
-      rb = *reinterpret_cast<const float4*>(B + (size_t)(kt + BK + bk) * N + n0 + bc);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][4 * ty]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][4 * tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + 4 * tx]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (more) {
-      As[cur ^ 1][ak + 0][ar] = ra.x;
-      As[cur ^ 1][ak + 1][ar] = ra.y;
-      As[cur ^ 1][ak + 2][ar] = ra.z;
-      As[cur ^ 1][ak + 3][ar] = ra.w;
-      *reinterpret_cast<float4*>(&Bs[cur ^ 1][bk][bc]) = rb;
-    }
-    __syncthreads();
-  }
-}
-
 // K4 pass 1.  Grid (ceil(T/BM), 2N/BN): columns [0, 512) are re, [512,
 // 1024) im.
 __global__ void __launch_bounds__(GT) fwd32_kernel(const int16_t* __restrict__ x, int T,
@@ -125,7 +63,7 @@ __global__ void __launch_bounds__(GT) fwd32_kernel(const int16_t* __restrict__ x
                                                    float* __restrict__ im) {
   const int nb = blockIdx.y * BN, plane = nb / N, n0 = nb % N;
   float acc[8][8];
-  sgemm_tile(FramesA{x, T}, 2 * N, plane ? WS : WC, n0, acc);
+  sgemm_tile(FramesA{x, T}, 2 * N, plane ? WS : WC, N, n0, acc);
   float* out = plane ? im : re;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   for (int i = 0; i < 8; ++i) {
@@ -178,7 +116,7 @@ __global__ void __launch_bounds__(GT) inv32_kernel(const float* __restrict__ Y, 
   const int plane = blockIdx.z, n0 = blockIdx.y * BN;
   const size_t pl = (size_t)T * N;
   float acc[8][8];
-  sgemm_tile(PlaneA{Y + plane * pl, T}, N, plane ? VS : UC, n0, acc);
+  sgemm_tile(PlaneA{Y + plane * pl, T}, N, plane ? VS : UC, N, n0, acc);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   for (int i = 0; i < 8; ++i) {
     const int t = blockIdx.x * BM + sub(ty, i);

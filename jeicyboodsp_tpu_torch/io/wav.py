@@ -27,5 +27,18 @@ def read_pcm16(path: str) -> np.ndarray:
     return np.frombuffer(data[: len(data) // 2 * 2], dtype="<i2").copy()
 
 
+def stale_blocks(x, n: int) -> np.ndarray:
+    """int16 samples -> (T, n) blocks as the reference's fread fills its
+    buffer: a partial last block keeps the previous block's stale tail
+    (zeros when there is no previous block)."""
+    x = np.asarray(x, np.int16)
+    T, rem = divmod(len(x), n)
+    blocks = x[: T * n].reshape(T, n)
+    if rem:
+        stale = blocks[-1][rem:] if T else np.zeros(n - rem, np.int16)
+        blocks = np.concatenate([blocks, np.concatenate([x[T * n:], stale])[None]])
+    return blocks
+
+
 def write_pcm16(path: str, samples: np.ndarray) -> None:
     np.asarray(samples, dtype="<i2").tofile(path)

@@ -8,9 +8,10 @@ rebuilds and an unchanged one loads at once.  There is no fallback: a
 missing nvcc or a failed compile raises with the compiler's stderr.
 
 Flags: ``-fmad=false`` keeps every ``a*b + c`` as two roundings, in f32 (the
-enhancement epilogues, in the JAX package's operand order) and in f64 (the
-GEQ, NLMS and BNLMS recursions, in the reference's order): the kernels'
-exactness notes rely on it.
+enhancement epilogues, in the JAX package's operand order; the MFCC's |X|,
+mel and DCT) and in f64 (the GEQ, NLMS and BNLMS recursions, in the
+reference's order): the kernels' exactness notes rely on it.  No fast math:
+``sqrtf``, ``logf`` and divisions stay IEEE.
 """
 
 from __future__ import annotations
@@ -53,6 +54,10 @@ ENTRIES = {
     "jb_nlms": [_P] * 8 + [_I] * 3 + [_P],
     # x, ref, gates, coef in, keep in, est, err, coef out, keep out, B, nb, stream
     "jb_bnlms": [_P] * 9 + [_I] * 2 + [_P],
+    # prev, cur, N, bases, mel runs, mel weights, n weights, dct, mag, out, stream
+    "jb_mfcc_fused": [_P, _P, _I] + [_P] * 3 + [_I] + [_P] * 4,
+    # frames, T, lo, out, stream
+    "jb_amdf": [_P, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

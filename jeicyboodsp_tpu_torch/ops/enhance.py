@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from jeicyboodsp_tpu_torch.io.wav import stale_blocks
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola3 import enhance_back_ola3
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola8 import enhance_back_ola8
 from jeicyboodsp_tpu_torch.kernels.enhance_full8 import enhance_full8, noise_latch
@@ -279,12 +280,7 @@ def run_stream(x, mode: str = "wiener", fft_engine: str = "mxu8f", device="cuda"
     x = np.asarray(x, dtype=np.int16)
     if len(x) == 0:  # the reference emits nothing on an empty payload
         return np.zeros(0, np.int16)
-    T = len(x) // BLOCK_LEN
-    rem = len(x) - T * BLOCK_LEN
-    blocks = x[: T * BLOCK_LEN].reshape(T, BLOCK_LEN)
-    if rem:  # a partial final block keeps the previous block's stale tail
-        stale = blocks[-1][rem:] if T else np.zeros(BLOCK_LEN - rem, np.int16)
-        blocks = np.concatenate([blocks, np.concatenate([x[T * BLOCK_LEN:], stale])[None]])
+    blocks = stale_blocks(x, BLOCK_LEN)  # a partial final block keeps the stale tail
     out, mask = enhance_blocks(
         torch.from_numpy(np.ascontiguousarray(blocks)).to(dev), mode=mode,
         fft_engine=fft_engine,

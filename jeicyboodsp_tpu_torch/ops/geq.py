@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from jeicyboodsp_tpu_torch.io.wav import stale_blocks
 from jeicyboodsp_tpu_torch.kernels.geq_cascade import pack_coefficients
 from jeicyboodsp_tpu_torch.kernels.geq_cascade_quant import geq_cascade_quant
 from jeicyboodsp_tpu_torch.utils.cnum import REF_PI
@@ -180,18 +181,6 @@ def geq_apply(x, b, a, state):
     return y.reshape(x.shape), state_to_jax(new.reshape(s.shape))
 
 
-def _pad_stale_tail(x) -> np.ndarray:
-    """Round a signal up to whole 512-sample blocks the way the reference's
-    fread does: a partial last block keeps the previous block's tail."""
-    xx = np.asarray(x, np.int16)
-    n_full, rem = divmod(len(xx), BLOCK_LEN)
-    if rem:
-        prev = (xx[(n_full - 1) * BLOCK_LEN: n_full * BLOCK_LEN] if n_full
-                else np.zeros(BLOCK_LEN, np.int16))
-        xx = np.concatenate([xx, prev[rem:]])
-    return xx
-
-
 def run_quant(x, gains_db=GAINS_DB, compat=True, device="cuda"):
     """Whole-signal compat GEQ through K6 (counterpart of
     ``run_pallas_quant`` and ``stream_blocks``): equals ``oracle.geq.run()``
@@ -204,7 +193,7 @@ def run_quant(x, gains_db=GAINS_DB, compat=True, device="cuda"):
         return np.zeros(0, np.int16)
     b, a = geq_coefficients(gains_db=gains_db, compat=compat)
     coef = torch.from_numpy(pack_coefficients(b, a, np.float64)).to(dev)
-    xx = torch.from_numpy(_pad_stale_tail(x)[None]).to(dev)
+    xx = torch.from_numpy(stale_blocks(x, BLOCK_LEN).reshape(1, -1)).to(dev)
     y, _ = geq_cascade_quant(xx, coef)
     return y[0].cpu().numpy()
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from jeicyboodsp_tpu_torch.io.wav import stale_blocks
 from jeicyboodsp_tpu_torch.kernels import bnlms as K9
 from jeicyboodsp_tpu_torch.kernels import nlms as K8
 from jeicyboodsp_tpu_torch.utils.device import entry_device
@@ -138,17 +139,6 @@ def bnlms_apply(x_blocks, ref_blocks, state):
                           kr.reshape(*lead, BNLMS_KEEP))))
 
 
-def _blockify(x, block):
-    x = np.asarray(x, np.int16)
-    T = len(x) // block
-    rem = len(x) - T * block
-    blocks = x[: T * block].reshape(T, block)
-    if rem:
-        pad_src = blocks[-1][rem:] if T else np.zeros(block - rem, np.int16)
-        blocks = np.concatenate([blocks, np.concatenate([x[T * block:], pad_src])[None]])
-    return blocks
-
-
 def _stream_blocks(x, ref, device):
     """Both signals in 1024-sample blocks, as many as the shorter one starts,
     a partial block keeping the previous block's stale tail (the
@@ -158,8 +148,8 @@ def _stream_blocks(x, ref, device):
     (ROADMAP R9)."""
     dev = entry_device(device)
     nb = -(-min(len(x), len(ref)) // BLOCK_LEN)
-    xb = _blockify(x, BLOCK_LEN)[:nb]
-    rb = _blockify(ref, BLOCK_LEN)[:nb]
+    xb = stale_blocks(x, BLOCK_LEN)[:nb]
+    rb = stale_blocks(ref, BLOCK_LEN)[:nb]
     return torch.from_numpy(xb).to(dev), torch.from_numpy(rb).to(dev)
 
 

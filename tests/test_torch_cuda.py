@@ -481,3 +481,134 @@ def test_recursion_wrappers_reject(name, bad):
             "K9": lambda: K9.bnlms(x, r, torch.ones(2, 2, dtype=torch.bool), state)}[name]
     with pytest.raises(ValueError):
         call()
+
+
+# ---- the speech features: MFCC (K10) and the AMDF (K11) ---------------------
+
+from chip_smoke import class_models, class_signal, reference_mfcc, speech_signal  # noqa: E402
+from jeicyboodsp_tpu_torch.kernels import amdf as K11  # noqa: E402
+from jeicyboodsp_tpu_torch.kernels import mfcc_fused as K10  # noqa: E402
+from jeicyboodsp_tpu_torch.models import gmm as GM  # noqa: E402
+from jeicyboodsp_tpu_torch.ops import features as F  # noqa: E402
+from jeicyboodsp_tpu_torch.pipelines import speech as S  # noqa: E402
+
+
+def _feature_rows(n_blocks, seed, silent=None):
+    """The zero-prefixed (2T + 1, 512) row view of a speech signal."""
+    x = speech_signal(n_blocks * 1024, np.random.default_rng(seed), silent)
+    return torch.from_numpy(np.concatenate([np.zeros(512, np.int16), x])).reshape(-1, 512)
+
+
+def _frames(T, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(-32768, 32768, (T, 1024))
+                            .astype(np.int16))
+
+
+@pytest.mark.parametrize("n_blocks", [1, 37, 300])
+def test_mfcc_kernel_matches_plain(cuda, n_blocks):
+    """K10 >= 90 dB of its plain version over the finite features, with equal
+    NaN masks: a silent stretch gives log 0 = -inf channels and NaN frames."""
+    rows = _feature_rows(n_blocks, n_blocks, silent=(0, 2048)).to(cuda)
+    before = K10.mfcc_fused.launches
+    got = K10.mfcc_fused(rows[:-1], rows[1:])
+    want = K10.mfcc_fused_plain(rows[:-1], rows[1:])
+    torch.cuda.synchronize()
+    assert K10.mfcc_fused.launches == before + 1
+    g, w = got.cpu().double().numpy(), want.cpu().double().numpy()
+    assert g.shape == (2 * n_blocks, 12) and np.isnan(w[0]).all()
+    assert np.array_equal(np.isnan(g), np.isnan(w)) and np.array_equal(np.isinf(g), np.isinf(w))
+    fin = np.isfinite(w)
+    if fin.any():
+        assert snr_db(w[fin], g[fin]) >= KERNEL_VS_PLAIN_DB
+
+
+@pytest.mark.parametrize("lo", [0, 8, 96, 504])
+@pytest.mark.parametrize("T", [1, 333])
+def test_amdf_kernel_bit_equal_to_plain(cuda, T, lo):
+    frames = _frames(T, T + lo).to(cuda)
+    frames[0] = 0  # a silent frame: every lag 0
+    before = K11.amdf.launches
+    got = K11.amdf(frames, lo)
+    torch.cuda.synchronize()
+    assert K11.amdf.launches == before + 1
+    assert got.dtype == torch.float64 and got.shape == (T, 512 - lo)
+    assert torch.equal(got, K11.amdf_plain(frames, lo)) and got[0].eq(0).all()
+
+
+def test_feature_paths_launch_their_kernels(cuda):
+    """mfcc_blocks(mxu3), pitch_frames(method=2, mxu) and speech_classify go
+    through K10 / K11 and agree with the CPU run."""
+    rows = _feature_rows(16, 1)
+    blocks = rows[1:].reshape(16, 1024)
+    mel_m, dct_m = F.mel_dct(torch.float32, cuda)
+    k10, k11 = K10.mfcc_fused.launches, K11.amdf.launches
+    feats = F.mfcc_blocks(blocks.to(cuda), mel_m, dct_m, dtype=torch.float32, fft_engine="mxu3")
+    frames = torch.cat([rows[:-1], rows[1:]], 1)[::2].contiguous()
+    lag, val, f0 = F.pitch_frames(frames.to(cuda), method=2, dtype=torch.float64, fft_engine="mxu")
+    torch.cuda.synchronize()
+    assert K10.mfcc_fused.launches == k10 + 1 and K11.amdf.launches == k11 + 1
+    want = F.mfcc_blocks(blocks, *F.mel_dct(torch.float32, "cpu"), fft_engine="mxu3")
+    assert snr_db(want.numpy(), feats.cpu().numpy()) >= KERNEL_VS_PLAIN_DB
+    wl, wv, wf = F.pitch_frames(frames, method=2, dtype=torch.float64, fft_engine="mxu")
+    assert torch.equal(lag.cpu(), wl) and torch.equal(val.cpu(), wv) and torch.equal(f0.cpu(), wf)
+    rng = np.random.default_rng(2)
+    model = class_models([reference_mfcc(class_signal(c, 32 * 1024, rng), False) for c in range(3)])
+    utt = class_signal(1, 16 * 1024, rng)
+    M = GM.model_to_port(*model, cuda)
+    k10 = K10.mfcc_fused.launches
+    scores = S.speech_classify(torch.from_numpy(utt.reshape(-1, 1024)).to(cuda), *M,
+                               fft_engine="mxu3")
+    torch.cuda.synchronize()
+    assert K10.mfcc_fused.launches == k10 + 1
+    want = S.speech_classify(torch.from_numpy(utt.reshape(-1, 1024)), *GM.model_to_port(*model, "cpu"),
+                             fft_engine="mxu3")
+    assert int(scores.argmax()) == int(want.argmax()) == 1
+    assert torch.allclose(scores.cpu(), want, rtol=1e-5, atol=0)
+
+
+def test_feature_cpu_wrappers_run_plain_without_counting():
+    rows = _feature_rows(4, 3)
+    frames = _frames(5, 4)
+    counts = K10.mfcc_fused.launches, K11.amdf.launches
+    assert torch.equal(K10.mfcc_fused(rows[:-1], rows[1:]), K10.mfcc_fused_plain(rows[:-1], rows[1:]))
+    assert torch.equal(K11.amdf(frames, 96), K11.amdf_plain(frames, 96))
+    assert counts == (K10.mfcc_fused.launches, K11.amdf.launches)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "width", "rows", "rank", "noncontig", "device"])
+def test_mfcc_wrapper_rejects(bad):
+    rows = _feature_rows(4, 5)
+    prev, cur = rows[:-1], rows[1:]
+    if bad == "dtype":
+        prev = prev.to(torch.int32)
+    elif bad == "width":
+        prev, cur = prev[:, :256], cur[:, :256]
+    elif bad == "rows":
+        cur = cur[:-1]
+    elif bad == "rank":
+        prev = prev.reshape(-1)
+    elif bad == "noncontig":
+        prev = prev.t().contiguous().t()
+    elif bad == "device":
+        prev, cur = prev.to("meta"), cur.to("meta")
+    with pytest.raises(ValueError):
+        K10.mfcc_fused(prev, cur)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "width", "rank", "noncontig", "device", "lo"])
+def test_amdf_wrapper_rejects(bad):
+    frames, lo = _frames(4, 6), 96
+    if bad == "dtype":
+        frames = frames.float()
+    elif bad == "width":
+        frames = frames[:, :512].contiguous()
+    elif bad == "rank":
+        frames = frames[0]
+    elif bad == "noncontig":
+        frames = frames[::2]
+    elif bad == "device":
+        frames = frames.to("meta")
+    elif bad == "lo":
+        lo = 100
+    with pytest.raises(ValueError):
+        K11.amdf(frames, lo)

@@ -15,6 +15,7 @@ import torch
 from jeicyboodsp_tpu.kernels import nlms_pallas as jnp_k
 from jeicyboodsp_tpu.oracle import nlms as onl
 from jeicyboodsp_tpu.ops import nlms as jnl
+from jeicyboodsp_tpu_torch.io.wav import stale_blocks
 from jeicyboodsp_tpu_torch.kernels import bnlms as K9
 from jeicyboodsp_tpu_torch.kernels import nlms as K8
 from jeicyboodsp_tpu_torch.ops import nlms as TN
@@ -48,7 +49,7 @@ def test_constants_equal_the_oracle():
 @pytest.mark.parametrize("n", [0, 100, 1024, 2500])
 def test_blockify_matches_jax(n):
     x = np.arange(n, dtype=np.int16)
-    np.testing.assert_array_equal(TN._blockify(x, 1024), jnl._blockify(x, 1024))
+    np.testing.assert_array_equal(stale_blocks(x, 1024), jnl._blockify(x, 1024))
 
 
 def test_k8_plain_equals_oracle_and_jax_interpret():
