@@ -10,8 +10,12 @@ samples); the 7-band GEQ (K6, and K7 for its linear engine) at 2048 streams
 x 49,152 samples; the NLMS (K8) and BNLMS (K9) echo cancellers at 1024
 streams x 65,536 samples; the MFCC (K10) over 8192 blocks of 1024 samples
 with speech classification against 25 class models, and pitch method 2
-(K11) over 16,384 frames of 1024 -- in phases that each print lines and
-raise on failure:
+(K11) over 16,384 frames of 1024; the RIR fast convolution over 2048 blocks
+of 1024 (2041 segments of 8192; the four-step FFT K12 for engines mxu and
+mxu3), the FFT program over 16,384 blocks of 512 (K12 for ``fourstep``), the
+two-kernel f32 enhancement engine ``_enhance_fused`` (K4, K13) at T = 16384,
+and the VAD kernel K14 under engines mxu8f and mxu8t -- in phases that each
+print lines and raise on failure:
 
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA sources with nvcc and prints the seconds;
@@ -27,6 +31,13 @@ raise on failure:
    - at full size: K10 >= 90 dB over the finite features with equal NaN and
      infinity masks (a silent stretch gives NaN frames); K11 bit-equal at
      lo = 96 and lo = 0;
+   - K12 at (2041, 8192), forward on real segments and inverse on their
+     filtered spectra, and at (16384, 512), within 1e-5 of max |X|; K13 on
+     K4's planes at T = 16384, wiener and specsub, within 1e-5 of each frame
+     row's max with equal NaN masks; K14's flags bit-equal on the chain's
+     signal and on rows at its energy and ZCR thresholds, with the f32
+     window and the f64-built w2; engines mxu8f and mxu8t through K14
+     bit-equal to the same chain with the VAD as torch ops;
 4. main paths, every launch counter set to 0 just before each and read just
    after, each kernel launched at least once:
    - enhancement: the file-in/file-out pipelines of every engine on a
@@ -54,6 +65,16 @@ raise on failure:
      script builds from the reference's features (every argmax the class,
      scores within 1e-4); ``pitch_frames(method=2, mxu)`` at full size
      through K11 (256 frames: f64 equal, f32 lags equal up to f32 ties);
+   - fastconv, the FFT program and ``_enhance_fused`` (K12, K13 counted):
+     the ``fastconv`` pipeline of every engine (f64 xla, f32 xla, gemm,
+     gemm8, gemm8hq, mxu, mxu3, auto) and the ``fft`` pipeline (f64 radix2,
+     ``--verbose`` lines) on probe files with a partial last block, an empty
+     payload and (fastconv) T <= 7, then every fastconv engine and
+     ``fastconv_blocks_sparse`` at 2048 blocks, ``roundtrip_blocks`` f32
+     radix2 / xla / fourstep and f64 radix2 at 16,384 blocks and
+     ``_enhance_fused`` at T = 16384, each against the script's float64
+     numpy copies of the oracles (f64 within one step; f32 at the floors of
+     tests/test_engine_matrix.py; ``_enhance_fused`` >= 85 dB);
 5. timing: ``enhance_blocks`` of each engine, the ops ``geq_apply``,
    ``nlms_apply`` and ``bnlms_apply``, ``mfcc_blocks(mxu3)``,
    ``pitch_frames(method=2, mxu)`` and ``speech_classify`` at full size, and
@@ -61,7 +82,11 @@ raise on failure:
    and one PyTorch call of its GEMM core where there is one, CUDA events,
    median of 7 after warm-up (median of 3 for the plain versions of K6-K11),
    with the bytes, operations and dependency-chain bounds; ``speech_classify``
-   once more under ``torch.profiler`` (device busy time, host ops).
+   once more under ``torch.profiler`` (device busy time, host ops); each
+   fastconv engine at 2048 blocks, ``roundtrip_blocks`` per engine at 16,384
+   blocks, ``_enhance_fused``, engines mxu8f / mxu8t with the torch VAD and
+   with K14 in turns, and K12 (with ``torch.fft.fft`` on the same complex64
+   batch), K13 (with its f32 matmul core) and K14 alone.
 
 Then the card's line, one JSON line of per-kernel results and, last, the
 ``{"ok": true, ...}`` line.  Imports neither jax nor the JAX package.
@@ -305,6 +330,116 @@ def reference_nlms(x, ref, bnlms=False):
     return (out[0][1:].reshape(-1), out[1][1:].reshape(-1)) + tuple(out[2:])
 
 
+FFT_PI = 3.14159265358  # FFTAlgorithm_ver2.cpp:15
+FC_BLOCK, FC_FFT, FC_TAPS, FC_WARMUP = 1024, 8192, 7169, 7  # Fast_Convolution...cpp
+
+
+def _bitrev(n):
+    """The bit-reversal permutation of 0..n-1 (n a power of two)."""
+    bits = n.bit_length() - 1
+    k = np.arange(n)
+    return sum(((k >> b) & 1) << (bits - 1 - b) for b in range(bits))
+
+
+def _radix2(re, im, sign):
+    """FFTAlgorithm_ver2.cpp:94-149 over the rows of (B, n) float64 planes:
+    bit reversal, then per stage the butterflies and the inter-stage
+    twiddles with FFT_PI, each element in the C expression order."""
+    n = re.shape[1]
+    re, im = re[:, _bitrev(n)], im[:, _bitrev(n)]
+    npoint = n // 2
+    while True:
+        n2 = n // npoint
+        n1 = n2 // 2
+        idx = (n2 * np.arange(npoint)[:, None] + np.arange(n1)[None, :]).ravel()
+        ar, ai, br, bi = re[:, idx], im[:, idx], re[:, idx + n1], im[:, idx + n1]
+        re[:, idx], im[:, idx] = ar + br, ai + bi
+        re[:, idx + n1], im[:, idx + n1] = ar - br, ai - bi
+        if npoint == 1:
+            return re, im
+        nn = np.tile(np.arange(n2), npoint // 2)
+        idx2 = (np.arange(npoint // 2)[:, None] * 2 * n2 + n2 + np.arange(n2)[None, :]).ravel()
+        ang = sign * 2.0 * FFT_PI * nn / float(2 * n2)
+        c, s = np.cos(ang), np.sin(ang)
+        tr, ti = re[:, idx2], im[:, idx2]
+        re[:, idx2], im[:, idx2] = c * tr - s * ti, c * ti + s * tr
+        npoint //= 2
+
+
+def reference_fft_roundtrip(x):
+    """float64 numpy reference of FFTAlgorithm_ver2.cpp: 512-sample blocks
+    (a partial last block keeps the previous block's stale tail), its
+    radix-2 FFT forward and backward, / 512, double -> short."""
+    blocks = _stale_blocks(x, 512).astype(np.float64)
+    if not len(blocks):
+        return np.zeros(0, np.int16)
+    Xr, Xi = _radix2(blocks, np.zeros_like(blocks), -1.0)
+    yr, _ = _radix2(Xr, Xi, 1.0)
+    return _c_short(yr / 512.0).reshape(-1)
+
+
+def _rir():
+    """The 7169-tap RIR, from the repository's sparse table (FilterCoefficient.h)."""
+    d = np.load(os.path.join(ROOT, "jeicyboodsp_tpu", "data", "rir_coefficients.npz"))
+    h = np.zeros(int(d["length"]))
+    h[d["indices"]] = d["values"]
+    return h
+
+
+def reference_fastconv(x):
+    """float64 numpy reference of Fast_Convolution_Based_3DAudio_Impl.cpp:
+    1024-sample blocks (stale tails), the first 7 never stored (the queue
+    holds zeros), then per block the 8192-point segment of the 7 queued
+    blocks and the block: FFT times FFT(h), IFFT, samples [7168, 8192) to
+    short."""
+    blocks = _stale_blocks(x, FC_BLOCK).astype(np.float64)
+    if len(blocks) <= FC_WARMUP:
+        return np.zeros(0, np.int16)
+    H = np.fft.fft(_rir(), FC_FFT)
+    flat = blocks.reshape(-1)
+    flat[:FC_WARMUP * FC_BLOCK] = 0.0
+    out = [_c_short(np.fft.ifft(np.fft.fft(flat[s: s + FC_FFT]) * H).real[FC_TAPS - 1:])
+           for s in range(0, len(flat) - FC_FFT + 1, FC_BLOCK)]
+    return np.concatenate(out)
+
+
+def vad_threshold_rows(w2):
+    """(6, 512) int16 rows at the VAD's thresholds (WienerFilter_final.cpp:
+    261-296) for the f32 window half w2, s = trunc(x * w2): three whose
+    truncated samples alternate in sign (ZCR 511) with sum(s^2) = 700 *
+    1024 - 1, + 0, + 1, and three of tiny energy with ZCR 199, 200, 201.
+    Their flags: False, False, True, True, False, False."""
+    w2 = np.asarray(w2, np.float32)
+
+    def x_for(s, i):  # the smallest |x| whose truncated windowed value is s
+        sign = 1 if s > 0 else -1
+        for m in range(abs(s), 4 * abs(s) + 64):
+            if int(np.trunc(np.float32(sign * m) * w2[i])) == s:
+                return sign * m
+        raise ValueError(f"no int16 sample gives {s} at {i}")
+
+    unit = np.array([x_for((-1) ** i, i) for i in range(512)])  # s = +1, -1, ...
+    rows = []
+    for e in (716799, 716800, 716801):
+        rest, abc = e - 509, None  # three large samples at 0..2, units elsewhere
+        for a in range(int(rest ** 0.5), 0, -1):
+            for b in range(min(a, int((rest - a * a) ** 0.5)), 0, -1):
+                c = int(round((rest - a * a - b * b) ** 0.5))
+                if 0 < c <= b and a * a + b * b + c * c == rest:
+                    abc = (a, -b, c)
+                    break
+            if abc:
+                break
+        row = unit.copy()
+        row[:3] = [x_for(s, i) for i, s in enumerate(abc)]
+        rows.append(row)
+    for z in (199, 200, 201):
+        row = np.zeros(512, np.int64)
+        row[: z + 1] = unit[: z + 1]
+        rows.append(row)
+    return np.array(rows, np.int16)
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -428,9 +563,16 @@ def _port():
     from jeicyboodsp_tpu_torch.ops import features as F
     from jeicyboodsp_tpu_torch.pipelines import speech as S
 
+    from jeicyboodsp_tpu_torch.kernels import enhance_back as K13
+    from jeicyboodsp_tpu_torch.kernels import fft_four_step as K12
+    from jeicyboodsp_tpu_torch.kernels import vad_flags as K14
+    from jeicyboodsp_tpu_torch.ops import fastconv as FC
+    from jeicyboodsp_tpu_torch.ops import fft as FT
+
     return SimpleNamespace(_build=_build, K1=K1, K2=K2, K3=K3, K4=K4, K5=K5, E=E,
                            registry=registry, K6=K6, K7=K7, K8=K8, K9=K9, G=G, N=N,
-                           K10=K10, K11=K11, GM=GM, F=F, S=S, cli=cli)
+                           K10=K10, K11=K11, GM=GM, F=F, S=S, cli=cli,
+                           K12=K12, K13=K13, K14=K14, FC=FC, FT=FT)
 
 
 K1_ENGINES = {"mxu8f": True, "mxu8t": False}  # the engines of K1: hq
@@ -508,7 +650,8 @@ def drive_main_path(P, dev, cases, sync):
 
     counted = {"K1": P.K1.enhance_full8, "K2": P.K2.enhance_fwd_int8,
                "K3": P.K3.enhance_back_ola8, "K4": P.K4.enhance_fwd,
-               "K5": P.K5.enhance_back_ola3, "latch": P.K1.noise_latch}
+               "K5": P.K5.enhance_back_ola3, "latch": P.K1.noise_latch,
+               "K14": P.K14.vad_flags}
     work = os.path.join(ROOT, "jeicyboodsp_tpu_torch", "build", "smoke")
     os.makedirs(work, exist_ok=True)
     refs = {(c, m): reference_enhance(x, m) for c, x in cases.items() for m in MODES}
@@ -1455,6 +1598,352 @@ def time_features(P, feat, classify, card, sync):
 
 
 
+# ---- fast convolution and the FFT program (K12), the f32 back half (K13), the VAD (K14) ----
+
+FC_T = 2048    # blocks of 1024 per fastconv call: 2041 segments of 8192 (bench/all_configs.py:332)
+FFT_T = 16384  # blocks of 512 per FFT-program call (bench/all_configs.py:651)
+# f32 fastconv engines against the f64 reference (tests/test_engine_matrix.py:134-163); the
+# port's mxu3 is mxu's f32 kernel, so it keeps mxu's floor
+FC_FLOORS = {"xla": 88.0, "gemm": 95.0, "gemm8": 70.0, "gemm8hq": 85.0, "mxu": 88.0,
+             "mxu3": 88.0, "auto": 85.0}
+FC_SPARSE_DB = 95.0    # fastconv_blocks_sparse in f32 (tests/test_engine_matrix.py:153-160)
+FC_F64_FLIPPED = 3e-3  # f64 fastconv: one int16 step on under 0.3% (tests/test_fastconv.py:16-25)
+FFT_FLOORS = {"radix2": 65.0, "xla": 68.0, "fourstep": 65.0}  # f32 roundtrip (:166-176)
+FFT_F64_DB = 70.0      # f64 radix2: one step at most, >= 70 dB (tests/test_fft_awgn.py:12-24)
+FUSED_DB = 85.0        # _enhance_fused against the reference: the mxu3 floor
+FFT_RTOL = 1e-5        # K12 against its plain version: of max |X| (test_pallas_kernels.py:78-81)
+ROW_RTOL = 1e-5        # K13 against its plain version: of each frame row's max
+
+
+def transform_inputs():
+    """The full-size signals, from SEED: FC_T blocks of 1024 and FFT_T blocks
+    of 512 of the gated tone (the JAX benchmark's mixed_signal)."""
+    rng = np.random.default_rng(SEED + 5)
+    return make_signal(FC_T * 1024, rng), make_signal(FFT_T * 512, rng)
+
+
+def _fft_pair(got, want, what):
+    """K12 against its plain version within FFT_RTOL of max |X|; prints the
+    entries past the tolerance and fails if there are any.  Returns max |err|."""
+    import torch
+
+    err = torch.sqrt((got[0] - want[0]) ** 2 + (got[1] - want[1]) ** 2)
+    scale = float(torch.sqrt(want[0] ** 2 + want[1] ** 2).max())
+    bad = (err > FFT_RTOL * scale).nonzero()[:5].tolist()
+    worst = float(err.max())
+    print(f"[3 kernel-vs-plain] K12 {what}: max |err| / max |X| {worst / scale:.2e}, entries past "
+          f"{FFT_RTOL}: {int((err > FFT_RTOL * scale).sum())} {bad}")
+    if bad:
+        raise RuntimeError(f"K12 {what}: {worst / scale:.2e} of max |X| > {FFT_RTOL}")
+    return worst
+
+
+def _old_vad_chain(P, blocks, C, hq):
+    """Engines mxu8f / mxu8t as they ran before K14: the VAD as torch ops."""
+    rowpack = P.E._latch_rowpack(P.K2.vad_rows(blocks, P.E._vad_window(blocks.device)))
+    return P.K1.enhance_full8(blocks, rowpack, C, "wiener", hq)
+
+
+def check_transforms(P, xc, xf, blocks, C, back_ins, sync):
+    """Phase 3 for K12-K14: K12 at (2041, 8192), forward on the fastconv
+    segments and inverse on their filtered spectra, and at (16384, 512);
+    K13 on K4's planes at T = 16384; K14 on the chain's signal and on rows at
+    its thresholds, with both windows; engines mxu8f / mxu8t through K14
+    against the same chain with the torch VAD.  Returns the max |kernel -
+    plain| of each."""
+    import torch
+
+    K12, FC, dev = P.K12, P.FC, blocks.device
+    err = {"K12": 0.0}
+    segs = FC._segments(FC._warm(torch.from_numpy(xc.reshape(FC_T, 1024)).to(dev),
+                                 torch.float32), FC_T)
+    Hr, Hi = (torch.from_numpy(a).to(dev) for a in FC.filter_spectrum(dtype=torch.float32))
+    fb = torch.from_numpy(xf.reshape(FFT_T, 512)).to(dev).float()
+    for n, x, filt in ((8192, segs, (Hr, Hi)), (512, fb, None)):
+        X = K12.fft_pallas(x, None, n, True)
+        err["K12"] = max(err["K12"], _fft_pair(X, K12.fft_four_step(x, None, n, True),
+                                               f"({len(x)}, {n}) forward, real input"))
+        if filt:  # the inverse of the mxu engine: the filtered spectrum
+            X = (X[0] * filt[0] - X[1] * filt[1], X[0] * filt[1] + X[1] * filt[0])
+        Y = K12.fft_pallas(*X, n, False)
+        err["K12"] = max(err["K12"], _fft_pair(Y, K12.fft_four_step(*X, n, False),
+                                               f"({len(x)}, {n}) inverse, complex input"))
+    err["K13"] = 0.0
+    for mode in MODES:
+        got = P.K13.enhance_back(*back_ins["K4"], C, mode)
+        want = P.K13.enhance_back_plain(*back_ins["K4"], C, mode)
+        sync()
+        rowmax = torch.cat(want, 1).nan_to_num(0.0).abs().amax(1, keepdim=True)
+        nan_ok = all(torch.equal(g.isnan(), w.isnan()) for g, w in zip(got, want))
+        diffs = [(g - w).nan_to_num(0.0).abs() for g, w in zip(got, want)]
+        rel = max(float((d / rowmax.clamp_min(1e-30)).max()) for d in diffs)
+        err["K13"] = max(err["K13"], max(float(d.max()) for d in diffs))
+        bad = [(name, (d > ROW_RTOL * rowmax).nonzero()[:3].tolist())
+               for name, d in zip(("head", "w2", "y512"), diffs)]
+        print(f"[3 kernel-vs-plain] K13 {mode} T={T_FULL}: max err / frame row max {rel:.2e}, "
+              f"NaN masks equal {nan_ok}, entries past {ROW_RTOL}: {bad}")
+        if not (nan_ok and rel <= ROW_RTOL):
+            raise RuntimeError(f"K13 {mode}: {rel:.2e} of the row max > {ROW_RTOL} or NaN masks differ")
+    for what, w2 in (("f32 window", P.E._vad_window(dev)), ("f64-built w2", C["w2"])):
+        rows = torch.cat([blocks, torch.from_numpy(vad_threshold_rows(w2.cpu().numpy())).to(dev)])
+        got, want = P.K14.vad_flags(rows, w2), P.K2.vad_rows(rows, w2)
+        odd = _odd_offset_copy(rows)  # K14's 2-byte-load variant
+        odd_same = torch.equal(P.K14.vad_flags(odd, w2), got)
+        sync()
+        diff = (got != want).nonzero()[:, 0].tolist()
+        edge = got[-6:].tolist() == [False, False, True, True, False, False]
+        print(f"[3 kernel-vs-plain] K14 {what} T={T_FULL} + 6 threshold rows: bit-equal "
+              f"{not diff}, differing rows {diff[:10]}, threshold flags right {edge}, "
+              f"the same at an odd offset {odd_same}; {int(got[:T_FULL].sum())} speech rows")
+        if diff or not edge or not odd_same:
+            raise RuntimeError(f"K14 {what}: {len(diff)} flags differ, threshold flags right "
+                               f"{edge}, the same at an odd offset {odd_same}")
+    err["K14"] = 0
+    odd = _odd_offset_copy(blocks)
+    for eng, hq in K1_ENGINES.items():
+        new = P.E.enhance_blocks(blocks, "wiener", fft_engine=eng)[0]
+        same = torch.equal(new, _old_vad_chain(P, blocks, C, hq))
+        odd_same = torch.equal(P.E.enhance_blocks(odd, "wiener", fft_engine=eng)[0], new)
+        print(f"[3 kernel-vs-plain] {eng} through K14 T={T_FULL}: int16 output equal to the "
+              f"torch-VAD chain's {same}, the same from blocks at an odd offset {odd_same}")
+        if not (same and odd_same):
+            raise RuntimeError(f"{eng}: K14 changed the chain's output, or the output differs "
+                               "from blocks at an odd offset")
+    return err
+
+
+def _odd_offset_copy(x):
+    """A contiguous copy of the int16 tensor x one sample past a 16-byte
+    boundary, as a view into a larger buffer can lie."""
+    import torch
+
+    out = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _write_wav(work, name, x):
+    path = os.path.join(work, f"{name}.wav")
+    np.concatenate([np.arange(22, dtype=np.int16), x]).tofile(path)  # 44 header bytes, skipped
+    return path
+
+
+def _fc_verdict(got, want, what, floor=None):
+    """One fastconv result against the f64 reference: f64 (floor None)
+    within one step on under FC_F64_FLIPPED of the samples, f32 at its
+    floor.  Returns the dB."""
+    from jeicyboodsp_tpu_torch.utils.metrics import snr_db
+
+    if got.shape != want.shape:
+        raise RuntimeError(f"{what}: {got.shape} samples, want {want.shape}")
+    if not len(want):
+        return None
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    snr = snr_db(want, got)
+    ok = (d.max() <= 1 and (d > 0).mean() < FC_F64_FLIPPED) if floor is None else snr >= floor
+    print(f"[4 main-path] {what}: {len(got)} samples, {snr:.2f} dB vs the f64 reference, "
+          f"max |diff| {d.max()}, flipped {(d > 0).mean():.2e} "
+          f"({'one step, < %g' % FC_F64_FLIPPED if floor is None else 'floor %g' % floor})")
+    if not ok:
+        raise RuntimeError(f"{what}: outside its contract")
+    return snr
+
+
+def drive_transforms(P, xc, xf, x_enh, blocks, dev, sync):
+    """Phase 4 for fastconv, the FFT program and _enhance_fused, the K12 and
+    K13 launch counters set to 0 just before and read just after: the
+    ``fastconv`` pipeline per engine and the ``fft`` pipeline on probe files
+    (a partial last block, an empty payload, fastconv with T <= 7), every
+    fastconv engine at FC_T blocks, ``roundtrip_blocks`` at FFT_T blocks and
+    ``_enhance_fused`` at T_FULL, each against its f64 reference.  Returns
+    the counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from jeicyboodsp_tpu_torch.utils.metrics import snr_db
+
+    FC, FT = P.FC, P.FT
+    counted = {"K12": P.K12.fft_pallas, "K13": P.K13.enhance_back}
+    work = os.path.join(ROOT, "jeicyboodsp_tpu_torch", "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    probe = make_signal(40 * 1024 + 300, np.random.default_rng(SEED + 6))
+    fc_cases = {"probe": probe, "short": probe[: 5 * 1024 + 7], "empty": probe[:0]}
+    fft_cases = {"probe": probe[: 30 * 512 + 77], "empty": probe[:0]}
+    paths = {("fc", c): _write_wav(work, f"fc_{c}", x) for c, x in fc_cases.items()}
+    paths.update({("fft", c): _write_wav(work, f"fft_{c}", x) for c, x in fft_cases.items()})
+    fc_runs = {"f64 xla": (torch.float64, "xla", None),
+               **{f"f32 {e}": (torch.float32, e, FC_FLOORS[e]) for e in FC_FLOORS}}
+    refs = {("fc", c): reference_fastconv(x) for c, x in fc_cases.items()}
+    refs.update({("fft", c): reference_fft_roundtrip(x) for c, x in fft_cases.items()})
+    ref_fc, ref_fft = reference_fastconv(xc), reference_fft_roundtrip(xf)
+    ref_enh = reference_enhance(x_enh, "wiener")
+    cb = torch.from_numpy(xc.reshape(FC_T, 1024)).to(dev)
+    fb = torch.from_numpy(xf.reshape(FFT_T, 512)).to(dev)
+
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out, printed = {}, {}
+    for c in fc_cases:
+        for run, (dtype, eng, _) in fc_runs.items():
+            path = os.path.join(work, f"fc_{c}_{run.replace(' ', '_')}.pcm")
+            P.registry.fastconv(paths["fc", c], path, dtype=dtype, fft_engine=eng, device=dev)
+            out["fc", c, run] = np.fromfile(path, "<i2")
+    for c in fft_cases:
+        path = os.path.join(work, f"fft_{c}.pcm")
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            P.registry.fft_roundtrip(paths["fft", c], path, verbose=True, device=dev)
+        out["fft", c], printed[c] = np.fromfile(path, "<i2"), text.getvalue()
+    full = {run: FC.run_stream(xc, dtype=dtype, fft_engine=eng, device=dev)
+            for run, (dtype, eng, _) in fc_runs.items()}
+    sparse = FC.fastconv_blocks_sparse(cb, torch.float32).reshape(-1).cpu().numpy()
+    rts = {f"f32 {e}": FT.roundtrip_blocks(fb, torch.float32, e).reshape(-1).cpu().numpy()
+           for e in FFT_FLOORS}
+    rts["f64 radix2"] = FT.run_stream(xf, device=dev)
+    fused, mask = P.E._enhance_fused(blocks, "wiener", False)
+    sync()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    main_s = time.perf_counter() - t0
+
+    for (kind, c, run), got in [(k, v) for k, v in out.items() if k[0] == "fc"]:
+        _fc_verdict(got, refs["fc", c], f"fastconv pipeline {run} {c}", fc_runs[run][2])
+    for run, got in full.items():
+        _fc_verdict(got, ref_fc, f"fastconv.run_stream {run} {FC_T} blocks", fc_runs[run][2])
+    _fc_verdict(sparse, ref_fc, f"fastconv_blocks_sparse f32 {FC_T} blocks", FC_SPARSE_DB)
+    for c in fft_cases:
+        got, want = out["fft", c], refs["fft", c]
+        lines = printed[c].count("512-point FFT Calculation add 2304 multiply 2048")
+        d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        ok = (got.shape == want.shape and d.max(initial=0) <= 1 and lines == 2 * len(want) // 512
+              and printed[c].endswith("Break! The buffer is insufficient.\nProcessing End\n"))
+        print(f"[4 main-path] fft pipeline f64 radix2 --verbose {c}: {len(got)} samples, max |diff| "
+              f"{d.max(initial=0)}, flipped {int((d > 0).sum())}, {lines} op-count lines, as the "
+              f"reference {ok}")
+        if not ok:
+            raise RuntimeError(f"fft pipeline {c}: differs from the reference")
+    for run, got in rts.items():
+        snr = snr_db(ref_fft, got)
+        d = np.abs(got.astype(np.int64) - ref_fft.astype(np.int64))
+        floor = FFT_F64_DB if run.startswith("f64") else FFT_FLOORS[run.split()[1]]
+        ok = snr >= floor and (d.max() <= 1 or not run.startswith("f64"))
+        print(f"[4 main-path] roundtrip_blocks {run} {FFT_T} blocks: {snr:.2f} dB vs the f64 "
+              f"reference (floor {floor}), max |diff| {d.max()}, flipped {(d > 0).mean():.2e}")
+        if not ok:
+            raise RuntimeError(f"roundtrip_blocks {run}: {snr:.2f} dB, max |diff| {d.max()}")
+    got = fused[mask].reshape(-1).cpu().numpy()
+    snr = snr_db(ref_enh, got) if got.shape == ref_enh.shape else -np.inf
+    print(f"[4 main-path] _enhance_fused wiener T={T_FULL}: {snr:.2f} dB vs the f64 reference "
+          f"(floor {FUSED_DB})")
+    if not snr >= FUSED_DB:
+        raise RuntimeError(f"_enhance_fused: {snr:.2f} dB < {FUSED_DB}")
+    print(f"[4 main-path] fastconv, fft, _enhance_fused: launches {json.dumps(launches)} in "
+          f"{main_s:.1f} s")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"the main path did not launch {missing}")
+    return launches
+
+
+def time_transforms(P, xc, xf, blocks, C, back_ins, card, sync):
+    """Phase 5 for fastconv, the FFT program, _enhance_fused, engines mxu8f /
+    mxu8t before and after K14, and K12-K14 alone with their plain
+    versions, one PyTorch call of the same function where there is one, and
+    their bounds.  Returns the numbers per kernel."""
+    import torch
+
+    FC, FT, K12, dev = P.FC, P.FT, P.K12, blocks.device
+    cb = torch.from_numpy(xc.reshape(FC_T, 1024)).to(dev)
+    fb = torch.from_numpy(xf.reshape(FFT_T, 512)).to(dev)
+    spec = {(d, r): FC.filter_spectrum(dtype=d, real_fft=r)
+            for d in (torch.float32, torch.float64) for r in (False, True)}
+    fc_ops = {
+        "xla f64": lambda: FC.fastconv_blocks(cb, *spec[torch.float64, False]),
+        "xla f32 rfft": lambda: FC.fastconv_blocks(cb, *spec[torch.float32, True],
+                                                   dtype=torch.float32, real_fft=True),
+        "gemm": lambda: FC.fastconv_blocks_gemm(cb),
+        "gemm8": lambda: FC.fastconv_blocks_gemm_int8(cb, terms=2),
+        "gemm8hq (auto)": lambda: FC.fastconv_blocks_gemm_int8(cb, terms=3),
+        "mxu / mxu3 (K12)": lambda: FC.fastconv_blocks_mxu(cb, *spec[torch.float32, False]),
+        "sparse f32": lambda: FC.fastconv_blocks_sparse(cb),
+    }
+    for name, fn in fc_ops.items():
+        ms = median_ms(fn, sync)
+        print(f"[5 timing] fastconv {name} {FC_T} blocks on {card}: {ms:.3f} ms = "
+              f"{FC_T * 1024 / (ms * 1e-3):.4g} samples/s")
+    for dtype, eng in ((torch.float32, "xla"), (torch.float32, "fourstep"),
+                       (torch.float32, "radix2"), (torch.float64, "radix2")):
+        ms = median_ms(lambda: FT.roundtrip_blocks(fb, dtype, eng), sync)
+        print(f"[5 timing] roundtrip_blocks {str(dtype)[6:]} {eng} {FFT_T} blocks on {card}: "
+              f"{ms:.3f} ms = {FFT_T * 512 / (ms * 1e-3):.4g} samples/s")
+    ms = median_ms(lambda: P.E._enhance_fused(blocks, "wiener", False), sync)
+    print(f"[5 timing] _enhance_fused wiener T={T_FULL} on {card}: {ms:.3f} ms = "
+          f"{T_FULL * 512 / (ms * 1e-3):.4g} samples/s")
+    for name, fn in (("fastconv gemm8hq", fc_ops["gemm8hq (auto)"]),
+                     ("fastconv mxu (K12)", fc_ops["mxu / mxu3 (K12)"]),
+                     ("roundtrip_blocks f32 xla", lambda: FT.roundtrip_blocks(fb, torch.float32, "xla")),
+                     ("roundtrip_blocks f32 fourstep (K12)",
+                      lambda: FT.roundtrip_blocks(fb, torch.float32, "fourstep")),
+                     ("_enhance_fused", lambda: P.E._enhance_fused(blocks, "wiener", False))):
+        wall, busy, kernels, _ = profile_call(fn, sync, top=6)
+        top = ", ".join(f"{k[:50]} x{c} {ms:.4f}" for ms, c, k in kernels)
+        print(f"[5 profile] {name} under torch.profiler on {card}: wall {wall:.3f} ms, device "
+              f"busy {busy:.3f} ms (idle {100 * (1 - busy / wall):.1f}%); kernels by device time "
+              f"(ms): {top}")
+    for eng, hq in K1_ENGINES.items():  # in turns: torch VAD, K14, K14, torch VAD
+        old = lambda: _old_vad_chain(P, blocks, C, hq)  # noqa: E731
+        new = lambda: P.E.enhance_blocks(blocks, "wiener", fft_engine=eng)  # noqa: E731
+        t = [median_ms(f, sync) for f in (old, new, new, old)]
+        print(f"[5 timing] {eng} enhance_blocks T={T_FULL} on {card}: torch VAD {t[0]:.3f} / "
+              f"{t[3]:.3f} ms, K14 {t[1]:.3f} / {t[2]:.3f} ms")
+
+    # the kernels alone: K12 as the mxu engine's inverse (2 planes in, 2 out)
+    segs = FC._segments(FC._warm(cb, torch.float32), FC_T)
+    Hr, Hi = (torch.from_numpy(a).to(dev) for a in spec[torch.float32, False])
+    Xr, Xi = K12.fft_pallas(segs, None, FC.FFT_SIZE, True)
+    Yr, Yi = Xr * Hr - Xi * Hi, Xr * Hi + Xi * Hr
+    Z = torch.complex(Yr, Yi)
+    n1, n2 = K12._factor(FC.FFT_SIZE)
+    nseg = len(segs)
+    fft_flops = 5 * FC.FFT_SIZE * np.log2(FC.FFT_SIZE) * nseg
+    dense_ms = 2 * 4 * (n1 * n1 * n2 + n1 * n2 * n2) * nseg / F32_OPS * 1e3
+    fwd_ms = median_ms(lambda: K12.fft_pallas(segs, None, FC.FFT_SIZE, True), sync)
+    ins13 = back_ins["K4"]
+    out13 = P.K13.enhance_back(*ins13, C, "wiener")
+    w = P.E._vad_window(dev)
+    flags = P.K14.vad_flags(blocks, w)
+    dots = T_FULL * 512 * 512
+    runs = {  # kernel, plain version, bytes in + out, operations, peak, library call
+        "K12": (lambda: K12.fft_pallas(Yr, Yi, FC.FFT_SIZE, False),
+                lambda: K12.fft_four_step(Yr, Yi, FC.FFT_SIZE, False),
+                nbytes(Yr, Yi, Xr, Xi), fft_flops, F32_OPS, lambda: torch.fft.fft(Z)),
+        "K13": (lambda: P.K13.enhance_back(*ins13, C, "wiener"),
+                lambda: P.K13.enhance_back_plain(*ins13, C, "wiener"),
+                nbytes(*ins13, *(C[k] for k in P.K13.CONSTS), *out13),
+                3 * 2 * 2 * dots, BF16_OPS, gemm_cores(P, blocks, C, back_ins)["K5"]),
+        "K14": (lambda: P.K14.vad_flags(blocks, w), lambda: P.K2.vad_rows(blocks, w),
+                nbytes(blocks, w, flags), 6 * blocks.numel(), F32_OPS, None),
+    }
+    times = {}
+    for name, (kern, plain, nb, ops, peak, lib) in runs.items():
+        ms, plain_ms = median_ms(kern, sync), median_ms(plain, sync)
+        lib_ms = median_ms(lib, sync) if lib else None
+        b_ms, b_by = bound(nb, ops, peak)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        print(f"[5 timing] {name} alone on {card}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"library {'-' if lib_ms is None else '%.3f ms' % lib_ms}, bound {b_ms:.4f} ms by "
+              f"{b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops)")
+    wall, busy, kernels, _ = profile_call(runs["K14"][0], sync, top=1)
+    print(f"[5 profile] K14 alone under torch.profiler on {card}: wall {wall:.4f} ms, device busy "
+          f"{busy:.4f} ms; the rest of the wall time is the wrapper's host path (checks, "
+          f"allocation, ctypes launch)")
+    print(f"[5 timing] K12 ({nseg}, {FC.FFT_SIZE}): the inverse above; the forward on real input "
+          f"{fwd_ms:.3f} ms; the dense four-step FMAs of a complex transform at the f32 peak "
+          f"{dense_ms:.3f} ms; library = torch.fft.fft on complex64")
+    return times
+
+
 SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (file:line)
     "K1": ("enhance_full8", "enhance_full8.cu", "enhance_pallas.py:737"),
     "K2": ("enhance_fwd_int8", "enhance_mxu8.cu", "enhance_pallas.py:217"),
@@ -1467,6 +1956,9 @@ SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (f
     "K9": ("bnlms", "nlms.cu", "nlms_pallas.py:261"),
     "K10": ("mfcc_fused", "mfcc.cu", "mfcc_pallas.py:89"),
     "K11": ("amdf", "amdf.cu", "amdf_pallas.py:85"),
+    "K12": ("fft_pallas", "fft4.cu", "fft_pallas.py:121"),
+    "K13": ("enhance_back", "enhance_mxu3.cu", "enhance_pallas.py:837"),
+    "K14": ("vad_flags", "vad.cu", "enhance_pallas.py:540"),
 }
 
 
@@ -1511,16 +2003,20 @@ def main() -> int:
     err.update(check_recursions(P, geq, aec, sync))
     feat = feature_inputs(dev)
     err.update(check_features(P, feat, sync))
+    xc, xf = transform_inputs()
+    err.update(check_transforms(P, xc, xf, blocks, C, back_ins, sync))
     cases = {"probe": probe, "full": x_full, "partial": probe[: T_PROBE * 512 - 100],
              "empty": probe[:0]}
     launches = drive_main_path(P, dev, cases, sync)
     launches.update(drive_recursions(P, geq, aec, sync))
     feat_launches, classify = drive_features(P, feat, dev, sync)
     launches.update(feat_launches)
+    launches.update(drive_transforms(P, xc, xf, x_full, blocks, dev, sync))
     time_chains(P, blocks, C, card, sync)
     times = time_kernels(P, blocks, C, rowpack, back_ins, card, sync)
     times.update(time_recursions(P, geq, aec, card, sync))
     times.update(time_features(P, feat, classify, card, sync))
+    times.update(time_transforms(P, xc, xf, blocks, C, back_ins, card, sync))
 
     print(card)
     print(json.dumps({"kernels": [{

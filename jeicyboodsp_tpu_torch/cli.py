@@ -10,6 +10,9 @@ Usage::
     python -m jeicyboodsp_tpu_torch.cli bnlms IN REF EST ERR [--device ...]
     python -m jeicyboodsp_tpu_torch.cli pitch2 IN [--fast [--engine xla|mxu|mxu3]] [--device ...]
     python -m jeicyboodsp_tpu_torch.cli mfcc LISTFILE [--fast [--engine xla|mxu|mxu3|mxu8]]
+    python -m jeicyboodsp_tpu_torch.cli fastconv IN OUT
+                                        [--fast [--engine xla|gemm|gemm8|gemm8hq|mxu|mxu3]]
+    python -m jeicyboodsp_tpu_torch.cli fft IN OUT [--verbose] [--fast]
 
     wiener IN OUT           Wiener noise suppression   (WienerFilter_final)
     specsub IN OUT          spectral subtraction       (SpectralSubtraction_final)
@@ -18,11 +21,18 @@ Usage::
     bnlms IN REF EST ERR    block NLMS AEC             (BNLMS)
     pitch1|pitch2|pitch3 IN pitch estimation, printed  (PitchEstimation_*)
     mfcc LISTFILE           corpus MFCC extraction     (MFCCFeatureExtraction...)
+    fastconv IN OUT         RIR fast convolution       (Fast_Convolution...)
+    fft IN OUT              radix-2 FFT roundtrip      (FFTAlgorithm_ver2)
 
-pitch and mfcc run in float64 with the ``xla`` engine (torch.fft), the
-reference's numbers, unless ``--fast`` asks for float32 and an ``--engine``:
-``mxu`` runs pitch method 2 through the AMDF kernel and the other methods as
-matmul DFTs; ``mxu3``/``mxu8`` run the MFCC DFT as f32 matmuls.
+pitch, mfcc, fastconv and fft run in float64 with the reference's numbers
+(pitch, mfcc and fastconv through ``torch.fft``, fft through the reference's
+radix-2 algorithm) unless ``--fast`` asks for float32 and an ``--engine``:
+``mxu`` runs pitch method 2 through the AMDF kernel and the other methods
+as matmul DFTs; ``mxu3``/``mxu8`` run the MFCC DFT as f32 matmuls; fastconv
+defaults to ``gemm8hq`` (the int8 Toeplitz GEMM), and its ``mxu``/``mxu3``
+run both 8192-point transforms through the four-step FFT kernel.  fft
+takes no ``--engine``: it runs the radix-2 algorithm in float32 with
+``--fast``, and ``--verbose`` prints the reference's operation counts.
 
 The device defaults to the current CUDA card, and the command fails when
 there is none; ``--device cpu`` runs the kernels' plain PyTorch versions.
@@ -35,11 +45,18 @@ import sys
 
 import torch
 
+from jeicyboodsp_tpu_torch.ops import fastconv as FC
+
 FILES = {"wiener": 2, "specsub": 2, "geq": 2, "nlms": 4, "bnlms": 4,
-         "pitch1": 1, "pitch2": 1, "pitch3": 1, "mfcc": 1}  # file arguments
+         "pitch1": 1, "pitch2": 1, "pitch3": 1, "mfcc": 1,
+         "fastconv": 2, "fft": 2}  # file arguments
 ENHANCE = ("wiener", "specsub")
-FEATURE_ENGINES = {**{f"pitch{m}": ("xla", "mxu", "mxu3") for m in (1, 2, 3)},
-                   "mfcc": ("xla", "mxu", "mxu3", "mxu8")}  # the engines of --fast
+FAST = {  # pipeline: the engines of --fast, its default engine, the compat engine
+    **{f"pitch{m}": (("xla", "mxu", "mxu3"), "xla", "xla") for m in (1, 2, 3)},
+    "mfcc": (("xla", "mxu", "mxu3", "mxu8"), "xla", "xla"),
+    "fastconv": (FC.ENGINES, "auto", "xla"),
+    "fft": ((), None, None),  # --fast is float32 only: no engine choice
+}
 
 
 def main(argv=None):
@@ -53,43 +70,59 @@ def main(argv=None):
     parser.add_argument("pipeline", choices=sorted(PIPELINES))
     parser.add_argument("files", nargs="+")
     parser.add_argument(
-        "--engine", default=None, choices=sorted({*ENGINES, *FEATURE_ENGINES["mfcc"]}),
+        "--engine", default=None,
+        choices=sorted({*ENGINES, *(e for engines, _, _ in FAST.values() for e in engines)}),
         help="wiener/specsub: mxu8f = int8 chain in one kernel, hq (~84 dB vs the "
         "reference; the default); mxu8t = the same with a turbo inverse (~70 dB); "
         "mxu8 = int8 forward and back kernels around the latch (~84 dB); "
-        "mxu3 = the same in f32 (the highest fidelity).  pitch*/mfcc with --fast: "
+        "mxu3 = the same in f32 (the highest fidelity).  With --fast: pitch*/mfcc "
         "xla (torch.fft; the default), mxu (matmul DFT; AMDF kernel for pitch2), "
-        "mxu3 and, for mfcc, mxu8 (both f32 matmul DFTs)",
+        "mxu3 and, for mfcc, mxu8 (both f32 matmul DFTs); fastconv xla (torch.fft), "
+        "gemm (f32 Toeplitz GEMM), gemm8 (int8 Toeplitz GEMM, ~77 dB), gemm8hq "
+        "(its 3-term form, the default), mxu/mxu3 (four-step FFT kernel)",
     )
     parser.add_argument("--fast", action="store_true",
-                        help="pitch*/mfcc only: float32 and --engine, instead of the "
-                        "float64 xla compat mode")
+                        help=f"{'/'.join(sorted(FAST))} only: float32 (and --engine, but "
+                        "for fft), instead of the float64 compat mode")
+    parser.add_argument("--verbose", action="store_true",
+                        help="fft only: the reference's operation-count lines "
+                        "(FFTAlgorithm_ver2.cpp:148), twice per block, and its closing lines")
     parser.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     ns = parser.parse_args(argv)
     if len(ns.files) != FILES[ns.pipeline]:
         parser.error(f"{ns.pipeline} takes {FILES[ns.pipeline]} file arguments, "
                      f"got {len(ns.files)}")
     kw = {"device": ns.device}
-    if ns.fast and ns.pipeline not in FEATURE_ENGINES:
-        parser.error(f"--fast applies to {'/'.join(sorted(FEATURE_ENGINES))} only")
+    if ns.fast and ns.pipeline not in FAST:
+        parser.error(f"--fast applies to {'/'.join(sorted(FAST))} only")
+    if ns.verbose:
+        if ns.pipeline != "fft":
+            parser.error("--verbose applies to fft only")
+        kw["verbose"] = True
     if ns.pipeline in ENHANCE:
         if ns.engine is not None and ns.engine not in ENGINES:
             parser.error(f"{ns.pipeline} takes --engine {'/'.join(ENGINES)}")
         kw["fft_engine"] = ns.engine or "mxu8f"
-    elif ns.pipeline in FEATURE_ENGINES:
+    elif ns.pipeline in FAST:
+        engines, default, compat = FAST[ns.pipeline]
+        if ns.engine is not None and not engines:
+            parser.error(f"{ns.pipeline} takes no --engine")
         if ns.fast:
-            if ns.engine is not None and ns.engine not in FEATURE_ENGINES[ns.pipeline]:
-                parser.error(f"{ns.pipeline} takes --engine "
-                             f"{'/'.join(FEATURE_ENGINES[ns.pipeline])}")
-            kw.update(dtype=torch.float32, fft_engine=ns.engine or "xla")
+            if ns.engine is not None and ns.engine not in engines:
+                parser.error(f"{ns.pipeline} takes --engine {'/'.join(engines)}")
+            kw["dtype"] = torch.float32
+            engine = ns.engine or default
         elif ns.engine is not None:
             parser.error(f"{ns.pipeline} takes --engine with --fast only (compat mode is "
-                         "float64 xla)")
+                         f"float64 {compat})")
         else:
             kw["dtype"] = torch.float64
+            engine = compat
+        if engines:
+            kw["fft_engine"] = engine
     elif ns.engine is not None:
         parser.error(f"--engine applies to {'/'.join(ENHANCE)} and, with --fast, "
-                     f"{'/'.join(sorted(FEATURE_ENGINES))} only")
+                     f"{'/'.join(sorted(p for p, (e, _, _) in FAST.items() if e))} only")
     PIPELINES[ns.pipeline](*ns.files, **kw)
     return 0
 

@@ -19,6 +19,15 @@
 // and masks (ops/enhance.py:542-550); those values are exact integers, so
 // writing int16 with the mask here gives the same result.
 //
+// K13, jb_enhance_back, replaces enhance_back_pallas (_make_back_kernel):
+// the same inputs -> head = u - v, w2 = u + v (T, 512) and the y512 column
+// (T,), with no OLA (its caller assembles it), in three passes: K5's
+// gain_kernel and inv32_kernel, then
+//   3. split_kernel   head and w2 in place of the (u, v) planes, y512 out
+//                     of the row scalars
+// Bound at T = 16384: its two GEMMs as bf16x3 on tensor cores 0.052 ms;
+// re, im, ns in and head, w2 out are 168 MB, 0.050 ms.
+//
 // The TPU kernels run their f32 GEMMs as bf16x3 only because Mosaic has no
 // Precision.HIGH.  Here they are plain f32 FMA GEMMs on CUDA cores, the tile
 // GEMM of sgemm.cuh (shared with K10, mfcc.cu).  Bound on this card at
@@ -40,6 +49,10 @@ struct FramesA {  // K4: [prev | cur] int16 rows as f32, K = 1024
   __device__ float4 load(int t, int k) const {
     if (t >= T || (k < N && t == 0)) return make_float4(0.f, 0.f, 0.f, 0.f);
     const int16_t* p = k < N ? x + (size_t)(t - 1) * N + k : x + (size_t)t * N + (k - N);
+    // p is 8-byte aligned exactly when x is (k % 4 == 0, rows 1 KB apart):
+    // the same branch for every load; a view at an odd offset reads scalars
+    if (reinterpret_cast<uintptr_t>(p) % 8)
+      return make_float4((float)p[0], (float)p[1], (float)p[2], (float)p[3]);
     const short4 v = *reinterpret_cast<const short4*>(p);
     return make_float4((float)v.x, (float)v.y, (float)v.z, (float)v.w);
   }
@@ -131,6 +144,19 @@ __global__ void __launch_bounds__(GT) inv32_kernel(const float* __restrict__ Y, 
   }
 }
 
+// K13 pass 3, one block of N threads per row: (u, v) -> (u - v, u + v)
+// in place, in the TPU kernel's operand order; y512 from rowsc slot 5.
+__global__ void __launch_bounds__(N) split_kernel(float* __restrict__ uv,
+                                                  const float* __restrict__ rowsc,
+                                                  float* __restrict__ y512, int T) {
+  const int t = blockIdx.x, k = threadIdx.x;
+  const size_t i = (size_t)t * N + k, pl = (size_t)T * N;
+  const float u = uv[i], v = uv[pl + i];
+  uv[i] = u - v;
+  uv[pl + i] = u + v;
+  if (k == 0) y512[t] = rowsc[(size_t)t * RS + 5];
+}
+
 __global__ void __launch_bounds__(N) ola_kernel(const float* __restrict__ uv,
                                                 const float* __restrict__ rowsc,
                                                 int16_t* __restrict__ out, int T,
@@ -164,5 +190,20 @@ extern "C" int jb_enhance_back_ola3(
   inv32_kernel<<<dim3((T + BM - 1) / BM, N / BN, 2), GT, 0, st>>>(Y, T, UC, VS, rowsc,
                                                                   u_nyq, uv);
   ola_kernel<<<T, N, 0, st>>>(uv, rowsc, out, T, emit_all);
+  return (int)cudaGetLastError();
+}
+
+// K13.  As K5 up to the inverse; outputs from the caller: hw (2, T, 512)
+// f32 (head, then w2), y512 (T,) f32; scratch Y (2, T, 512), rowsc (T, 8).
+extern "C" int jb_enhance_back(const float* re, const float* im, const float* ren,
+                               const float* ns, const float* nsn, int T, int wiener,
+                               const float* UC, const float* VS, const float* u_nyq,
+                               const float* y512col, float* Y, float* rowsc, float* hw,
+                               float* y512, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gain_kernel<<<T, N, 0, st>>>(re, im, ren, ns, nsn, y512col, Y, rowsc, T, wiener);
+  inv32_kernel<<<dim3((T + BM - 1) / BM, N / BN, 2), GT, 0, st>>>(Y, T, UC, VS, rowsc,
+                                                                  u_nyq, hw);
+  split_kernel<<<T, N, 0, st>>>(hw, rowsc, y512, T);
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,21 @@
 """Wiener / spectral-subtraction enhancement chain in torch.
 
 Counterpart of ``jeicyboodsp_tpu/ops/enhance.py`` for its four fused
-engines.  VAD and the latch row pack are torch ops on (T,) vectors; the
-rest runs in kernels whose wrappers launch hand-written CUDA kernels on a
-CUDA tensor and their plain versions on a CPU tensor:
+engines and the two-kernel f32 engine ``_enhance_fused``.  The latch row
+pack is torch ops on (T,) vectors; the rest runs in kernels whose wrappers
+launch hand-written CUDA kernels on a CUDA tensor and their plain versions
+on a CPU tensor:
 
-- ``mxu8f`` (hq) and ``mxu8t`` (turbo inverse): the whole chain in one
-  kernel, :func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.enhance_full8`;
+- ``mxu8f`` (hq) and ``mxu8t`` (turbo inverse): the VAD kernel K14
+  (:func:`vad_flags`), then the whole chain in one kernel,
+  :func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.enhance_full8`;
 - ``mxu8`` and ``mxu3``: a forward kernel (int8 K2 or f32 K4) with the
   in-kernel VAD, the noise latch
   (:func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.noise_latch`) and a
-  back kernel (int8 K3 or f32 K5) with the flip, OLA and ``c_short``.
+  back kernel (int8 K3 or f32 K5) with the flip, OLA and ``c_short``;
+- ``_enhance_fused`` (tests and ``chip_smoke.py`` only, as in the JAX
+  package): K4, the noise latch, the back kernel K13 and the OLA assembly
+  in torch ops.
 
 The numpy basis functions are copies of the JAX package's (whose module
 imports jax); a CPU test holds them byte-identical.
@@ -26,13 +31,15 @@ import numpy as np
 import torch
 
 from jeicyboodsp_tpu_torch.io.wav import stale_blocks
+from jeicyboodsp_tpu_torch.kernels.enhance_back import enhance_back
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola3 import enhance_back_ola3
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola8 import enhance_back_ola8
 from jeicyboodsp_tpu_torch.kernels.enhance_full8 import enhance_full8, noise_latch
 from jeicyboodsp_tpu_torch.kernels.enhance_fwd import enhance_fwd
-from jeicyboodsp_tpu_torch.kernels.enhance_fwd_int8 import enhance_fwd_int8, vad_rows
+from jeicyboodsp_tpu_torch.kernels.enhance_fwd_int8 import enhance_fwd_int8
+from jeicyboodsp_tpu_torch.kernels.vad_flags import vad_flags as vad_kernel
 from jeicyboodsp_tpu_torch.ops.dft import int8_col_split
-from jeicyboodsp_tpu_torch.utils.cnum import REF_PI, hamming_ref
+from jeicyboodsp_tpu_torch.utils.cnum import REF_PI, c_short, hamming_ref
 from jeicyboodsp_tpu_torch.utils.device import entry_device
 
 BLOCK_LEN = 512
@@ -41,14 +48,22 @@ NOISE_FRAMES = 10
 ENGINES = ("mxu8f", "mxu8t", "mxu8", "mxu3")
 
 
+@functools.lru_cache(maxsize=4)
+def _vad_window(device: torch.device):
+    """The second half of the f32 Hamming window, computed on ``device``."""
+    return hamming_ref(FFT_SIZE, torch.float32, device)[BLOCK_LEN:]
+
+
 def vad_flags(blocks):
-    """Vectorized VAD over (T, 512) int16 blocks -> (T,) bool (True=speech),
-    in f32 as the fused chain computes it.
+    """VAD over (T, 512) int16 blocks -> (T,) bool (True=speech), in f32
+    as the fused chain computes it, through the K14 wrapper.
 
     Semantics of WienerFilter_final.cpp:261-296 including the in-place int16
-    window truncation and the windowed[i] x raw[i+1] ZCR pairing.
+    window truncation and the windowed[i] x raw[i+1] ZCR pairing.  The window
+    is this function's own f32 Hamming half, not the f64-built ``w2`` of
+    :func:`_dft_mats_aligned` that K2 and K4 read (ROADMAP R8).
     """
-    return vad_rows(blocks, hamming_ref(FFT_SIZE, torch.float32, blocks.device)[BLOCK_LEN:])
+    return vad_kernel(blocks, _vad_window(blocks.device))
 
 
 def _latch_rowpack(speech, L: int = 64):
@@ -244,6 +259,33 @@ def _enhance_fused3(blocks, mode, emit_all, int8: bool, hq: bool = True, L: int 
     return out[:T], write_mask
 
 
+def _enhance_fused(blocks, mode, emit_all, L: int = 64):
+    """The two-kernel f32 engine (JAX ``_enhance_fused``, F = 512): the
+    forward kernel K4 with the in-kernel VAD, the noise latch, the back
+    kernel K13, then the OLA assembly in torch ops: tail = [y512, flip(w2)
+    [1:]], out[t] = c_short(head[t] + tail[t-1]) for t >= 2 (head alone at
+    t = 1, zero at t = 0).  Reached only from tests and ``chip_smoke.py``,
+    as in the JAX package.
+
+    Returns (out (T, 512) int16, write_mask (T,)): rows t < 2 are warm-up,
+    zero unless ``emit_all``.
+    """
+    T = blocks.shape[0]
+    bp = _pad_rows(blocks, L)
+    C = _constants_on(bp.device)
+    re, im, re_n, mag, mag_n, sp = enhance_fwd(bp, C)
+    ns, ns_n = _noise_latch_parts(sp[:, 0] > 0.5, (mag, mag_n), chunk=L)
+    head, w2, y512 = enhance_back(re, im, re_n, ns, ns_n, C, mode)
+    tail = torch.cat([y512, w2[:, 1:].flip(1)], 1)
+    tail_prev = torch.cat([torch.zeros_like(tail[:1]), tail[:-1]])
+    t = torch.arange(bp.shape[0], device=bp.device)[:, None]
+    out = c_short(torch.where(t >= 1, head + torch.where(t >= 2, tail_prev, 0.0), 0.0))
+    if not emit_all:
+        out = torch.where(t >= 2, out, 0)
+    write_mask = torch.arange(T, device=blocks.device) >= 2
+    return out[:T], write_mask
+
+
 def enhance_blocks(blocks, mode: str = "wiener", emit_all: bool = False,
                    fft_engine: str = "mxu8f"):
     """Run the full chain over (T, 512) int16 blocks on their device.
@@ -260,7 +302,8 @@ def enhance_blocks(blocks, mode: str = "wiener", emit_all: bool = False,
         raise NotImplementedError(
             f"fft_engine {fft_engine!r} is not ported yet (ROADMAP.md queue 1, "
             "item 2: the f64/xla compat path (d), the plain mxu path (e)); "
-            f"ported: {ENGINES}"
+            f"ported: {ENGINES}, and the two-kernel f32 engine as the private "
+            "_enhance_fused"
         )
     if mode not in ("wiener", "specsub"):
         raise ValueError(mode)

@@ -1,19 +1,22 @@
 """File-in/file-out pipelines of the port (counterpart of
 ``jeicyboodsp_tpu/pipelines/registry.py``).  Ported so far: the enhancement
 chain (``wiener``, ``specsub``), the 7-band EQ (``geq``), the echo
-cancellers (``nlms``, ``bnlms``), pitch (``pitch1``-``pitch3``) and corpus
-MFCC (``mfcc``).  Each reads its inputs as the reference program does:
+cancellers (``nlms``, ``bnlms``), pitch (``pitch1``-``pitch3``), corpus
+MFCC (``mfcc``), the RIR fast convolution (``fastconv``) and the FFT
+roundtrip program (``fft``).  Each reads its inputs as the reference
+program does:
 
 - ``wiener``/``specsub`` read from byte 0: the reference never skips the
   44-byte header (WienerFilter_final.cpp:81 is commented out);
 - ``geq`` skips the header (7Band_GEQ.cpp:116);
 - ``nlms``/``bnlms`` skip the input's header but not the reference
   signal's (NormalLMS.cpp:65-66);
-- ``pitch*`` and ``mfcc`` skip the header.
+- ``pitch*``, ``mfcc``, ``fastconv`` and ``fft`` skip the header.
 
 ``kw`` is passed on to the op: ``device`` (a CUDA card by default; "cpu"
 runs the plain versions) for all, ``fft_engine`` for the enhancement chain,
-pitch and MFCC, ``dtype`` for pitch and MFCC.
+pitch, MFCC and fastconv, ``dtype`` for pitch, MFCC, fastconv and fft,
+``verbose`` for fft.
 """
 
 from __future__ import annotations
@@ -103,6 +106,38 @@ def mfcc(list_file: str, **kw):
             np.asarray(feats, dtype="<f8").tofile(dst)
 
 
+def fastconv(inp: str, out: str, **kw):
+    """3D-audio RIR convolution: header skipped (:79).  kw: dtype,
+    real_fft, fft_engine, device."""
+    from jeicyboodsp_tpu_torch.ops import fastconv as FC
+
+    y = FC.run_stream(_read(inp, True), **kw)
+    write_pcm16(out, y)
+    return y
+
+
+def fft_roundtrip(inp: str, out: str, verbose: bool = False, **kw):
+    """FFT roundtrip program: header skipped.  With ``verbose`` the
+    reference's print surface: its operation counter after every FFT call,
+    forward and inverse, so twice per block, then the stream-end lines
+    (FFTAlgorithm_ver2.cpp:64-66, 87, 148).  kw: dtype, device."""
+    import sys
+
+    from jeicyboodsp_tpu_torch.ops import fft as F
+
+    y = F.run_stream(_read(inp, True), **kw)
+    if verbose:
+        add, mul = F.fft_op_counts(F.BLOCK_LEN)
+        line = "%d-point FFT Calculation add %d multiply %d \n " % (F.BLOCK_LEN, add, mul)
+        for _ in range(len(y) // F.BLOCK_LEN):
+            sys.stdout.write(line)
+            sys.stdout.write(line)
+        sys.stdout.write("Break! The buffer is insufficient.\n")
+        sys.stdout.write("Processing End\n")
+    write_pcm16(out, y)
+    return y
+
+
 PIPELINES = {
     "geq": geq,
     "wiener": wiener,
@@ -113,4 +148,6 @@ PIPELINES = {
     "pitch2": lambda inp, **kw: pitch(inp, 2, **kw),
     "pitch3": lambda inp, **kw: pitch(inp, 3, **kw),
     "mfcc": mfcc,
+    "fastconv": fastconv,
+    "fft": fft_roundtrip,
 }

@@ -7,7 +7,9 @@ a 16-bit move:
     * NaN or |value| too large for int32  ->  0x80000000  ->  low 16 bits = 0
     * otherwise truncate toward zero to int32, keep the low 16 bits
 
-``REF_PI`` is the reference's truncated pi (``#define PI 3.141592``).
+``REF_PI`` is the reference's truncated pi (``#define PI 3.141592``);
+``FFT_PI`` the slightly longer pi of the from-scratch FFT program
+(``FFTAlgorithm_ver2.cpp:15``).
 
 The kernels apply the same rule on the card (``csrc/cnum.cuh``), checking the
 range before they convert: a GPU's double->int conversion saturates instead.
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 
 REF_PI = 3.141592  # WienerFilter_final.cpp:41
+FFT_PI = 3.14159265358  # FFTAlgorithm_ver2.cpp:15
 
 _INT32_MIN = -(2 ** 31)
 _INT32_MAX = 2 ** 31 - 1

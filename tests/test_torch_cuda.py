@@ -612,3 +612,154 @@ def test_amdf_wrapper_rejects(bad):
         lo = 100
     with pytest.raises(ValueError):
         K11.amdf(frames, lo)
+
+
+# ---- K12 (the four-step FFT), K13 (the f32 back half), K14 (the VAD) ----
+
+from chip_smoke import vad_threshold_rows  # noqa: E402
+from jeicyboodsp_tpu_torch.kernels import enhance_back as K13  # noqa: E402
+from jeicyboodsp_tpu_torch.kernels import fft_four_step as K12  # noqa: E402
+from jeicyboodsp_tpu_torch.kernels import vad_flags as K14  # noqa: E402
+from jeicyboodsp_tpu_torch.ops import fastconv as FC  # noqa: E402
+from jeicyboodsp_tpu_torch.ops import fft as FT  # noqa: E402
+
+FFT_RTOL = 1e-5   # K12 against its plain version and numpy: of max |X|
+ROW_RTOL = 1e-5   # K13 against its plain version: of each frame row's max
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["forward_real", "inverse_complex"])
+@pytest.mark.parametrize("n", [512, 1024, 8192, 96])
+def test_fft4_kernel_matches_plain(cuda, n, forward):
+    """K12 against its plain version (cuBLAS f32 matmuls, TF32 off) and a
+    float64 numpy FFT, within 1e-5 of max |X|; n = 96 (8 x 12) takes the
+    ragged tile edges."""
+    rng = np.random.default_rng(n + forward)
+    T = 37
+    xr, xi = (torch.from_numpy(rng.normal(0, 100, (T, n)).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    xi = None if forward else xi
+    before = K12.fft_pallas.launches
+    r, i = K12.fft_pallas(xr, xi, n, forward)
+    pr, pi = K12.fft_four_step(xr, xi, n, forward)
+    torch.cuda.synchronize()
+    assert K12.fft_pallas.launches == before + 1
+    assert r.shape == (T, n) and r.dtype == torch.float32
+    got = r.cpu().double().numpy() + 1j * i.cpu().double().numpy()
+    z = xr.cpu().double().numpy() + (0 if forward else 1j * xi.cpu().double().numpy())
+    for what, want in (("plain", pr.cpu().double().numpy() + 1j * pi.cpu().double().numpy()),
+                       ("numpy", np.fft.fft(z) if forward else np.fft.ifft(z) * n)):
+        assert np.abs(got - want).max() <= FFT_RTOL * np.abs(want).max(), what
+
+
+def test_fft4_paths_launch_k12(cuda):
+    """roundtrip_blocks(fourstep) and fastconv's mxu engine in f32 go through
+    K12 and agree with their CPU runs to one int16 step."""
+    rng = np.random.default_rng(9)
+    x = np.clip(rng.normal(0, 3000, 40 * 512), -32768, 32767).astype(np.int16)
+    before = K12.fft_pallas.launches
+    rt = FT.roundtrip_blocks(torch.from_numpy(x.reshape(-1, 512)).to(cuda), torch.float32,
+                             "fourstep")
+    fc = FC.run_stream(x, dtype=torch.float32, fft_engine="mxu", device=cuda)
+    torch.cuda.synchronize()
+    assert K12.fft_pallas.launches == before + 4  # two transforms each
+    rc = FT.roundtrip_blocks(torch.from_numpy(x.reshape(-1, 512)), torch.float32, "fourstep")
+    fcc = FC.run_stream(x, dtype=torch.float32, fft_engine="mxu", device="cpu")
+    assert (rt.cpu().int() - rc.int()).abs().max() <= 1
+    assert fc.shape == fcc.shape and np.abs(fc.astype(int) - fcc.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("mode", ["wiener", "specsub"])
+def test_enhance_back_kernel_matches_plain(cuda, mode):
+    blocks, _, C = _inputs(cuda)
+    ins = _back_inputs("K4", blocks, C)
+    before = K13.enhance_back.launches
+    got = K13.enhance_back(*ins, C, mode)
+    want = K13.enhance_back_plain(*ins, C, mode)
+    torch.cuda.synchronize()
+    assert K13.enhance_back.launches == before + 1
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+    rowmax = torch.cat(want, 1).abs().amax(1, keepdim=True)
+    for g, w in zip(got, want):
+        assert ((g - w).abs() <= ROW_RTOL * rowmax).all()
+
+
+def test_enhance_back_zero_bins_give_nan(cuda):
+    """re = im = 0 before any latch: the Wiener gain 0/0 = NaN reaches the
+    kernel's outputs where it reaches the plain version's."""
+    blocks, _, C = _inputs(cuda, n_blocks=64)
+    re, im, re_n, ns, ns_n = _back_inputs("K4", blocks, C)
+    re, im = re.clone(), im.clone()
+    re[:, 100:110] = 0.0
+    im[:, 100:110] = 0.0
+    got = K13.enhance_back(re, im, re_n, ns, ns_n, C, "wiener")
+    want = K13.enhance_back_plain(re, im, re_n, ns, ns_n, C, "wiener")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.isnan(), w.isnan())
+    assert got[0].isnan().any()
+
+
+def test_enhance_fused_on_card(cuda):
+    """_enhance_fused runs K4 and K13 and agrees with its CPU run to one
+    int16 step on under 0.5% of the samples (f32 sums in other orders)."""
+    blocks = torch.from_numpy(_signal(200, 5).reshape(-1, 512))
+    k4, k13 = K4.enhance_fwd.launches, K13.enhance_back.launches
+    out, mask = E._enhance_fused(blocks.to(cuda), "wiener", False)
+    torch.cuda.synchronize()
+    assert (K4.enhance_fwd.launches, K13.enhance_back.launches) == (k4 + 1, k13 + 1)
+    out_c, mask_c = E._enhance_fused(blocks, "wiener", False)
+    assert torch.equal(mask.cpu(), mask_c) and out[:2].eq(0).all()
+    d = (out.cpu().int() - out_c.int()).abs()
+    assert d.max() <= 1 and d.gt(0).double().mean() < 0.005
+
+
+def test_vad_kernel_bit_equal_to_plain(cuda):
+    """K14's flags equal its plain version's on the chain's signal, on
+    full-scale random rows and on rows at the energy and ZCR thresholds,
+    with the port's f32 window and the f64-built w2."""
+    rng = np.random.default_rng(4)
+    C = E.enhance_constants(cuda)
+    for w2 in (E._vad_window(cuda), C["w2"]):
+        rows = np.concatenate([_signal(300, 6).reshape(-1, 512),
+                               rng.integers(-32768, 32768, (40, 512)).astype(np.int16),
+                               vad_threshold_rows(w2.cpu().numpy())])
+        cur = torch.from_numpy(rows).to(cuda)
+        before = K14.vad_flags.launches
+        got = K14.vad_flags(cur, w2)
+        torch.cuda.synchronize()
+        assert K14.vad_flags.launches == before + 1
+        assert got.dtype == torch.bool and torch.equal(got, K2.vad_rows(cur, w2))
+        assert got[-6:].tolist() == [False, False, True, True, False, False]
+    # a contiguous view that starts off a 16-byte boundary takes the 2-byte loads
+    buf = torch.zeros(cur.numel() + 1, dtype=torch.int16, device=cuda)
+    buf[1:] = cur.reshape(-1)
+    odd = buf[1:].view(cur.shape)
+    assert odd.data_ptr() % 16
+    assert torch.equal(K14.vad_flags(odd, w2), got)
+
+
+def test_engines_mxu8f_mxu8t_launch_k14(cuda):
+    blocks = torch.from_numpy(_signal(100, 8).reshape(-1, 512)).to(cuda)
+    for eng in ("mxu8f", "mxu8t"):
+        before = K14.vad_flags.launches
+        E.enhance_blocks(blocks, "wiener", fft_engine=eng)
+        torch.cuda.synchronize()
+        assert K14.vad_flags.launches == before + 1, eng
+
+
+@pytest.mark.parametrize("eng", [*E.ENGINES, "_enhance_fused"])
+def test_enhance_blocks_on_an_unaligned_view(cuda, eng):
+    """A contiguous CUDA view at an odd sample offset (T a multiple of 64,
+    so no padded copy is made) gives the same output as an aligned copy:
+    K14 and K4 read such blocks with scalar loads."""
+    x = _signal(128, 9)
+    buf = torch.zeros(x.size + 1, dtype=torch.int16, device=cuda)
+    buf[1:] = torch.from_numpy(x).to(cuda)
+    odd = buf[1:].view(-1, 512)
+    assert odd.data_ptr() % 8 and odd.is_contiguous()
+    if eng == "_enhance_fused":
+        got, want = (E._enhance_fused(b, "wiener", False) for b in (odd, odd.clone()))
+    else:
+        got, want = (E.enhance_blocks(b, "wiener", fft_engine=eng) for b in (odd, odd.clone()))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
