@@ -6,13 +6,14 @@
 Drives the port's main paths at their full size -- the Wiener /
 spectral-subtraction chain of engines mxu8f, mxu8t (kernel K1), mxu8 (K2,
 K3) and mxu3 (K4, K5) at T = 16384 blocks of 512 samples per call (8.39 M
-samples); the 7-band GEQ (K6, and K7 for its linear engine) at 2048 streams
+samples), and its float64 compat path (the CLI's default command, torch ops,
+no kernel) with the f32 xla / mxu paths (K14, the noise latch); the 7-band GEQ (K6, and K7 for its linear engine) at 2048 streams
 x 49,152 samples; the NLMS (K8) and BNLMS (K9) echo cancellers at 1024
 streams x 65,536 samples; the MFCC (K10) over 8192 blocks of 1024 samples
 with speech classification against 25 class models, and pitch method 2
 (K11) over 16,384 frames of 1024; the RIR fast convolution over 2048 blocks
-of 1024 (2041 segments of 8192; the four-step FFT K12 for engines mxu and
-mxu3), the FFT program over 16,384 blocks of 512 (K12 for ``fourstep``), the
+of 1024 (2041 segments of 8192; the shared-memory FFT K12 for engines mxu
+and mxu3), the FFT program over 16,384 blocks of 512 (K12 for ``fourstep``), the
 two-kernel f32 enhancement engine ``_enhance_fused`` (K4, K13) at T = 16384,
 and the VAD kernel K14 under engines mxu8f and mxu8t -- in phases that each
 print lines and raise on failure:
@@ -21,7 +22,8 @@ print lines and raise on failure:
 2. build: compiles the CUDA sources with nvcc and prints the seconds;
 3. each kernel against its plain version on the same inputs:
    - at T = 16384, wiener and specsub: K1 >= 90 dB of the int16 outputs with
-     bit-equal forward planes; K2 re/im planes bit-equal and flags equal; K4
+     forward planes bit-equal (the tensor-core pass K1 and K2 share); K2
+     re/im/|X| planes bit-equal and flags equal; K4
      planes within 1e-5 of their row max and flags equal; the noise latch
      within 1e-6; K3 and K5 >= 90 dB;
    - at the full stream counts and a shorter T for the plain loops: K6 and K7
@@ -32,7 +34,8 @@ print lines and raise on failure:
      infinity masks (a silent stretch gives NaN frames); K11 bit-equal at
      lo = 96 and lo = 0;
    - K12 at (2041, 8192), forward on real segments and inverse on their
-     filtered spectra, and at (16384, 512), within 1e-5 of max |X|; K13 on
+     filtered spectra, and at (16384, 512), within 1e-5 of max |X| (it sums
+     in another order than the four-step plain version: not bit-equal); K13 on
      K4's planes at T = 16384, wiener and specsub, within 1e-5 of each frame
      row's max with equal NaN masks; K14's flags bit-equal on the chain's
      signal and on rows at its energy and ZCR thresholds, with the f32
@@ -44,6 +47,12 @@ print lines and raise on failure:
      192-block probe and on the full-size signal, against a float64 numpy
      reference of the reference program (floors: mxu8f and mxu8 78 dB, mxu8t
      65 dB, mxu3 85 dB), plus the empty-payload and partial-final-block cases;
+   - the compat path: the ``wiener`` and ``specsub`` CLI's default command
+     (float64 ``xla``) on the probe, the partial and empty cases and the
+     full-size signal, each at most one int16 step from the reference on
+     under 0.1% of the samples (the flipped count printed, the full-size
+     time too); ``run_stream`` f32 ``xla`` >= 95 dB and ``mxu`` >= 90 dB
+     with the log-depth scan; ``wiener --fast --engine mxu8f`` from the CLI;
    - GEQ, NLMS, BNLMS: the ``geq``, ``nlms`` and ``bnlms`` pipelines on probe
      files against the script's own float64 numpy copies of the oracles
      (GEQ byte-identical with a full-scale wrap-stress section, a partial
@@ -75,18 +84,20 @@ print lines and raise on failure:
      ``_enhance_fused`` at T = 16384, each against the script's float64
      numpy copies of the oracles (f64 within one step; f32 at the floors of
      tests/test_engine_matrix.py; ``_enhance_fused`` >= 85 dB);
-5. timing: ``enhance_blocks`` of each engine, the ops ``geq_apply``,
+5. timing (CUDA events around batches of back-to-back calls, see
+   ``median_ms``): ``enhance_blocks`` of each engine, the ops ``geq_apply``,
    ``nlms_apply`` and ``bnlms_apply``, ``mfcc_blocks(mxu3)``,
    ``pitch_frames(method=2, mxu)`` and ``speech_classify`` at full size, and
    each kernel alone against its plain version (K6-K9 at their shorter T)
-   and one PyTorch call of its GEMM core where there is one, CUDA events,
-   median of 7 after warm-up (median of 3 for the plain versions of K6-K11),
+   and one PyTorch call of its GEMM core where there is one, the median of
+   7 batches after warm-up (of 3 for the plain versions of K6-K11),
    with the bytes, operations and dependency-chain bounds; ``speech_classify``
    once more under ``torch.profiler`` (device busy time, host ops); each
    fastconv engine at 2048 blocks, ``roundtrip_blocks`` per engine at 16,384
    blocks, ``_enhance_fused``, engines mxu8f / mxu8t with the torch VAD and
-   with K14 in turns, and K12 (with ``torch.fft.fft`` on the same complex64
-   batch), K13 (with its f32 matmul core) and K14 alone.
+   with K14 in turns, and K12 at (2041, 8192) and (16384, 512) (with
+   ``torch.fft.fft`` on the same complex64 batch), K13 (with its f32 matmul
+   core) and K14 alone.
 
 Then the card's line, one JSON line of per-kernel results and, last, the
 ``{"ok": true, ...}`` line.  Imports neither jax nor the JAX package.
@@ -109,10 +120,10 @@ FS = 16000
 SEED = 20260817
 FLOORS = {"mxu8f": 78.0, "mxu8t": 65.0, "mxu8": 78.0, "mxu3": 85.0}  # dB vs the reference
 KERNEL_VS_PLAIN_DB = 90.0
-PLANE_RTOL = 1e-6   # K1's int8 forward planes against the plain version's
 F32_RTOL = 1e-5     # K4's f32 planes: its sums run in another order than cuBLAS's
 LATCH_RTOL = 1e-6
 REPS = 7
+BATCH_MS, BATCH_MAX = 2.0, 50  # back-to-back calls timed together (median_ms)
 # the recursions at the sizes of the JAX package's benchmark (bench/all_configs.py:278, :498,
 # :730), the shorter T of their plain loops, and their plain versions' timing T and repeats
 GEQ_B, GEQ_T = 2048, 49152
@@ -458,19 +469,28 @@ def card_clock_hz():
 
 
 def median_ms(fn, sync, reps=REPS):
+    """ms per call of fn: after a warm-up, ``reps`` batches of back-to-back
+    calls between two CUDA events, each over its count, and their median.
+    A batch runs for about BATCH_MS (one call where a call is longer), so a
+    short kernel's time is the card's and not the host's launch path, as
+    long as the host keeps ahead of the card."""
     import torch
 
-    fn()  # warm-up
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()  # warm-up, and the length of one call
+    b.record()
     sync()
+    batch = max(1, min(BATCH_MAX, int(BATCH_MS / max(a.elapsed_time(b), 1e-3))))
     times = []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         sync()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
 
 
@@ -591,11 +611,11 @@ def check_kernels(P, blocks, C, rowpack, speech, sync):
             got, pk = P.K1.enhance_full8(blocks, rowpack, C, mode, hq, return_planes=True)
             want, pp = P.K1.enhance_full8_plain(blocks, rowpack, C, mode, hq, return_planes=True)
             sync()
-            rel = max(rel_err(pk[k], pp[k]) for k in ("re", "im"))
+            same = all(torch.equal(pk[k], pp[k]) for k in ("re", "im"))
             err["K1"] = max(err["K1"], int16_diff(got, want, f"K1 {mode} {eng}"))
-            print(f"[3 kernel-vs-plain] K1 {mode} {eng}: fwd planes max err/rowmax {rel:.2e}")
-            if not rel <= PLANE_RTOL:
-                raise RuntimeError(f"K1 forward planes differ: {rel:.2e} > {PLANE_RTOL}")
+            print(f"[3 kernel-vs-plain] K1 {mode} {eng}: forward planes bit-equal {same}")
+            if not same:
+                raise RuntimeError("K1: forward planes are not bit-equal to the plain version")
 
     back_ins = {}
     for name, (kernel, plain) in {"K2": (P.K2.enhance_fwd_int8, P.K2.enhance_fwd_int8_plain),
@@ -643,7 +663,7 @@ def check_kernels(P, blocks, C, rowpack, speech, sync):
     return err, back_ins
 
 
-def drive_main_path(P, dev, cases, sync):
+def drive_main_path(P, dev, cases, refs, sync):
     """Phase 4: the file pipelines of every engine, with every launch
     counter set to 0 just before and read just after.  Returns the counts."""
     from jeicyboodsp_tpu_torch.utils.metrics import snr_db
@@ -654,7 +674,6 @@ def drive_main_path(P, dev, cases, sync):
                "K14": P.K14.vad_flags}
     work = os.path.join(ROOT, "jeicyboodsp_tpu_torch", "build", "smoke")
     os.makedirs(work, exist_ok=True)
-    refs = {(c, m): reference_enhance(x, m) for c, x in cases.items() for m in MODES}
     for c, x in cases.items():
         x.tofile(os.path.join(work, f"{c}.pcm"))
     for fn in counted.values():
@@ -686,6 +705,71 @@ def drive_main_path(P, dev, cases, sync):
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise RuntimeError(f"the main path did not launch {missing}")
+    return launches
+
+
+COMPAT_FLIPPED = 1e-3  # f64 xla against the reference: one step, on under 0.1% of the samples
+COMPAT_F32 = {"xla": 95.0, "mxu": 90.0}  # f32 with the log-depth scan (test_engine_matrix.py:39-55)
+
+
+def drive_compat(P, dev, cases, refs, sync):
+    """Phase 4, the compat path: the ``wiener`` / ``specsub`` CLI's default
+    command (float64 ``xla``: torch ops, no kernel) on every case, f32
+    ``xla`` and ``mxu`` with the log-depth scan on the probe, and ``wiener
+    --fast --engine mxu8f`` from the CLI, the counters of the kernels these
+    f32 paths run (K14, the latch, K1) set to 0 just before and read just
+    after.  Returns the counts."""
+    import torch
+
+    from jeicyboodsp_tpu_torch.utils.metrics import snr_db
+
+    counted = {"K1": P.K1.enhance_full8, "latch": P.K1.noise_latch, "K14": P.K14.vad_flags}
+    work = os.path.join(ROOT, "jeicyboodsp_tpu_torch", "build", "smoke")
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out, secs = {}, {}
+    for c in cases:
+        for mode in MODES:
+            path = os.path.join(work, f"{c}_{mode}_compat.pcm")
+            t1 = time.perf_counter()
+            P.cli.main([mode, os.path.join(work, f"{c}.pcm"), path, "--device", str(dev)])
+            secs[c, mode] = time.perf_counter() - t1
+            out[c, mode] = np.fromfile(path, "<i2")
+    f32 = {(mode, eng): P.E.run_stream(cases["probe"], mode, dtype=torch.float32,
+                                       use_assoc_scan=True, fft_engine=eng, device=dev)
+           for mode in MODES for eng in COMPAT_F32}
+    fast = os.path.join(work, "probe_wiener_fast_mxu8f.pcm")
+    P.cli.main(["wiener", os.path.join(work, "probe.pcm"), fast, "--fast", "--engine", "mxu8f",
+                "--device", str(dev)])
+    sync()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    main_s = time.perf_counter() - t0
+    for (c, mode), got in out.items():
+        want = refs[c, mode]
+        d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        flipped = int((d > 0).sum())
+        ok = got.shape == want.shape and d.max(initial=0) <= 1 and flipped < COMPAT_FLIPPED * max(
+            len(want), 1)
+        print(f"[4 compat] {mode} IN OUT (f64 xla) {c}: {len(got)} samples, {flipped} flipped, "
+              f"max |diff| {d.max(initial=0)}, {secs[c, mode]:.3f} s from the CLI")
+        if not ok:
+            raise RuntimeError(f"compat {mode} {c}: {flipped} samples flipped, max |diff| "
+                               f"{d.max(initial=0)}")
+    for (mode, eng), got in f32.items():
+        snr = snr_db(refs["probe", mode], got)
+        print(f"[4 compat] run_stream {mode} f32 {eng} (log-depth scan) probe: {snr:.2f} dB "
+              f"(floor {COMPAT_F32[eng]})")
+        if not snr >= COMPAT_F32[eng]:
+            raise RuntimeError(f"f32 {eng} {mode}: {snr:.2f} dB < {COMPAT_F32[eng]}")
+    snr = snr_db(refs["probe", "wiener"], np.fromfile(fast, "<i2"))
+    print(f"[4 compat] wiener IN OUT --fast --engine mxu8f probe: {snr:.2f} dB (floor "
+          f"{FLOORS['mxu8f']}); launches {json.dumps(launches)} in {main_s:.1f} s")
+    if not snr >= FLOORS["mxu8f"]:
+        raise RuntimeError(f"--fast --engine mxu8f: {snr:.2f} dB < {FLOORS['mxu8f']}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"the compat phase's f32 paths did not launch {missing}")
     return launches
 
 
@@ -792,7 +876,8 @@ def time_chains(P, blocks, C, card, sync):
                     "wiener")
 
     for eng in FLOORS:
-        ms = median_ms(lambda: E.enhance_blocks(blocks, "wiener", fft_engine=eng), sync)
+        ms = median_ms(lambda: E.enhance_blocks(blocks, "wiener", fft_engine=eng,
+                                                resynth="ratio"), sync)
         plain_ms = median_ms(lambda: plain_chain(eng), sync)
         print(f"[5 timing] wiener {eng} T={T_FULL} on {card}: enhance_blocks {ms:.3f} ms = "
               f"{T_FULL * 512 / (ms * 1e-3):.4g} samples/s; plain version {plain_ms:.3f} ms = "
@@ -1701,9 +1786,10 @@ def check_transforms(P, xc, xf, blocks, C, back_ins, sync):
     err["K14"] = 0
     odd = _odd_offset_copy(blocks)
     for eng, hq in K1_ENGINES.items():
-        new = P.E.enhance_blocks(blocks, "wiener", fft_engine=eng)[0]
+        new = P.E.enhance_blocks(blocks, "wiener", fft_engine=eng, resynth="ratio")[0]
         same = torch.equal(new, _old_vad_chain(P, blocks, C, hq))
-        odd_same = torch.equal(P.E.enhance_blocks(odd, "wiener", fft_engine=eng)[0], new)
+        odd_same = torch.equal(
+            P.E.enhance_blocks(odd, "wiener", fft_engine=eng, resynth="ratio")[0], new)
         print(f"[3 kernel-vs-plain] {eng} through K14 T={T_FULL}: int16 output equal to the "
               f"torch-VAD chain's {same}, the same from blocks at an odd offset {odd_same}")
         if not (same and odd_same):
@@ -1893,7 +1979,8 @@ def time_transforms(P, xc, xf, blocks, C, back_ins, card, sync):
               f"(ms): {top}")
     for eng, hq in K1_ENGINES.items():  # in turns: torch VAD, K14, K14, torch VAD
         old = lambda: _old_vad_chain(P, blocks, C, hq)  # noqa: E731
-        new = lambda: P.E.enhance_blocks(blocks, "wiener", fft_engine=eng)  # noqa: E731
+        new = lambda: P.E.enhance_blocks(  # noqa: E731
+            blocks, "wiener", fft_engine=eng, resynth="ratio")
         t = [median_ms(f, sync) for f in (old, new, new, old)]
         print(f"[5 timing] {eng} enhance_blocks T={T_FULL} on {card}: torch VAD {t[0]:.3f} / "
               f"{t[3]:.3f} ms, K14 {t[1]:.3f} / {t[2]:.3f} ms")
@@ -1904,10 +1991,8 @@ def time_transforms(P, xc, xf, blocks, C, back_ins, card, sync):
     Xr, Xi = K12.fft_pallas(segs, None, FC.FFT_SIZE, True)
     Yr, Yi = Xr * Hr - Xi * Hi, Xr * Hi + Xi * Hr
     Z = torch.complex(Yr, Yi)
-    n1, n2 = K12._factor(FC.FFT_SIZE)
     nseg = len(segs)
     fft_flops = 5 * FC.FFT_SIZE * np.log2(FC.FFT_SIZE) * nseg
-    dense_ms = 2 * 4 * (n1 * n1 * n2 + n1 * n2 * n2) * nseg / F32_OPS * 1e3
     fwd_ms = median_ms(lambda: K12.fft_pallas(segs, None, FC.FFT_SIZE, True), sync)
     ins13 = back_ins["K4"]
     out13 = P.K13.enhance_back(*ins13, C, "wiener")
@@ -1939,8 +2024,25 @@ def time_transforms(P, xc, xf, blocks, C, back_ins, card, sync):
           f"{busy:.4f} ms; the rest of the wall time is the wrapper's host path (checks, "
           f"allocation, ctypes launch)")
     print(f"[5 timing] K12 ({nseg}, {FC.FFT_SIZE}): the inverse above; the forward on real input "
-          f"{fwd_ms:.3f} ms; the dense four-step FMAs of a complex transform at the f32 peak "
-          f"{dense_ms:.3f} ms; library = torch.fft.fft on complex64")
+          f"{fwd_ms:.3f} ms (bound {bound(nbytes(segs, Xr, Xi), fft_flops, F32_OPS)[0]:.4f} ms); "
+          f"library = torch.fft.fft on complex64")
+    # K12 at the FFT program's shape, (16384, 512): forward on real blocks, inverse on their spectra
+    fbf = fb.float()
+    Fr, Fi = K12.fft_pallas(fbf, None, 512, True)
+    Fz = torch.complex(Fr, Fi)
+    flops512 = 5 * 512 * 9 * FFT_T
+    for what, kern, plain, nb, lib in (
+            ("forward, real input", lambda: K12.fft_pallas(fbf, None, 512, True),
+             lambda: K12.fft_four_step(fbf, None, 512, True), nbytes(fbf, Fr, Fi),
+             lambda: torch.fft.fft(fbf)),
+            ("inverse, complex input", lambda: K12.fft_pallas(Fr, Fi, 512, False),
+             lambda: K12.fft_four_step(Fr, Fi, 512, False), nbytes(Fr, Fi, Fr, Fi),
+             lambda: torch.fft.ifft(Fz))):
+        t = [median_ms(f, sync) for f in (kern, plain, lib)]
+        b_ms, b_by = bound(nb, flops512, F32_OPS)
+        print(f"[5 timing] K12 ({FFT_T}, 512) {what} on {card}: kernel {t[0]:.4f} ms, plain "
+              f"{t[1]:.3f} ms, torch.fft {t[2]:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+              f"({nb / 1e6:.1f} MB)")
     return times
 
 
@@ -2007,7 +2109,9 @@ def main() -> int:
     err.update(check_transforms(P, xc, xf, blocks, C, back_ins, sync))
     cases = {"probe": probe, "full": x_full, "partial": probe[: T_PROBE * 512 - 100],
              "empty": probe[:0]}
-    launches = drive_main_path(P, dev, cases, sync)
+    refs = {(c, m): reference_enhance(x, m) for c, x in cases.items() for m in MODES}
+    launches = drive_main_path(P, dev, cases, refs, sync)
+    drive_compat(P, dev, cases, refs, sync)
     launches.update(drive_recursions(P, geq, aec, sync))
     feat_launches, classify = drive_features(P, feat, dev, sync)
     launches.update(feat_launches)

@@ -2,9 +2,10 @@
 
 Usage::
 
-    python -m jeicyboodsp_tpu_torch.cli wiener IN OUT [--engine mxu8f|mxu8t|mxu8|mxu3]
-                                                [--device cuda]
-    python -m jeicyboodsp_tpu_torch.cli specsub IN OUT [--engine ...] [--device ...]
+    python -m jeicyboodsp_tpu_torch.cli wiener IN OUT
+                                        [--fast [--engine xla|mxu|mxu3|mxu8|mxu8f|mxu8t]]
+                                        [--device cuda]
+    python -m jeicyboodsp_tpu_torch.cli specsub IN OUT [--fast [--engine ...]] [--device ...]
     python -m jeicyboodsp_tpu_torch.cli geq IN OUT [--device ...]
     python -m jeicyboodsp_tpu_torch.cli nlms IN REF EST ERR [--device ...]
     python -m jeicyboodsp_tpu_torch.cli bnlms IN REF EST ERR [--device ...]
@@ -24,10 +25,13 @@ Usage::
     fastconv IN OUT         RIR fast convolution       (Fast_Convolution...)
     fft IN OUT              radix-2 FFT roundtrip      (FFTAlgorithm_ver2)
 
-pitch, mfcc, fastconv and fft run in float64 with the reference's numbers
-(pitch, mfcc and fastconv through ``torch.fft``, fft through the reference's
-radix-2 algorithm) unless ``--fast`` asks for float32 and an ``--engine``:
-``mxu`` runs pitch method 2 through the AMDF kernel and the other methods
+wiener, specsub, pitch, mfcc, fastconv and fft run in float64 with the
+reference's numbers (wiener, specsub, pitch, mfcc and fastconv through
+``torch.fft``, fft through the reference's radix-2 algorithm) unless
+``--fast`` asks for float32 and an ``--engine``: wiener/specsub default to
+``xla`` (``torch.fft``) and take ``mxu`` (matmul DFT), ``mxu3`` (the f32
+kernels K4/K5), ``mxu8`` (the int8 kernels K2/K3), ``mxu8f`` (the int8
+chain in one kernel, K1) and ``mxu8t`` (its turbo inverse); ``mxu`` runs pitch method 2 through the AMDF kernel and the other methods
 as matmul DFTs; ``mxu3``/``mxu8`` run the MFCC DFT as f32 matmuls; fastconv
 defaults to ``gemm8hq`` (the int8 Toeplitz GEMM), and its ``mxu``/``mxu3``
 run both 8192-point transforms through the four-step FFT kernel.  fft
@@ -46,12 +50,13 @@ import sys
 import torch
 
 from jeicyboodsp_tpu_torch.ops import fastconv as FC
+from jeicyboodsp_tpu_torch.ops.enhance import ALL_ENGINES
 
 FILES = {"wiener": 2, "specsub": 2, "geq": 2, "nlms": 4, "bnlms": 4,
          "pitch1": 1, "pitch2": 1, "pitch3": 1, "mfcc": 1,
          "fastconv": 2, "fft": 2}  # file arguments
-ENHANCE = ("wiener", "specsub")
 FAST = {  # pipeline: the engines of --fast, its default engine, the compat engine
+    **{p: (ALL_ENGINES, "xla", "xla") for p in ("wiener", "specsub")},
     **{f"pitch{m}": (("xla", "mxu", "mxu3"), "xla", "xla") for m in (1, 2, 3)},
     "mfcc": (("xla", "mxu", "mxu3", "mxu8"), "xla", "xla"),
     "fastconv": (FC.ENGINES, "auto", "xla"),
@@ -60,7 +65,6 @@ FAST = {  # pipeline: the engines of --fast, its default engine, the compat engi
 
 
 def main(argv=None):
-    from jeicyboodsp_tpu_torch.ops.enhance import ENGINES
     from jeicyboodsp_tpu_torch.pipelines import PIPELINES
 
     parser = argparse.ArgumentParser(
@@ -71,11 +75,12 @@ def main(argv=None):
     parser.add_argument("files", nargs="+")
     parser.add_argument(
         "--engine", default=None,
-        choices=sorted({*ENGINES, *(e for engines, _, _ in FAST.values() for e in engines)}),
-        help="wiener/specsub: mxu8f = int8 chain in one kernel, hq (~84 dB vs the "
-        "reference; the default); mxu8t = the same with a turbo inverse (~70 dB); "
-        "mxu8 = int8 forward and back kernels around the latch (~84 dB); "
-        "mxu3 = the same in f32 (the highest fidelity).  With --fast: pitch*/mfcc "
+        choices=sorted({e for engines, _, _ in FAST.values() for e in engines}),
+        help="with --fast only.  wiener/specsub: xla (torch.fft; the default), mxu "
+        "(f32 matmul DFT), mxu8f = int8 chain in one kernel, hq (~84 dB vs the "
+        "reference); mxu8t = the same with a turbo inverse (~73 dB); mxu8 = int8 "
+        "forward and back kernels around the latch (~84 dB); mxu3 = the same in "
+        "f32 kernels.  pitch*/mfcc "
         "xla (torch.fft; the default), mxu (matmul DFT; AMDF kernel for pitch2), "
         "mxu3 and, for mfcc, mxu8 (both f32 matmul DFTs); fastconv xla (torch.fft), "
         "gemm (f32 Toeplitz GEMM), gemm8 (int8 Toeplitz GEMM, ~77 dB), gemm8hq "
@@ -99,11 +104,7 @@ def main(argv=None):
         if ns.pipeline != "fft":
             parser.error("--verbose applies to fft only")
         kw["verbose"] = True
-    if ns.pipeline in ENHANCE:
-        if ns.engine is not None and ns.engine not in ENGINES:
-            parser.error(f"{ns.pipeline} takes --engine {'/'.join(ENGINES)}")
-        kw["fft_engine"] = ns.engine or "mxu8f"
-    elif ns.pipeline in FAST:
+    if ns.pipeline in FAST:
         engines, default, compat = FAST[ns.pipeline]
         if ns.engine is not None and not engines:
             parser.error(f"{ns.pipeline} takes no --engine")
@@ -121,7 +122,7 @@ def main(argv=None):
         if engines:
             kw["fft_engine"] = engine
     elif ns.engine is not None:
-        parser.error(f"--engine applies to {'/'.join(ENHANCE)} and, with --fast, "
+        parser.error(f"--engine applies with --fast to "
                      f"{'/'.join(sorted(p for p, (e, _, _) in FAST.items() if e))} only")
     PIPELINES[ns.pipeline](*ns.files, **kw)
     return 0

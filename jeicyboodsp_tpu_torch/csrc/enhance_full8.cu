@@ -9,8 +9,9 @@
 // the next; CUDA blocks run in no order, so each carry becomes a separate
 // pass here, run one after another on one stream by jb_enhance_full8:
 //
-//   1. fwd8_kernel     int8-split forward rDFT -> re, im planes
-//                      (the prev row is input row t-1, zeros for t = 0)
+//   1. fwd8_kernel     int8-split forward rDFT on the tensor cores -> re,
+//                      im planes (the prev row is input row t-1, zeros for
+//                      t = 0; enhance_common.cuh, shared with K2)
 //   2. nyq_kernel      the Nyquist bin as a true f32 dot -> ren
 //   3. latch_prefix    per-chunk (L rows) inclusive sums of w_j*|X_j|
 //   4. latch_scan      A0_{c+1} = a_c*A0_c + a_c*S_c over the T/L chunks
@@ -27,24 +28,17 @@
 // the planes it reads and writes.
 //
 // Bound on this card: the int8 dots (16 per output bin forward, 3-5
-// inverse, K = 512) -- about 0.1 T int8 MACs at T = 16384 rows -- run
-// here as __dp4a on CUDA cores with the data rows in shared memory and the
-// bases read through L1; the planes between passes go through device
-// memory.  Tensor-core MMA and keeping the planes on chip are later work.
+// inverse, K = 512) -- about 0.1 T int8 MACs at T = 16384 rows.  The
+// forward ones run on the tensor cores (mma.sync s8); the inverse ones as
+// __dp4a on CUDA cores with the data rows in shared memory and the bases
+// read through L1; the planes between passes go through device memory.
+// Tensor-core MMA in the inverse and keeping the planes on chip are later
+// work.
 // Exactness: see enhance_common.cuh.
 
 #include "enhance_common.cuh"
 
 namespace {
-
-__global__ void __launch_bounds__(COLS) fwd8_kernel(const int16_t* __restrict__ x,
-                                                    const int* __restrict__ W,
-                                                    const float* __restrict__ scales,
-                                                    const float* __restrict__ crows,
-                                                    float* __restrict__ re,
-                                                    float* __restrict__ im) {
-  fwd8_body(x, W, scales, crows, re, im);
-}
 
 __global__ void nyq_kernel(const int16_t* __restrict__ x,
                            const float* __restrict__ nyq,
@@ -175,8 +169,8 @@ extern "C" int jb_enhance_full8(
   const dim3 dots(T / ROWS, N / COLS, 2);
   const int C = T / L;
   const int kb = (NB + COLS - 1) / COLS;
-  fwd8_kernel<<<dots, COLS, 0, st>>>(x, reinterpret_cast<const int*>(fwd8),
-                                     fscales, fcrows, re, im);
+  const cudaError_t e = launch_fwd8(x, T, fwd8, fscales, fcrows, re, im, nullptr, st);
+  if (e != cudaSuccess) return (int)e;
   nyq_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, ren);
   latch_prefix_kernel<false><<<dim3(C, kb), COLS, 0, st>>>(re, im, ren, rowpack,
                                                           pfx, L);

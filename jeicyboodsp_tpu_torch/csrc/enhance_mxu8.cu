@@ -4,8 +4,9 @@
 // K2, jb_enhance_fwd_int8, replaces jeicyboodsp_tpu/kernels/
 // enhance_pallas.py:enhance_fwd_int8_pallas (_fwd8_kernel): int16 blocks ->
 // re, im, |X| (T, 512) and ren, |ren|, speech flags (T,), in two passes:
-//   1. fwd8_kernel    the 16 int8 dots per bin (K1's forward pass)
-//   2. rowstat_kernel per row: the Nyquist dot, |X|, |ren|, VAD flags
+//   1. fwd8_kernel    the 16 int8 dots per bin on the tensor cores and |X|
+//                     (K1's forward pass, enhance_common.cuh)
+//   2. rowstat_kernel per row: the Nyquist dot, |ren|, VAD flags
 // The TPU kernel's carried prev row (cprev) is a halo read of row t-1.
 //
 // K3, jb_enhance_back_ola8, replaces enhance_back_ola8_pallas
@@ -20,22 +21,13 @@
 // Bound on this card at T = 16384: K2 does 16 int8 dots of (T, 512) x
 // (512, 512), 6.9e10 MACs (0.069 ms at the int8 tensor-core peak), and
 // moves ~117 MB; K3 (hq) 10 dots, 4.3e10 MACs (0.043 ms) against ~118 MB
-// (0.035 ms).  This first design runs the dots as __dp4a on CUDA cores,
-// so instruction throughput bounds it far above that; tensor-core MMA is
-// later work.
+// (0.035 ms).  K2's dots run as mma.sync s8 on the tensor cores; K3's
+// still run as __dp4a on CUDA cores, so instruction throughput bounds it
+// far above its bound: tensor-core MMA there is later work.
 
 #include "enhance_common.cuh"
 
 namespace {
-
-__global__ void __launch_bounds__(COLS) fwd8_kernel(const int16_t* __restrict__ x,
-                                                    const int* __restrict__ W,
-                                                    const float* __restrict__ scales,
-                                                    const float* __restrict__ crows,
-                                                    float* __restrict__ re,
-                                                    float* __restrict__ im) {
-  fwd8_body(x, W, scales, crows, re, im);
-}
 
 __global__ void __launch_bounds__(ROW_THREADS) rowstat_kernel(
     const int16_t* __restrict__ x, const float* __restrict__ nyq,
@@ -82,9 +74,9 @@ extern "C" int jb_enhance_fwd_int8(const int16_t* x, int T, const int8_t* fwd8,
                                    float* im, float* ren, float* mag,
                                    float* magn, float* sp, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fwd8_kernel<<<dim3(T / ROWS, N / COLS, 2), COLS, 0, st>>>(
-      x, reinterpret_cast<const int*>(fwd8), fscales, fcrows, re, im);
-  rowstat_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, w2, re, im, ren, mag, magn, sp);
+  const cudaError_t e = launch_fwd8(x, T, fwd8, fscales, fcrows, re, im, mag, st);
+  if (e != cudaSuccess) return (int)e;
+  rowstat_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, w2, nullptr, nullptr, ren, mag, magn, sp);
   return (int)cudaGetLastError();
 }
 

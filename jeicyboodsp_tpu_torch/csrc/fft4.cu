@@ -1,243 +1,505 @@
-// K12, jb_fft4: the four-step (Bailey) FFT on Hopper (sm_90a).  Replaces
-// jeicyboodsp_tpu/kernels/fft_pallas.py: fft_pallas (_fft_kernel).  For n =
-// n1 * n2 (both <= 128) and frames x_f viewed as (n1, n2):
+// K12, jb_fft4: batched unnormalised DFT of (T, n) f32 frames on Hopper
+// (sm_90a), in shared memory.  Replaces jeicyboodsp_tpu/kernels/fft_pallas.py:
+// fft_pallas (_fft_kernel), which evaluates the dense four-step (Bailey)
+// form on the TPU's matrix unit: for n = n1 * n2, A = W1 @ x, B = A * tw,
+// C = B @ W2^T, X[k2*n1 + k1] = C[k1, k2] -- 12.6 MFLOP per 8192-point frame.
 //
-//   A_f = W1 @ x_f,  B_f = A_f * tw,  C_f = B_f @ W2^T,  X_f[k2*n1 + k1] = C_f[k1, k2]
+// Here one launch does the whole transform and nothing but the frames and
+// the result crosses device memory.  Each frame lives in dynamic shared
+// memory (split re/im f32, 64 KB at n = 8192, 128 KB at n = 16384; several
+// frames share a block where n is small).  The transform is a mixed-radix
+// Stockham autosort FFT (Govindaraju et al., SC08): for each radix R of the
+// plan, with Ns the product of the radices before it, group j (0 <= j <
+// n/R) reads v[r] = x[j + r*n/R], multiplies by W_{Ns*R}^{(j mod Ns)*r},
+// takes an R-point DFT and writes it to (j/Ns)*Ns*R + (j mod Ns) + r*Ns.
+// Input and output are in natural order, so the four-step's transpose
+// disappears and the device-memory reads and writes stay contiguous.
 //
-// complex, unnormalised, in f32 FMAs on CUDA cores (no TF32, no bf16).  Each
-// complex product keeps four real sums, combined as the TPU kernel combines
-// its four real matmuls: re = Lr.Rr - Li.Ri, im = Lr.Ri + Li.Rr.
+// - Power-of-two radices (2, 4, 8, 16) run as radix-4 butterflies in
+//   registers (multiplications by +-i are swaps); a thread holds VPT values,
+//   so every read of a pass completes before a barrier and every write
+//   after it: one shared buffer, in place.  An odd prime factor (n = 96,
+//   384) takes a dense R-point DFT per output, read from shared memory.
+// - Twiddles W_n^e come from two tables built in f64 and stored as f32 per
+//   (n, direction) -- W_n^(e mod 128) and W_n^(128*(e div 128)), 2 KB in
+//   shared memory -- as one complex product; a group's W^r from the entries
+//   of W, W^2, W^4 and W^8 and at most three products (about 4 f32 ulp).
+// - Shared indices are padded by one word every 32 (i + i/32), so the
+//   strided writes of the first passes spread over the banks.
+// - n = 512 to 16384, powers of two (the port's paths: 512, 1024, 8192),
+//   take a plan fixed at compile time (radix 16 passes, then one of 2, 4,
+//   8): every index is a shift or a mask, and the first and last passes read
+//   and write device memory directly.  Other n take the plan at run time.
 //
-// The TPU kernel keeps W1, W2, the twiddles and a tile of frames in VMEM.
-// At n = 8192 (64 x 128) that is 32 KB of W1, 128 KB of W2, 64 KB of
-// twiddles and 64 KB per frame: more than a block's 227 KB of shared memory.
-// So K12 is two launches, each one batched complex tile GEMM in which the
-// frames line up along one dimension of one large product:
-//   1. stage1_kernel  A = W1 @ [x_0 | x_1 | ...]: M = n1, K = n1, N = T*n2
-//                     (the right operand's column (f, j2) is x[f, :, j2]);
-//                     the twiddle in the epilogue; B to a scratch plane pair;
-//   2. stage2_kernel  C = B @ W2^T with B's rows (f, k1) contiguous: M =
-//                     T*n1, K = N = n2; the transpose of the TPU wrapper
-//                     (fft_pallas.py:159-160) is the epilogue's store index.
-// The tile is 4096 complex outputs per block of 256 threads (4 x 4 each);
-// its short side is n1 (stage 1) or n2 (stage 2) rounded up to 16, 32, 64
-// or 128, so no block computes padding at n = 512 (16 x 32), 1024 or 8192.
-// A real input (xi null) skips the two products with the zero plane.
-//
-// Bound on this card at T = 2041, n = 8192: the function moves 2 planes in
-// and 2 out, 268 MB (0.080 ms at 3.35 TB/s); the dense four-step work is
-// 6.3 M complex-plane MACs per frame (4 real products per complex one),
-// 0.38 ms at the 67 TFLOP/s f32 CUDA-core peak per complex transform; an
-// FFT needs 5 n log2 n flops, 0.53 MFLOP per frame.  So this kernel is
-// bound by its dense FMAs, about 5x above the bytes; a tensor-core form
-// (3xTF32 or bf16x3 tiles) or a radix stage in shared memory is later work.
+// Bound on this card at T = 2041, n = 8192: 2 planes in and 2 out, 268 MB,
+// 0.080 ms at 3.35 TB/s; the FFT's 5 n log2 n flops are 1.1e9, 0.016 ms at
+// the 67 TFLOP/s f32 peak.  So the bytes bound it.  Sums run in another
+// order than the four-step's, so K12 is held within 1e-5 of max |X| of its
+// plain version (kernels/fft_four_step.py:fft_four_step), not bit-equal.
 
 #include <cuda_runtime.h>
-#include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;  // 16 x 16 thread tiles of 4 x 4 complex outputs
-constexpr int TILE = 4096;    // complex outputs per block: TM x TN
-constexpr int TK = 16;        // contraction step through shared memory
+constexpr int TWN = 128;           // entries per twiddle table
+constexpr int MAX_PASSES = 16;
+constexpr int BLOCK_TARGET = 256;  // threads a block aims for when frames are small
 
-// The operands: (re, im) of element (r, c), zeros outside the matrix.
-struct Mat {  // a row-major (rows, cols) matrix as two planes; im null: real
-  const float* re;
-  const float* im;
-  long long rows;
-  int cols;
-  __device__ float2 at(long long r, int c) const {
-    if (r >= rows || c >= cols) return make_float2(0.f, 0.f);
-    const size_t i = (size_t)r * cols + c;
-    return make_float2(re[i], im ? im[i] : 0.f);
+__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
+
+// cos, sin of 2*pi*k/16, k < 8: the R-point butterflies' own twiddles
+__constant__ float kC16[8] = {1.0f, 0.92387953f, 0.70710678f, 0.38268343f,
+                              0.0f, -0.38268343f, -0.70710678f, -0.92387953f};
+__constant__ float kS16[8] = {0.0f, 0.38268343f, 0.70710678f, 0.92387953f,
+                              1.0f, 0.92387953f, 0.70710678f, 0.38268343f};
+
+// (xr, xi) *= (c, s)
+__device__ __forceinline__ void cmul(float& xr, float& xi, float c, float s) {
+  const float r = fmaf(xr, c, -(xi * s));
+  xi = fmaf(xr, s, xi * c);
+  xr = r;
+}
+
+// W_n^e (e < n <= 128*128) from the two shared tables: lo[e mod 128] *
+// hi[e div 128]
+__device__ __forceinline__ void twiddle(const float* tw, int e, float* c, float* s) {
+  *c = tw[e & (TWN - 1)];
+  *s = tw[TWN + (e & (TWN - 1))];
+  cmul(*c, *s, tw[2 * TWN + (e >> 7)], tw[3 * TWN + (e >> 7)]);
+}
+
+// (xr, xi) *= W16^m of the direction, m compile-time after unrolling
+template <bool FWD>
+__device__ __forceinline__ void w16(float& xr, float& xi, int m) {
+  m &= 15;
+  if (m == 0) return;
+  const float sg = FWD ? -1.0f : 1.0f;
+  if (m == 4) {  // sg * i
+    const float r = -sg * xi;
+    xi = sg * xr;
+    xr = r;
+    return;
   }
-};
-
-struct Frames {  // (n1, T*n2): column f*n2 + j2 of row j1 is x[f, j1*n2 + j2]
-  const float* re;
-  const float* im;
-  int n1, n2;
-  long long cols;
-  __device__ float2 at(long long j1, long long col) const {
-    if (j1 >= n1 || col >= cols) return make_float2(0.f, 0.f);
-    const long long f = col / n2;
-    const size_t i = (size_t)f * n1 * n2 + (size_t)j1 * n2 + (size_t)(col - f * n2);
-    return make_float2(re[i], im ? im[i] : 0.f);
+  if (m == 8) {
+    xr = -xr;
+    xi = -xi;
+    return;
   }
-};
+  if (m == 12) {  // -sg * i
+    const float r = sg * xi;
+    xi = -sg * xr;
+    xr = r;
+    return;
+  }
+  const float c = m < 8 ? kC16[m] : -kC16[m - 8];
+  const float s = sg * (m < 8 ? kS16[m] : -kS16[m - 8]);
+  cmul(xr, xi, c, s);
+}
 
-// acc[i][j] = {Lr.Rr, Li.Ri, Lr.Ri, Li.Rr} of output (m0 + rows(i), c0 +
-// cols(j)) over k < K, in k order.  Thread rows 4*rt + i, columns 4*ct + j;
-// REAL: the right operand is real, and the two products with its zero
-// plane are skipped.
-template <int TM, bool REAL, class LA, class RB>
-__device__ __forceinline__ void ctile(const LA& A, const RB& B, int K, long long m0,
-                                      long long c0, int rt, int ct,
-                                      float (&acc)[4][4][4]) {
-  constexpr int TN = TILE / TM;
-  __shared__ __align__(16) float Ar[TK][TM + 4], Ai[TK][TM + 4];  // [k][m]; pad: fewer conflicts
-  __shared__ __align__(16) float Br[TK][TN], Bi[TK][TN];          // [k][c]
-  const int tid = threadIdx.x;
+// radix-4 butterfly on x[a], x[a+d], x[a+2d], x[a+3d] (natural order out)
+template <bool FWD, int R>
+__device__ __forceinline__ void bfly4(float (&xr)[R], float (&xi)[R], int a, int d) {
+  const float sg = FWD ? -1.0f : 1.0f;
+  const float a0r = xr[a] + xr[a + 2 * d], a0i = xi[a] + xi[a + 2 * d];
+  const float a1r = xr[a] - xr[a + 2 * d], a1i = xi[a] - xi[a + 2 * d];
+  const float a2r = xr[a + d] + xr[a + 3 * d], a2i = xi[a + d] + xi[a + 3 * d];
+  const float br = xr[a + d] - xr[a + 3 * d], bi = xi[a + d] - xi[a + 3 * d];
+  const float a3r = -sg * bi, a3i = sg * br;  // (x1 - x3) * (sg * i)
+  xr[a] = a0r + a2r; xi[a] = a0i + a2i;
+  xr[a + 2 * d] = a0r - a2r; xi[a + 2 * d] = a0i - a2i;
+  xr[a + d] = a1r + a3r; xi[a + d] = a1i + a3i;
+  xr[a + 3 * d] = a1r - a3r; xi[a + 3 * d] = a1i - a3i;
+}
+
+// In-register R-point DFT, natural order in and out, R in {2, 4, 8, 16}
+template <bool FWD, int R>
+__device__ __forceinline__ void dft_ct(float (&xr)[R], float (&xi)[R]) {
+  if constexpr (R == 2) {
+    const float r = xr[0] - xr[1], i = xi[0] - xi[1];
+    xr[0] = xr[0] + xr[1]; xi[0] = xi[0] + xi[1];
+    xr[1] = r; xi[1] = i;
+  } else if constexpr (R == 4) {
+    bfly4<FWD, 4>(xr, xi, 0, 1);
+  } else if constexpr (R == 8) {
+    // E = DFT4(x0, x2, x4, x6), O = DFT4(x1, x3, x5, x7); X[k] = E[k] + W8^k O[k]
+    bfly4<FWD, 8>(xr, xi, 0, 2);
+    bfly4<FWD, 8>(xr, xi, 1, 2);
+    float yr[8], yi[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int p = 0; p < 4; ++p) acc[i][j][p] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    for (int e = tid; e < TM * TK; e += THREADS) {  // neighbouring threads: neighbouring k
-      const int k = e % TK, m = e / TK;
-      const float2 v = A.at(m0 + m, k0 + k);
-      Ar[k][m] = v.x;
-      Ai[k][m] = v.y;
+    for (int k = 0; k < 4; ++k) {
+      float orr = xr[2 * k + 1], oi = xi[2 * k + 1];
+      w16<FWD>(orr, oi, 2 * k);
+      yr[k] = xr[2 * k] + orr; yi[k] = xi[2 * k] + oi;
+      yr[k + 4] = xr[2 * k] - orr; yi[k + 4] = xi[2 * k] - oi;
     }
-    for (int e = tid; e < TK * TN; e += THREADS) {
-      const int c = e % TN, k = e / TN;
-      const float2 v = B.at(k0 + k, c0 + c);
-      Br[k][c] = v.x;
-      Bi[k][c] = v.y;
-    }
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      const float4 a4r = *reinterpret_cast<const float4*>(&Ar[kk][4 * rt]);
-      const float4 a4i = *reinterpret_cast<const float4*>(&Ai[kk][4 * rt]);
-      const float4 b4r = *reinterpret_cast<const float4*>(&Br[kk][4 * ct]);
-      const float4 b4i = *reinterpret_cast<const float4*>(&Bi[kk][4 * ct]);
-      const float ar[4] = {a4r.x, a4r.y, a4r.z, a4r.w}, ai[4] = {a4i.x, a4i.y, a4i.z, a4i.w};
-      const float br[4] = {b4r.x, b4r.y, b4r.z, b4r.w}, bi[4] = {b4i.x, b4i.y, b4i.z, b4i.w};
+    for (int k = 0; k < 8; ++k) { xr[k] = yr[k]; xi[k] = yi[k]; }
+  } else {
+    // 16 = 4 x 4: x[4 n1 + n2]; inner DFT4 over n1 per n2, twiddle
+    // W16^(n2 k1), outer DFT4 over n2; X[k1 + 4 k2] lands in y[4 k2 + k1]
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int n2 = 0; n2 < 4; ++n2) bfly4<FWD, 16>(xr, xi, n2, 4);  // now x[4 k1 + n2]
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j][0] = fmaf(ar[i], br[j], acc[i][j][0]);
-          acc[i][j][3] = fmaf(ai[i], br[j], acc[i][j][3]);
-          if (!REAL) {
-            acc[i][j][1] = fmaf(ai[i], bi[j], acc[i][j][1]);
-            acc[i][j][2] = fmaf(ar[i], bi[j], acc[i][j][2]);
-          }
+    for (int k1 = 1; k1 < 4; ++k1)
+#pragma unroll
+      for (int n2 = 1; n2 < 4; ++n2) w16<FWD>(xr[4 * k1 + n2], xi[4 * k1 + n2], n2 * k1);
+#pragma unroll
+    for (int k1 = 0; k1 < 4; ++k1) bfly4<FWD, 16>(xr, xi, 4 * k1, 1);  // x[4 k1 + k2]
+    float yr[16], yi[16];
+#pragma unroll
+    for (int k1 = 0; k1 < 4; ++k1)
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) {
+        yr[k1 + 4 * k2] = xr[4 * k1 + k2];
+        yi[k1 + 4 * k2] = xi[4 * k1 + k2];
+      }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) { xr[k] = yr[k]; xi[k] = yi[k]; }
+  }
+}
+
+// multiply v[r] (r >= 1) by W^r, W = W_n^e1, from the table entries of
+// e1, 2 e1, 4 e1, 8 e1 (those below R)
+template <int R>
+__device__ __forceinline__ void twiddle_ct(const float* tw, int e1, float (&xr)[R],
+                                           float (&xi)[R]) {
+  float pr[4], pi[4];  // W^1, W^2, W^4, W^8
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if ((1 << b) < R) twiddle(tw, e1 << b, &pr[b], &pi[b]);
+#pragma unroll
+  for (int r = 1; r < R; ++r) {
+    float c = 1.0f, s = 0.0f;
+    bool first = true;
+#pragma unroll
+    for (int b = 3; b >= 0; --b) {
+      if (r & (1 << b)) {
+        if (first) {
+          c = pr[b]; s = pi[b]; first = false;
+        } else {
+          cmul(c, s, pr[b], pi[b]);
         }
+      }
     }
+    cmul(xr[r], xi[r], c, s);
+  }
+}
+
+// ---------------------------------------------------------------- power-of-two n
+
+template <int LOGN> struct Pow2 {
+  static constexpr int n = 1 << LOGN;
+  static constexpr int vpt = n > 8192 ? 32 : 16;
+  static constexpr int nthr = n / vpt;
+  static constexpr int fpb = nthr >= BLOCK_TARGET ? 1 : BLOCK_TARGET / nthr;
+  static constexpr int threads = fpb * nthr;
+};
+
+// The frame's global rows, for the first pass to read and the last to write.
+struct Rows {
+  const float* xr;
+  const float* xi;  // null: real input
+  float* outr;
+  float* outi;
+  bool live;        // false for the slots past the last frame
+};
+
+// the passes from Ns = NS on: radix 16 while 16 divides n / NS, then the
+// rest.  The first pass (NS = 1, no twiddles) reads the frame from device
+// memory and the last one (its outputs land at j + r*NS) writes it there,
+// both with neighbouring threads on neighbouring addresses, so the frame
+// crosses shared memory only between passes.
+template <int LOGN, bool FWD, int NS>
+__device__ __forceinline__ void passes_ct(float* sr, float* si, const float* tw, int t,
+                                          const Rows& io) {
+  constexpr int n = Pow2<LOGN>::n, VPT = Pow2<LOGN>::vpt, NTHR = Pow2<LOGN>::nthr;
+  constexpr int R = (n / NS) >= 16 ? 16 : n / NS;
+  constexpr int G = VPT / R, STRIDE = n / R, STEP = n / (NS * R);
+  constexpr bool FIRST = NS == 1, LAST = NS * R == n;
+  float xr[G][R], xi[G][R];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int j = t + g * NTHR;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (FIRST) {
+        xr[g][r] = io.live ? io.xr[j + r * STRIDE] : 0.0f;
+        xi[g][r] = io.live && io.xi ? io.xi[j + r * STRIDE] : 0.0f;
+      } else {
+        const int i = pad(j + r * STRIDE);
+        xr[g][r] = sr[i];
+        xi[g][r] = si[i];
+      }
+    }
+    if constexpr (NS > 1) twiddle_ct<R>(tw, (j & (NS - 1)) * STEP, xr[g], xi[g]);
+  }
+  if constexpr (!FIRST && !LAST) __syncthreads();  // every read done before the writes
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    dft_ct<FWD, R>(xr[g], xi[g]);
+    const int j = t + g * NTHR;
+    const int base = (j / NS) * NS * R + (j & (NS - 1));  // NS a power of two: shifts
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (LAST) {
+        if (io.live) {
+          io.outr[base + r * NS] = xr[g][r];
+          io.outi[base + r * NS] = xi[g][r];
+        }
+      } else {
+        const int i = pad(base + r * NS);
+        sr[i] = xr[g][r];
+        si[i] = xi[g][r];
+      }
+    }
+  }
+  if constexpr (!LAST) {
     __syncthreads();
+    passes_ct<LOGN, FWD, NS * R>(sr, si, tw, t, io);
   }
 }
 
-// The thread's tile: rows 4*rt.., columns 4*ct..; ROWS_FAST puts
-// neighbouring threads on neighbouring rows, for a store contiguous along rows.
-template <int TM, bool ROWS_FAST>
-__device__ __forceinline__ void thread_tile(int* rt, int* ct) {
-  constexpr int RT = TM / 4, CT = TILE / TM / 4;  // RT * CT = THREADS
-  *rt = ROWS_FAST ? threadIdx.x % RT : threadIdx.x / CT;
-  *ct = ROWS_FAST ? threadIdx.x / RT : threadIdx.x % CT;
+template <int LOGN, bool FWD>
+__global__ void __launch_bounds__(Pow2<LOGN>::threads, Pow2<LOGN>::vpt <= 16 ? 2 : 1)
+fft_pow2_kernel(const float* __restrict__ xr, const float* __restrict__ xi, int T,
+                const float* __restrict__ consts, float* __restrict__ outr,
+                float* __restrict__ outi) {
+  using P = Pow2<LOGN>;
+  extern __shared__ float smem[];
+  constexpr int n = P::n, fs = n + n / 32 + 1;
+  float* tw = smem;  // lo re, lo im, hi re, hi im
+  const int slot = threadIdx.x / P::nthr, t = threadIdx.x % P::nthr;
+  float* sr = smem + 4 * TWN + 2 * slot * fs;
+  float* si = sr + fs;
+  const long long f = (long long)blockIdx.x * P::fpb + slot;
+  for (int i = threadIdx.x; i < 4 * TWN; i += blockDim.x) tw[i] = consts[i];
+  const size_t row = (size_t)f * n;
+  const Rows io{xr + row, xi ? xi + row : nullptr, outr + row, outi + row, f < T};
+  passes_ct<LOGN, FWD, 1>(sr, si, tw, t, io);  // the table is read after the first barrier
 }
 
-// Stage 1: B[f, k1, j2] = (W1 @ x_f)[k1, j2] * tw[k1, j2].  Grid: ceil(T*n2 / TN).
-template <int TM, bool REAL>
-__global__ void __launch_bounds__(THREADS) stage1_kernel(Mat W1, Frames X, Mat TW,
-                                                         float* __restrict__ sr,
-                                                         float* __restrict__ si) {
-  constexpr int TN = TILE / TM;
-  const long long c0 = (long long)blockIdx.x * TN;
-  int rt, ct;
-  thread_tile<TM, false>(&rt, &ct);
-  float acc[4][4][4];
-  ctile<TM, REAL>(W1, X, X.n1, 0, c0, rt, ct, acc);
-  const int n1 = X.n1, n2 = X.n2;
+template <int LOGN, bool FWD>
+int launch_pow2(const float* xr, const float* xi, int T, const float* consts, float* outr,
+                float* outi, cudaStream_t st) {
+  using P = Pow2<LOGN>;
+  const int smem = (4 * TWN + 2 * P::fpb * (P::n + P::n / 32 + 1)) * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(fft_pow2_kernel<LOGN, FWD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((T + P::fpb - 1) / P::fpb);
+  fft_pow2_kernel<LOGN, FWD><<<grid, P::threads, smem, st>>>(xr, xi, T, consts, outr, outi);
+  return (int)cudaGetLastError();
+}
+
+template <int LOGN>
+int launch_pow2(const float* xr, const float* xi, int T, const float* consts, float* outr,
+                float* outi, int forward, cudaStream_t st) {
+  return forward ? launch_pow2<LOGN, true>(xr, xi, T, consts, outr, outi, st)
+                 : launch_pow2<LOGN, false>(xr, xi, T, consts, outr, outi, st);
+}
+
+// ---------------------------------------------------------------- any n
+
+struct Plan {
+  int n, vpt, nthr, fpb, npass;  // points, values per thread, threads per frame, frames per block
+  int radix[MAX_PASSES];
+};
+
+// One Stockham pass of power-of-two radix R over the frame at (sr, si);
+// thread t of the frame takes groups t + g*nthr, g < VPT/R.  The
+// power-of-two radices come first in the plan, so Ns is a power of two.
+template <int R, int VPT, bool FWD>
+__device__ __forceinline__ void radix_pass(float* sr, float* si, const float* tw,
+                                           const Plan& p, int Ns, int t) {
+  constexpr int G = VPT / R;
+  const int stride = p.n / R, step = p.n / (Ns * R);
+  float xr[G][R], xi[G][R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k1 = 4 * rt + i;
-    if (k1 >= n1) continue;
+  for (int g = 0; g < G; ++g) {
+    const int j = t + g * p.nthr;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long col = c0 + 4 * ct + j;
-      if (col >= X.cols) continue;
-      const long long f = col / n2;
-      const int j2 = (int)(col - f * n2);
-      const float ar = acc[i][j][0] - acc[i][j][1];
-      const float ai = acc[i][j][2] + acc[i][j][3];
-      const float twr = TW.re[k1 * n2 + j2], twi = TW.im[k1 * n2 + j2];
-      const size_t o = (size_t)f * n1 * n2 + (size_t)k1 * n2 + j2;
-      sr[o] = ar * twr - ai * twi;
-      si[o] = ar * twi + ai * twr;
+    for (int r = 0; r < R; ++r) {
+      const int i = pad(j + r * stride);
+      xr[g][r] = sr[i];
+      xi[g][r] = si[i];
+    }
+    if (Ns > 1) twiddle_ct<R>(tw, (j & (Ns - 1)) * step, xr[g], xi[g]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    dft_ct<FWD, R>(xr[g], xi[g]);
+    const int j = t + g * p.nthr;
+    const int base = (j / Ns) * Ns * R + (j & (Ns - 1));
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = pad(base + r * Ns);
+      sr[i] = xr[g][r];
+      si[i] = xi[g][r];
+    }
+  }
+  __syncthreads();
+}
+
+// One pass of odd radix R as a dense DFT per output: output position q (=
+// base(j) + r*Ns) sums R inputs x[j + m*n/R] * W_n^(k*m*n/(Ns*R) + (m*r mod
+// R)*n/R).  Thread t holds its VPT outputs t + i*nthr across the barrier.
+template <int VPT>
+__device__ __forceinline__ void dense_pass(float* sr, float* si, const float* tw,
+                                           const Plan& p, int R, int Ns, int t) {
+  const int n = p.n, stride = n / R, step = n / (Ns * R);
+  float yr[VPT], yi[VPT];
+#pragma unroll
+  for (int v = 0; v < VPT; ++v) {
+    const int q = t + v * p.nthr;
+    const int r = (q / Ns) % R, k = q % Ns, j = (q / (Ns * R)) * Ns + k;
+    float ar = 0.0f, ai = 0.0f;
+    for (int m = 0; m < R; ++m) {
+      const int i = pad(j + m * stride);
+      float xr = sr[i], xi = si[i], c, s;
+      twiddle(tw, (k * m * step + ((m * r) % R) * stride) % n, &c, &s);
+      cmul(xr, xi, c, s);
+      ar = ar + xr;
+      ai = ai + xi;
+    }
+    yr[v] = ar;
+    yi[v] = ai;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int v = 0; v < VPT; ++v) {
+    const int i = pad(t + v * p.nthr);
+    sr[i] = yr[v];
+    si[i] = yi[v];
+  }
+  __syncthreads();
+}
+
+template <int VPT, bool FWD>
+__global__ void __launch_bounds__(VPT >= 16 ? 512 : 1024)
+fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi, int T,
+           const float* __restrict__ consts, float* __restrict__ outr,
+           float* __restrict__ outi, Plan p) {
+  extern __shared__ float smem[];
+  const int n = p.n, fs = pad(n) + 1;  // padded floats per frame plane
+  float* tw = smem;                     // lo re, lo im, hi re, hi im
+  const int slot = threadIdx.x / p.nthr, t = threadIdx.x % p.nthr;
+  float* sr = smem + 4 * TWN + 2 * slot * fs;
+  float* si = sr + fs;
+  const long long f = (long long)blockIdx.x * p.fpb + slot;
+  const bool live = f < T;
+  const size_t row = (size_t)f * n;
+  for (int i = threadIdx.x; i < 4 * TWN; i += blockDim.x) tw[i] = consts[i];
+  if (live) {
+    for (int i = t; i < n; i += p.nthr) {
+      sr[pad(i)] = xr[row + i];
+      si[pad(i)] = xi ? xi[row + i] : 0.0f;
+    }
+  }
+  __syncthreads();
+  int Ns = 1;
+  for (int s = 0; s < p.npass; ++s) {
+    const int R = p.radix[s];
+    switch (R) {
+      case 2: if constexpr (VPT >= 2) radix_pass<2, VPT, FWD>(sr, si, tw, p, Ns, t); break;
+      case 4: if constexpr (VPT >= 4) radix_pass<4, VPT, FWD>(sr, si, tw, p, Ns, t); break;
+      case 8: if constexpr (VPT >= 8) radix_pass<8, VPT, FWD>(sr, si, tw, p, Ns, t); break;
+      case 16: if constexpr (VPT >= 16) radix_pass<16, VPT, FWD>(sr, si, tw, p, Ns, t); break;
+      default: dense_pass<VPT>(sr, si, tw, p, R, Ns, t); break;
+    }
+    Ns *= R;
+  }
+  if (live) {
+    for (int i = t; i < n; i += p.nthr) {
+      outr[row + i] = sr[pad(i)];
+      outi[row + i] = si[pad(i)];
     }
   }
 }
 
-// Stage 2: X[f, k2*n1 + k1] = (B_f @ W2^T)[k1, k2], B as (T*n1, n2) rows.
-// Grid: ceil(T*n1 / TM).
-template <int TM>
-__global__ void __launch_bounds__(THREADS) stage2_kernel(Mat B, Mat W2T, int n1,
-                                                         float* __restrict__ outr,
-                                                         float* __restrict__ outi) {
-  const long long m0 = (long long)blockIdx.x * TM;
-  int rt, ct;
-  thread_tile<TM, true>(&rt, &ct);
-  float acc[4][4][4];
-  ctile<TM, false>(B, W2T, B.cols, m0, 0, rt, ct, acc);
-  const int n2 = B.cols;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = m0 + 4 * rt + i;
-    if (row >= B.rows) continue;
-    const long long f = row / n1;
-    const int k1 = (int)(row - f * n1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k2 = 4 * ct + j;
-      if (k2 >= n2) continue;
-      const size_t o = (size_t)f * n1 * n2 + (size_t)k2 * n1 + k1;
-      outr[o] = acc[i][j][0] - acc[i][j][1];
-      outi[o] = acc[i][j][2] + acc[i][j][3];
+// The plan of n: values per thread VPT (the power-of-two part of n, at most
+// 16, or 32 where 16 would need more than 512 threads a frame), then the
+// radices: power-of-two ones (largest first, each dividing VPT), then the
+// odd prime factors.  Returns false if a frame would need more than 1024
+// threads.
+bool make_plan(int n, Plan* p) {
+  int a = 1;
+  while (n % (2 * a) == 0) a *= 2;
+  int vpt = a < 16 ? a : 16;
+  if (n / vpt > 512 && a >= 32) vpt = 32;
+  if (n / vpt > 1024) return false;
+  p->n = n;
+  p->vpt = vpt;
+  p->nthr = n / vpt;
+  p->fpb = p->nthr >= BLOCK_TARGET ? 1 : BLOCK_TARGET / p->nthr;
+  p->npass = 0;
+  const int rmax = vpt < 16 ? vpt : 16;
+  for (int rest = a; rest > 1;) {
+    int r = rmax;
+    while (rest % r) r /= 2;
+    p->radix[p->npass++] = r;
+    rest /= r;
+  }
+  int m = n / a;
+  for (int q = 3; m > 1; q += 2) {
+    while (m % q == 0) {
+      if (p->npass == MAX_PASSES) return false;
+      p->radix[p->npass++] = q;
+      m /= q;
     }
   }
+  return true;
 }
 
-int tile_side(int d) { return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128; }
-
-template <int TM>
-void stage1(Mat W1, Frames X, Mat TW, float* sr, float* si, cudaStream_t st) {
-  const unsigned grid = (unsigned)((X.cols + TILE / TM - 1) / (TILE / TM));
-  if (X.im)
-    stage1_kernel<TM, false><<<grid, THREADS, 0, st>>>(W1, X, TW, sr, si);
-  else
-    stage1_kernel<TM, true><<<grid, THREADS, 0, st>>>(W1, X, TW, sr, si);
+template <int VPT, bool FWD>
+int launch(const float* xr, const float* xi, int T, const float* consts, float* outr,
+           float* outi, const Plan& p, cudaStream_t st) {
+  const int fs = p.n + (p.n >> 5) + 1;
+  const size_t smem = (4 * TWN + (size_t)2 * p.fpb * fs) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(fft_kernel<VPT, FWD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((T + p.fpb - 1) / p.fpb);
+  fft_kernel<VPT, FWD><<<grid, p.fpb * p.nthr, smem, st>>>(xr, xi, T, consts, outr, outi, p);
+  return (int)cudaGetLastError();
 }
 
-template <int TM>
-void stage2(Mat B, Mat W2T, int n1, float* outr, float* outi, cudaStream_t st) {
-  const unsigned grid = (unsigned)((B.rows + TM - 1) / TM);
-  stage2_kernel<TM><<<grid, THREADS, 0, st>>>(B, W2T, n1, outr, outi);
+template <int VPT>
+int launch(const float* xr, const float* xi, int T, const float* consts, float* outr,
+           float* outi, const Plan& p, int forward, cudaStream_t st) {
+  return forward ? launch<VPT, true>(xr, xi, T, consts, outr, outi, p, st)
+                 : launch<VPT, false>(xr, xi, T, consts, outr, outi, p, st);
 }
 
 }  // namespace
 
-// xr, xi: (T, n1*n2) f32 frames (xi null: real input).  consts: f32 w1 re,
-// im (n1, n1); w2^T re, im (n2, n2); twiddle re, im (n1, n2).  Scratch from
-// the caller: sc (2, T, n).  Outputs outr, outi (T, n) in natural order.
-extern "C" int jb_fft4(const float* xr, const float* xi, int T, int n1, int n2,
-                       const float* consts, float* sc, float* outr, float* outi,
-                       void* stream) {
+// xr, xi: (T, n) f32 frames (xi null: real input).  consts: the f32
+// twiddle tables of (n, direction), W_n^e for e < 128 and W_n^(128 h) for
+// h < 128, re then im each: 512 floats.  Outputs outr, outi (T, n) in
+// natural order.  One launch; returns cudaErrorInvalidValue for an n the
+// plan cannot take (more than 1024 threads a frame: an odd n past 1024).
+extern "C" int jb_fft4(const float* xr, const float* xi, int T, int n, int forward,
+                       const float* consts, float* outr, float* outi, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T <= 0 || n1 < 1 || n1 > 128 || n2 < 1 || n2 > 128) return (int)cudaErrorInvalidValue;
-  const size_t a = (size_t)n1 * n1, b = (size_t)n2 * n2, n = (size_t)n1 * n2;
-  const Mat W1{consts, consts + a, n1, n1};
-  const Mat W2T{consts + 2 * a, consts + 2 * a + b, n2, n2};
-  const Mat TW{consts + 2 * a + 2 * b, consts + 2 * a + 2 * b + n, n1, n2};
-  const Frames X{xr, xi, n1, n2, (long long)T * n2};
-  float *sr = sc, *si = sc + (size_t)T * n;
-  switch (tile_side(n1)) {
-    case 16: stage1<16>(W1, X, TW, sr, si, st); break;
-    case 32: stage1<32>(W1, X, TW, sr, si, st); break;
-    case 64: stage1<64>(W1, X, TW, sr, si, st); break;
-    default: stage1<128>(W1, X, TW, sr, si, st); break;
+  if (T <= 0 || n < 2 || n > TWN * TWN) return (int)cudaErrorInvalidValue;
+  switch (n) {  // the power-of-two sizes from 512 up: compile-time plans
+    case 512: return launch_pow2<9>(xr, xi, T, consts, outr, outi, forward, st);
+    case 1024: return launch_pow2<10>(xr, xi, T, consts, outr, outi, forward, st);
+    case 2048: return launch_pow2<11>(xr, xi, T, consts, outr, outi, forward, st);
+    case 4096: return launch_pow2<12>(xr, xi, T, consts, outr, outi, forward, st);
+    case 8192: return launch_pow2<13>(xr, xi, T, consts, outr, outi, forward, st);
+    case 16384: return launch_pow2<14>(xr, xi, T, consts, outr, outi, forward, st);
+    default: break;
   }
-  const Mat B{sr, si, (long long)T * n1, n2};
-  switch (tile_side(n2)) {  // the tile's columns cover n2: TM = TILE / that
-    case 16: stage2<256>(B, W2T, n1, outr, outi, st); break;
-    case 32: stage2<128>(B, W2T, n1, outr, outi, st); break;
-    case 64: stage2<64>(B, W2T, n1, outr, outi, st); break;
-    default: stage2<32>(B, W2T, n1, outr, outi, st); break;
+  Plan p;
+  if (!make_plan(n, &p)) return (int)cudaErrorInvalidValue;
+  switch (p.vpt) {
+    case 1: return launch<1>(xr, xi, T, consts, outr, outi, p, forward, st);
+    case 2: return launch<2>(xr, xi, T, consts, outr, outi, p, forward, st);
+    case 4: return launch<4>(xr, xi, T, consts, outr, outi, p, forward, st);
+    case 8: return launch<8>(xr, xi, T, consts, outr, outi, p, forward, st);
+    case 16: return launch<16>(xr, xi, T, consts, outr, outi, p, forward, st);
+    default: return launch<32>(xr, xi, T, consts, outr, outi, p, forward, st);
   }
-  return (int)cudaGetLastError();
 }

@@ -9,7 +9,7 @@ missing nvcc or a failed compile raises with the compiler's stderr.
 
 Flags: ``-fmad=false`` keeps every ``a*b + c`` as two roundings, in f32 (the
 enhancement epilogues, in the JAX package's operand order; the MFCC's |X|,
-mel and DCT; the four-step FFT's twiddles) and in f64 (the GEQ, NLMS and
+mel and DCT; the FFT's twiddle products) and in f64 (the GEQ, NLMS and
 BNLMS recursions, in the reference's order): the kernels' exactness notes
 rely on it.  No fast math:
 ``sqrtf``, ``logf`` and divisions stay IEEE.
@@ -63,8 +63,8 @@ ENTRIES = {
     "jb_enhance_back": [_P] * 5 + [_I] * 2 + [_P] * 9,
     # x, w2, T, flags, stream
     "jb_vad_flags": [_P, _P, _I, _P, _P],
-    # re, im (or null), T, n1, n2, constants, scratch, out re, out im, stream
-    "jb_fft4": [_P, _P, _I, _I, _I] + [_P] * 5,
+    # re, im (or null), T, n, forward, twiddle tables, out re, out im, stream
+    "jb_fft4": [_P, _P, _I, _I, _I] + [_P] * 4,
 }
 
 _lock = threading.Lock()

@@ -74,3 +74,9 @@ def check(specs, C=None, consts=()):
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {device}")
     return device
+
+
+def aligned16(x):
+    """``x``, or a copy of it that starts on a 16-byte boundary: the int8
+    forward pass (K1, K2) reads its rows with 16-byte asynchronous copies."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()

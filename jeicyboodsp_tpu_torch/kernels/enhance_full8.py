@@ -29,7 +29,7 @@ import torch
 
 from jeicyboodsp_tpu_torch.kernels import _build
 from jeicyboodsp_tpu_torch.kernels._common import (  # noqa: F401  (CONST_SPECS re-exported)
-    CONST_SPECS, N, NB, check, check_mode, check_rows,
+    CONST_SPECS, N, NB, aligned16, check, check_mode, check_rows,
 )
 from jeicyboodsp_tpu_torch.utils.cnum import c_short
 
@@ -203,7 +203,8 @@ def enhance_full8(blocks, rowpack, C, mode="wiener", hq=True, emit_all=False,
 
     C: constants from ``ops.enhance.enhance_constants``, on blocks' device.
     CUDA tensors launch the hand-written kernels (T a multiple of L and of
-    8); CPU tensors run :func:`enhance_full8_plain`.  ``return_planes``
+    8; on a copy where the blocks do not start on a 16-byte boundary); CPU
+    tensors run :func:`enhance_full8_plain`.  ``return_planes``
     also returns the forward re/im planes, for checks of the forward pass.
     """
     _check(blocks, rowpack, C, mode, L)
@@ -211,6 +212,7 @@ def enhance_full8(blocks, rowpack, C, mode="wiener", hq=True, emit_all=False,
         return enhance_full8_plain(blocks, rowpack, C, mode, hq, emit_all, L,
                                    return_planes)
     T = blocks.shape[0]
+    blocks = aligned16(blocks)
     f32 = dict(dtype=torch.float32, device=blocks.device)
     re = torch.empty(T, N, **f32)
     im = torch.empty(T, N, **f32)

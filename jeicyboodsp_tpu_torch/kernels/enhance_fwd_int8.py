@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from jeicyboodsp_tpu_torch.kernels import _build
-from jeicyboodsp_tpu_torch.kernels._common import N, check, check_rows
+from jeicyboodsp_tpu_torch.kernels._common import N, aligned16, check, check_rows
 from jeicyboodsp_tpu_torch.kernels.enhance_full8 import forward8_plain
 from jeicyboodsp_tpu_torch.utils.cnum import c_short
 
@@ -73,12 +73,14 @@ def enhance_fwd_int8(blocks, C):
     shapes of ``enhance_fwd_int8_pallas``'s outputs.  T a multiple of 8.
 
     C: constants from ``ops.enhance.enhance_constants``, on blocks' device.
-    CUDA tensors launch ``jb_enhance_fwd_int8``; CPU tensors run
+    CUDA tensors launch ``jb_enhance_fwd_int8`` (on a copy where the blocks
+    do not start on a 16-byte boundary); CPU tensors run
     :func:`enhance_fwd_int8_plain`.
     """
     if check_blocks(blocks, C, CONSTS).type == "cpu":
         return enhance_fwd_int8_plain(blocks, C)
     outs = empty_forward_outputs(blocks.shape[0], blocks.device)
+    blocks = aligned16(blocks)
     _build.launch("jb_enhance_fwd_int8", blocks.device, blocks.data_ptr(), blocks.shape[0],
                   *(C[k].data_ptr() for k in CONSTS), *(o.data_ptr() for o in outs))
     enhance_fwd_int8.launches += 1

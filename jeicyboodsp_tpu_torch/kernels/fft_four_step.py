@@ -1,7 +1,9 @@
-"""The four-step (Bailey) FFT ("K12"): wrapper, plain version, count.
+"""The FFT of fastconv's mxu engines and the FFT program ("K12"): wrapper,
+plain version, count.
 
-Counterpart of ``jeicyboodsp_tpu/kernels/fft_pallas.py``.  An n-point
-transform with n = n1 * n2 (both <= 128) is
+Counterpart of ``jeicyboodsp_tpu/kernels/fft_pallas.py``, whose Pallas
+kernel evaluates the four-step (Bailey) form: an n-point transform with
+n = n1 * n2 (both <= 128) is
 
     X = transpose( DFT_n2 x ( twiddle * (DFT_n1 x view(x, n1, n2)) ) )
 
@@ -12,12 +14,16 @@ directions; X[k2*n1 + k1] = C[k1, k2].
   of the JAX package's plain-XLA function and K12's plain version.
 - :func:`fft_pallas` is the wrapper of K12, which replaces the Pallas
   kernel ``fft_pallas`` (``_fft_kernel``): on a CUDA tensor it launches the
-  hand-written kernels of ``csrc/fft4.cu`` (counted in
-  ``fft_pallas.launches``); on a CPU tensor it runs :func:`fft_four_step`
-  in f32; anything else raises.  K12 is f32 only, as on the TPU.
+  hand-written kernel of ``csrc/fft4.cu`` (counted in
+  ``fft_pallas.launches``), a mixed-radix Stockham FFT with each frame in
+  shared memory, one launch and no scratch; on a CPU tensor it runs
+  :func:`fft_four_step` in f32; anything else raises.  K12 is f32 only, as
+  on the TPU, and sums in another order than the four-step: it is held
+  within 1e-5 of max |X| of the plain version.
 
-``im=None`` means a real input: both forms then skip the two products with
-the zero plane, as XLA folds them away.
+``im=None`` means a real input: the plain form then skips the two products
+with the zero plane, as XLA folds them away, and the kernel loads no
+imaginary plane.
 """
 
 from __future__ import annotations
@@ -96,18 +102,23 @@ def fft_four_step(re, im, n: int, forward: bool = True, dtype=torch.float32):
 
 @functools.lru_cache(maxsize=16)
 def _kernel_consts(n: int, forward: bool, device: torch.device):
-    """The f32 plan packed as K12 reads it: w1 re, im (n1, n1); w2^T re, im
-    (n2, n2), so that stage 2 contracts over its rows; twiddle re, im (n1, n2)."""
-    n1, n2, (w1r, w1i), (w2r, w2i), (twr, twi) = _plan(n, forward, np.float32)
-    flat = [a.reshape(-1) for a in (w1r, w1i, w2r.T, w2i.T, twr, twi)]
+    """K12's twiddle tables of (n, direction), built in f64 and stored as
+    f32: W_n^e for e < 128, then W_n^(128 h) for h < 128, re then im each;
+    the kernel takes W_n^e as the product of the two entries of e."""
+    sign = -2j if forward else 2j
+    lo = np.exp(sign * np.pi * np.arange(128) / n)
+    hi = np.exp(sign * np.pi * 128 * np.arange(128) / n)
+    flat = [a.astype(np.float32) for a in (lo.real, lo.imag, hi.real, hi.imag)]
     return torch.from_numpy(np.concatenate(flat)).to(device)
 
 
 def fft_pallas(re, im, n: int, forward: bool = True):
-    """Four-step FFT over (T, n) f32 frames -> (re, im) (T, n) f32, in
-    natural order.  ``im=None`` is a real input.
+    """FFT over (T, n) f32 frames -> (re, im) (T, n) f32, in natural order,
+    unnormalised.  ``im=None`` is a real input.
 
-    CUDA tensors launch ``jb_fft4``; CPU tensors run :func:`fft_four_step`.
+    CUDA tensors launch ``jb_fft4`` once (it refuses, and this raises for,
+    an odd n past 1024, whose frame would need more than 1024 threads); CPU
+    tensors run :func:`fft_four_step`.
     """
     f32 = torch.float32
     T = re.shape[0] if re.dim() == 2 else -1
@@ -116,14 +127,13 @@ def fft_pallas(re, im, n: int, forward: bool = True):
         specs["im"] = (im, f32, (T, n))
     dev = check(specs)
     check_rows(T, 1)
-    n1, n2 = _factor(n)
+    _factor(n)
     if dev.type == "cpu":
         return fft_four_step(re, im, n, forward, f32)
-    scratch = torch.empty(2, T, n, dtype=f32, device=dev)
     outr, outi = torch.empty(T, n, dtype=f32, device=dev), torch.empty(T, n, dtype=f32, device=dev)
-    _build.launch("jb_fft4", dev, re.data_ptr(), 0 if im is None else im.data_ptr(), T, n1, n2,
-                  _kernel_consts(n, forward, dev).data_ptr(), scratch.data_ptr(),
-                  outr.data_ptr(), outi.data_ptr())
+    _build.launch("jb_fft4", dev, re.data_ptr(), 0 if im is None else im.data_ptr(), T, n,
+                  int(forward), _kernel_consts(n, forward, dev).data_ptr(), outr.data_ptr(),
+                  outi.data_ptr())
     fft_pallas.launches += 1
     return outr, outi
 

@@ -1,15 +1,24 @@
 """Wiener / spectral-subtraction enhancement chain in torch.
 
-Counterpart of ``jeicyboodsp_tpu/ops/enhance.py`` for its four fused
-engines and the two-kernel f32 engine ``_enhance_fused``.  The latch row
-pack is torch ops on (T,) vectors; the rest runs in kernels whose wrappers
-launch hand-written CUDA kernels on a CUDA tensor and their plain versions
-on a CPU tensor:
+Counterpart of ``jeicyboodsp_tpu/ops/enhance.py``, with its
+``enhance_blocks`` signature, defaults and routing:
 
-- ``mxu8f`` (hq) and ``mxu8t`` (turbo inverse): the VAD kernel K14
+- the generic path (the default ``fft_engine="xla"`` in float64, the
+  compat contract of the CLI): the framed windowed FFT (``torch.fft``, or
+  the matmul DFT of :func:`_dft_matrices` for an ``mxu*`` engine without
+  ratio resynthesis), the VAD, the sequential noise latch
+  :func:`_noise_scan` (or its log-depth form :func:`_noise_assoc_scan`),
+  the gain with trig or ratio resynthesis and the OLA, all as torch ops in
+  ``dtype`` -- plain XLA in the JAX package, so torch ops on the card here;
+- ``mxu`` with ratio resynthesis: the 512-aligned matmul DFT with the
+  closed-form noise latch (:func:`_enhance_fast_mxu`);
+- the four fused engines, f32 whatever ``dtype``, through kernels whose
+  wrappers launch hand-written CUDA kernels on a CUDA tensor and their
+  plain versions on a CPU tensor:
+  ``mxu8f`` (hq) and ``mxu8t`` (turbo inverse): the VAD kernel K14
   (:func:`vad_flags`), then the whole chain in one kernel,
   :func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.enhance_full8`;
-- ``mxu8`` and ``mxu3``: a forward kernel (int8 K2 or f32 K4) with the
+  ``mxu8`` and ``mxu3``: a forward kernel (int8 K2 or f32 K4) with the
   in-kernel VAD, the noise latch
   (:func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.noise_latch`) and a
   back kernel (int8 K3 or f32 K5) with the flip, OLA and ``c_short``;
@@ -34,18 +43,21 @@ from jeicyboodsp_tpu_torch.io.wav import stale_blocks
 from jeicyboodsp_tpu_torch.kernels.enhance_back import enhance_back
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola3 import enhance_back_ola3
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola8 import enhance_back_ola8
-from jeicyboodsp_tpu_torch.kernels.enhance_full8 import enhance_full8, noise_latch
+from jeicyboodsp_tpu_torch.kernels.enhance_full8 import (
+    enhance_full8, latch_from_rowpack, noise_latch,
+)
 from jeicyboodsp_tpu_torch.kernels.enhance_fwd import enhance_fwd
 from jeicyboodsp_tpu_torch.kernels.enhance_fwd_int8 import enhance_fwd_int8
 from jeicyboodsp_tpu_torch.kernels.vad_flags import vad_flags as vad_kernel
-from jeicyboodsp_tpu_torch.ops.dft import int8_col_split
+from jeicyboodsp_tpu_torch.ops.dft import const, int8_col_split
 from jeicyboodsp_tpu_torch.utils.cnum import REF_PI, c_short, hamming_ref
 from jeicyboodsp_tpu_torch.utils.device import entry_device
 
 BLOCK_LEN = 512
 FFT_SIZE = 1024
 NOISE_FRAMES = 10
-ENGINES = ("mxu8f", "mxu8t", "mxu8", "mxu3")
+ENGINES = ("mxu8f", "mxu8t", "mxu8", "mxu3")  # the fused engines, each a chain of kernels
+ALL_ENGINES = ("xla", "mxu", "mxu3", "mxu8", "mxu8f", "mxu8t")
 
 
 @functools.lru_cache(maxsize=4)
@@ -54,16 +66,143 @@ def _vad_window(device: torch.device):
     return hamming_ref(FFT_SIZE, torch.float32, device)[BLOCK_LEN:]
 
 
-def vad_flags(blocks):
-    """VAD over (T, 512) int16 blocks -> (T,) bool (True=speech), in f32
-    as the fused chain computes it, through the K14 wrapper.
+def vad_flags(blocks, dtype=torch.float32):
+    """VAD over (T, 512) int16 blocks -> (T,) bool (True=speech), in ``dtype``.
 
     Semantics of WienerFilter_final.cpp:261-296 including the in-place int16
-    window truncation and the windowed[i] x raw[i+1] ZCR pairing.  The window
-    is this function's own f32 Hamming half, not the f64-built ``w2`` of
-    :func:`_dft_mats_aligned` that K2 and K4 read (ROADMAP R8).
+    window truncation and the windowed[i] x raw[i+1] ZCR pairing.  In f32
+    (the fused chain's VAD) it runs through the K14 wrapper with this
+    function's own f32 Hamming half, not the f64-built ``w2`` of
+    :func:`_dft_mats_aligned` that K2 and K4 read (ROADMAP R8); in another
+    dtype (the f64 compat path) as torch ops in that dtype.
     """
-    return vad_kernel(blocks, _vad_window(blocks.device))
+    if dtype == torch.float32:
+        return vad_kernel(blocks, _vad_window(blocks.device))
+    w = hamming_ref(FFT_SIZE, dtype, blocks.device)[BLOCK_LEN:]
+    x = blocks.to(dtype)
+    s = c_short(x * w).to(dtype)  # truncated windowed samples
+    energy = torch.sum(s * s, dim=-1) / FFT_SIZE  # integer terms: exact in f64
+    nxt = torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)  # last pairs with 0
+    zcr = torch.sum((s * nxt) < 0, dim=-1)
+    return (energy > 700.0) | (zcr < 200.0)
+
+
+def _noise_scan(speech, mags):
+    """The sequential noise-estimate state over T blocks, in ``mags``'
+    dtype and the scan's own order (WienerFilter_final.cpp:97-108 and
+    120-159): ``avg`` is updated row by row, so each row's estimate is the
+    reference's to the last bit.
+
+    The flags, and so the run counts and the latch rows, come from the VAD
+    alone: they are (T,) vectors worked out first.  Only the rows inside
+    noise runs then touch the (T, nb) planes, one small update each, up to
+    the last latch row.  Returns the latched estimate of every row (T, nb).
+    """
+    T, nb = mags.shape
+    cnt, run = _run_counts(speech)
+    latch = run & (cnt == NOISE_FRAMES)
+    ns = torch.zeros_like(mags)
+    lrows = torch.nonzero(latch).flatten().tolist()
+    if not lrows:
+        return ns
+    rows = torch.nonzero(run[: lrows[-1] + 1]).flatten().tolist()
+    halve = (cnt >= 3).tolist()
+    snap = torch.empty(len(lrows), nb, dtype=mags.dtype, device=mags.device)
+    avg = torch.zeros(nb, dtype=mags.dtype, device=mags.device)
+    li = 0
+    for t in rows:
+        avg.add_(mags[t])
+        if halve[t]:
+            avg.div_(2.0)  # (avg + m) / 2.0, two roundings as the scan's
+        if t == lrows[li]:
+            snap[li] = avg
+            li += 1
+    # row t holds the snapshot of the latest latch row <= t, zeros before the first
+    k = torch.cumsum(latch.to(torch.int64), 0) - 1
+    return torch.where((k >= 0)[:, None], snap[k.clamp(min=0)], ns)
+
+
+def _run_counts(speech):
+    """(cnt, run): the length of the noise run ending at each row (0 on
+    speech) and whether the row updates the running average (cnt >= 2)."""
+    idx = torch.arange(speech.shape[0], device=speech.device)
+    last_speech = torch.cummax(torch.where(speech, idx, torch.full_like(idx, -1)), 0).values
+    cnt = torch.where(speech, 0, idx - last_speech)
+    return cnt, ~speech & (cnt >= 2)
+
+
+def runlen_combine(l, r):
+    """Segmented-count monoid: (count, all_noise_flag). Identity: (0, True)."""
+    cl, fl = l
+    cr, fr = r
+    return torch.where(fr, cl + cr, cr), fl & fr
+
+
+def noise_affine_combine(l, r):
+    """Noise-state monoid: A' = a*A + b ; N' = s ? ah*A + bh : N.
+
+    Identity: (1, 0, False, 0, 0).  The LAST latch wins on composition.
+    Scalar elements (a, s, ah) broadcast against the vector elements (b, bh)
+    along a trailing axis.
+    """
+    al, bl, sl, ahl, bhl = l
+    ar, br, sr, ahr, bhr = r
+    a_ = ar * al
+    b_ = ar[..., None] * bl + br
+    s_ = sl | sr
+    ah_ = torch.where(sr, ahr * al, ahl)
+    bh_ = torch.where(sr[..., None], ahr[..., None] * bl + bhr, bhl)
+    return a_, b_, s_, ah_, bh_
+
+
+def noise_affine_elements(speech, cnt, mags):
+    """Per-block monoid elements from VAD flags, run-lengths, magnitudes."""
+    dtype = mags.dtype
+    run = (cnt >= 2) & ~speech
+    one = torch.ones((), dtype=dtype, device=mags.device)
+    zero = torch.zeros((), dtype=dtype, device=mags.device)
+    half = torch.where(cnt >= 3, 0.5 * one, one)
+    a = torch.where(run, half, one)
+    b = torch.where(run[:, None], half[:, None] * mags, zero)
+    s = run & (cnt == NOISE_FRAMES)
+    ah = torch.where(s, a, zero)
+    bh = torch.where(s[:, None], b, zero)
+    return a, b, s, ah, bh
+
+
+def latched_from_composed(s_, bh_):
+    """N_t given zero initial state: latched value or zeros."""
+    return torch.where(s_[..., None], bh_, torch.zeros_like(bh_))
+
+
+def _prefix_scan(combine, elems):
+    """Inclusive scan of ``combine`` along dim 0 in log2(T) steps (Hillis and
+    Steele): at step d, element t takes combine(element t-d, element t)."""
+    T = elems[0].shape[0]
+    d = 1
+    while d < T:
+        left = tuple(e[:-d] for e in elems)
+        right = tuple(e[d:] for e in elems)
+        merged = combine(left, right)
+        elems = tuple(torch.cat([e[:d], m]) for e, m in zip(elems, merged))
+        d *= 2
+    return elems
+
+
+def _noise_assoc_scan(speech, mags):
+    """Associative-scan version of :func:`_noise_scan` (O(log T) depth).
+
+    Per block the update is affine in the running average A:
+        A' = a*A + b*m ,  N' = latch ? A' : N
+    Composition is closed (see :func:`noise_affine_combine`), so the whole
+    state sequence is a parallel prefix; the sums group otherwise than the
+    sequential scan's (a is a power of two, so only additions round apart).
+    """
+    noise = ~speech
+    cnt, _ = _prefix_scan(runlen_combine, (noise.to(torch.int64), noise))
+    elems = noise_affine_elements(speech, cnt, mags)
+    _, _, s_, _, bh_ = _prefix_scan(noise_affine_combine, elems)
+    return latched_from_composed(s_, bh_)
 
 
 def _latch_rowpack(speech, L: int = 64):
@@ -79,11 +218,7 @@ def _latch_rowpack(speech, L: int = 64):
     if T % L:
         raise ValueError(f"T={T} must be a multiple of L={L}")
     idx = torch.arange(T, device=speech.device)
-    noise = ~speech
-    minus1 = torch.full_like(idx, -1)
-    last_speech = torch.cummax(torch.where(speech, idx, minus1), 0).values
-    cnt = torch.where(noise, idx - last_speech, 0)
-    upd = noise & (cnt >= 2)
+    cnt, upd = _run_counts(speech)
     halve = upd & (cnt >= 3)
     c = torch.where(upd, torch.where(cnt >= 3, 0.5, 1.0), 0.0).to(torch.float32)
     k2 = torch.cumsum(halve.to(torch.int32), 0).view(T // L, L)
@@ -92,7 +227,7 @@ def _latch_rowpack(speech, L: int = 64):
     w = c * torch.exp2(lk)  # exact power-of-two scalings
     p = torch.exp2(-lk)
     latch = upd & (cnt == NOISE_FRAMES)
-    g = torch.cummax(torch.where(latch, idx, minus1), 0).values
+    g = torch.cummax(torch.where(latch, idx, torch.full_like(idx, -1)), 0).values
     pg = torch.where(g >= 0, p[g.clamp(min=0)], 0.0)
     z = torch.zeros_like(w)
     return torch.stack([w, p, g.to(torch.float32), pg, z, z, z, z], dim=1)
@@ -102,14 +237,20 @@ def _noise_latch_parts(speech, planes, chunk: int = 64):
     """Closed-form noise latch over the magnitude planes (mag (T, 512),
     mag_n (T, 1)): the latched noise estimates (ns, ns_n) of every row
     (WienerFilter_final.cpp:97-159).  Rows past T, up to a multiple of
-    ``chunk``, count as speech."""
+    ``chunk``, count as speech.  The latch kernel is f32: planes of another
+    dtype take its plain version in their dtype."""
     mag, mag_n = planes
     T = mag.shape[0]
     pad = (-T) % chunk
     sp = torch.cat([speech, torch.ones(pad, dtype=torch.bool, device=speech.device)])
     if pad:
         mag, mag_n = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in planes)
-    ns, ns_n = noise_latch(_latch_rowpack(sp, L=chunk), mag, mag_n, chunk)
+    rowpack = _latch_rowpack(sp, L=chunk)
+    if mag.dtype == torch.float32:
+        ns, ns_n = noise_latch(rowpack, mag.contiguous(), mag_n.contiguous(), chunk)
+    else:
+        ns = latch_from_rowpack(rowpack.to(mag.dtype), torch.cat([mag, mag_n], 1), chunk)
+        ns, ns_n = ns[:, :BLOCK_LEN], ns[:, BLOCK_LEN:]
     return ns[:T], ns_n[:T]
 
 
@@ -185,6 +326,22 @@ def _dft_mats_int8_back():
     out["scales"] = np.stack(scales)  # (4, 512): s1U, s2U, s1V, s2V
     out["crows"] = np.stack(crows)    # (2, 512)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_matrices():
+    """Real-DFT (1024 -> 513 bins) and inverse matrices as numpy f32."""
+    n = FFT_SIZE
+    k = np.arange(n)[:, None] * np.arange(n // 2 + 1)[None, :]
+    ang = -2.0 * np.pi * k / n
+    fwd_re = np.cos(ang).astype(np.float32)
+    fwd_im = np.sin(ang).astype(np.float32)
+    # inverse real FFT: y[t] = (1/N) sum_k w_k (re_k cos - im_k sin)
+    wk = np.full(n // 2 + 1, 2.0)
+    wk[0] = wk[-1] = 1.0
+    inv_re = (wk[:, None] * np.cos(-ang.T) / n).astype(np.float32)
+    inv_im = (wk[:, None] * np.sin(-ang.T) / n).astype(np.float32)
+    return fwd_re, fwd_im, inv_re, inv_im
 
 
 def enhance_constants(device, arrays=None):
@@ -286,35 +443,162 @@ def _enhance_fused(blocks, mode, emit_all, L: int = 64):
     return out[:T], write_mask
 
 
-def enhance_blocks(blocks, mode: str = "wiener", emit_all: bool = False,
-                   fft_engine: str = "mxu8f"):
-    """Run the full chain over (T, 512) int16 blocks on their device.
+def frame_transform(frames, dtype, real_fft: bool = False, fft_engine: str = "xla"):
+    """w * [prev, cur] -> complex spectrum (batched).
 
-    Engines (the JAX package's names): ``mxu8f`` int8, whole chain in one
-    kernel; ``mxu8t`` the same with the turbo inverse; ``mxu8`` int8,
-    forward and back kernels around the latch; ``mxu3`` the same in f32.
+    ``real_fft`` computes only the 513 non-redundant bins (the input is
+    real).  An ``mxu*`` engine evaluates the 513-bin DFT as two matmuls
+    with the f32 bases of :func:`_dft_matrices` in ``dtype`` (full f32 on a
+    card: the port never enables TF32).
+    """
+    w = hamming_ref(FFT_SIZE, dtype, frames.device)
+    windowed = frames.to(dtype) * w
+    if fft_engine.startswith("mxu"):
+        fwd_re, fwd_im, _, _ = _dft_matrices()
+        return torch.complex(windowed @ const(fwd_re, windowed),
+                             windowed @ const(fwd_im, windowed))
+    if real_fft:
+        return torch.fft.rfft(windowed)
+    ctype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    return torch.fft.fft(windowed.to(ctype))
+
+
+def gain_and_resynth(X, ns, mode: str, real_fft: bool = False, resynth: str = "trig",
+                     fft_engine: str = "xla"):
+    """Per-bin gain with saved phase -> time-domain frame (batched IFFT).
+
+    ``resynth="trig"`` reproduces the reference's atan2/cos/sin phase
+    save/restore literally; ``"ratio"`` uses the identity
+    amp*e^{i phase} == X * (amp/|X|) (identical values up to rounding,
+    including the NaN cases: a zero bin makes the ratio NaN exactly where
+    the reference's gain went NaN).
+    """
+    xr, xi = X.real, X.imag
+    if mode == "wiener":
+        P = xr * xr + xi * xi
+        v = ns * ns / P  # 0/0 -> nan, k/0 -> inf, as the C code does
+        v = torch.where(v >= 1.0, 1.0, v)  # NaN stays NaN (matches C)
+        gain = 1.0 - v  # == amp / |X|
+        amp = torch.sqrt(P).abs() * gain
+    elif mode == "specsub":
+        amp = X.abs() - ns
+        gain = amp / X.abs()
+    else:
+        raise ValueError(mode)
+    if resynth == "ratio":
+        Y = X * gain.to(xr.dtype)
+    else:
+        phase = torch.atan2(xi, xr)
+        Y = torch.complex(amp * torch.cos(phase), amp * torch.sin(phase)).to(X.dtype)
+    if fft_engine.startswith("mxu"):
+        _, _, inv_re, inv_im = _dft_matrices()
+        return Y.real @ const(inv_re, Y.real) - Y.imag @ const(inv_im, Y.real)
+    if real_fft:
+        return torch.fft.irfft(Y, FFT_SIZE)
+    return torch.fft.ifft(Y).real
+
+
+def _ola(head, tail, emit_all):
+    """out[t] = c_short(head[t] + tail[t-1]) for t >= 2, head alone at t = 1
+    (row 0 never transformed a frame, :174-179), zero at t = 0; the warm-up
+    rows t < 2 are zeroed unless ``emit_all``.  Returns (out, write_mask)."""
+    T = head.shape[0]
+    tail_prev = torch.cat([torch.zeros_like(tail[:1]), tail[:-1]])
+    t = torch.arange(T, device=head.device)
+    zero = torch.zeros((), dtype=head.dtype, device=head.device)
+    ola = torch.where((t >= 1)[:, None],
+                      head + torch.where((t >= 2)[:, None], tail_prev, zero), zero)
+    out = c_short(ola)
+    write_mask = t >= 2
+    if not emit_all:
+        out = torch.where(write_mask[:, None], out, torch.zeros_like(out))
+    return out, write_mask
+
+
+def _frames(blocks):
+    """(T, 1024) frames [x[t-1], x[t]], zeros before the first block."""
+    prev = torch.cat([torch.zeros_like(blocks[:1]), blocks[:-1]])
+    return torch.cat([prev, blocks], 1)
+
+
+def _enhance_fast_mxu(blocks, mode, dtype, emit_all):
+    """Engine ``mxu`` (JAX ``_enhance_fast_mxu``, its plain branch): the
+    512-aligned matmul DFT with the window folded into the bases, the
+    closed-form noise latch, ratio resynthesis and the symmetry-halved
+    inverse, as torch ops in ``dtype``; the latch through the
+    :func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.noise_latch` wrapper
+    in f32."""
+    frames = _frames(blocks).to(dtype)  # the window is folded into WC/WS/nyq
+    M = {k: const(v, frames) for k, v in _dft_mats_aligned().items()}
+    re, im = frames @ M["WC"], frames @ M["WS"]
+    re_n = frames @ M["nyq"]  # (T,) Nyquist (im == 0)
+    P512 = re * re + im * im
+    mag512 = torch.sqrt(P512)
+    mag_n = re_n.abs()
+    speech = vad_flags(blocks, dtype)
+    ns512, ns_n = _noise_latch_parts(speech, (mag512, mag_n[:, None]))
+    ns_n = ns_n[:, 0]
+    if mode == "wiener":
+        v512 = ns512 * ns512 / P512  # 0/0 -> NaN, as the reference
+        g512 = 1.0 - torch.where(v512 >= 1.0, 1.0, v512)
+        v_n = ns_n * ns_n / (re_n * re_n)
+        g_n = 1.0 - torch.where(v_n >= 1.0, 1.0, v_n)
+    else:
+        g512 = (mag512 - ns512) / mag512
+        g_n = (mag_n - ns_n) / mag_n
+    Yre, Yim, Yre_n = re * g512, im * g512, re_n * g_n
+    u = Yre @ M["UC512"] + Yre_n[:, None] * M["u_nyq"]
+    v = Yim @ M["VS512"]
+    y512 = Yre @ M["y512col"][:BLOCK_LEN] + Yre_n * M["y512col"][BLOCK_LEN]
+    tail = torch.cat([y512[:, None], (u + v)[:, 1:].flip(1)], 1)  # y[512:1024]
+    return _ola(u - v, tail, emit_all)
+
+
+def enhance_blocks(blocks, mode: str = "wiener", dtype=torch.float64,
+                   use_assoc_scan: bool = False, emit_all: bool = False,
+                   real_fft: bool = False, resynth: str = "trig", fft_engine: str = "xla"):
+    """Run the full chain over (T, 512) int16 blocks on their device, with
+    the JAX package's signature, defaults and routing.
+
+    With ``resynth="ratio"`` an ``mxu*`` engine takes its fast path:
+    ``mxu8f`` int8, the whole chain in one kernel; ``mxu8t`` the same with
+    the turbo inverse; ``mxu8`` int8, forward and back kernels around the
+    latch; ``mxu3`` the same in f32 (these four are f32 kernels whatever
+    ``dtype``); ``mxu`` the plain matmul path in ``dtype``.  Anything else
+    runs the generic path in ``dtype``: the frame transform, the VAD, the
+    sequential noise scan (``use_assoc_scan``: its log-depth form), the
+    gain with ``resynth`` and the OLA.
 
     Returns (out, write_mask): out is (T, 512) int16; blocks with
     write_mask False are not part of the reference's output stream
     (warm-up frames t<2).  With ``emit_all`` the warm-up rows are zeros.
     """
-    if fft_engine not in ENGINES:
-        raise NotImplementedError(
-            f"fft_engine {fft_engine!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 2: the f64/xla compat path (d), the plain mxu path (e)); "
-            f"ported: {ENGINES}, and the two-kernel f32 engine as the private "
-            "_enhance_fused"
-        )
     if mode not in ("wiener", "specsub"):
         raise ValueError(mode)
-    if fft_engine in ("mxu8f", "mxu8t"):
-        return _enhance_fused_full(blocks, mode, emit_all, hq=(fft_engine == "mxu8f"))
-    return _enhance_fused3(blocks, mode, emit_all, int8=(fft_engine == "mxu8"))
+    if fft_engine not in ALL_ENGINES:
+        raise ValueError(f"fft_engine must be one of {ALL_ENGINES}, got {fft_engine!r}")
+    if fft_engine.startswith("mxu") and resynth == "ratio":
+        if fft_engine == "mxu":
+            return _enhance_fast_mxu(blocks, mode, dtype, emit_all)
+        if fft_engine in ("mxu8f", "mxu8t"):
+            return _enhance_fused_full(blocks, mode, emit_all, hq=(fft_engine == "mxu8f"))
+        return _enhance_fused3(blocks, mode, emit_all, int8=(fft_engine == "mxu8"))
+    X = frame_transform(_frames(blocks), dtype, real_fft=real_fft, fft_engine=fft_engine)
+    mags = X.abs()
+    speech = vad_flags(blocks, dtype)
+    ns = (_noise_assoc_scan if use_assoc_scan else _noise_scan)(speech, mags)
+    y = gain_and_resynth(X, ns, mode, real_fft=real_fft, resynth=resynth,
+                         fft_engine=fft_engine)
+    # overlap-add: out[t] = y[t][:512] + y[t-1][512:]
+    return _ola(y[:, :BLOCK_LEN], y[:, BLOCK_LEN:], emit_all)
 
 
-def run_stream(x, mode: str = "wiener", fft_engine: str = "mxu8f", device="cuda"):
+def run_stream(x, mode: str = "wiener", dtype=torch.float64, use_assoc_scan: bool = False,
+               fft_engine: str = "xla", device="cuda"):
     """Host convenience: full signal in, reference-equivalent byte stream out.
 
+    As the JAX package's: an ``mxu*`` engine runs with ratio resynthesis
+    and the real FFT, the others with the reference's trig resynthesis.
     Runs on ``device``, a CUDA card unless the caller asks for the CPU
     (``device="cpu"`` runs the kernels' plain versions); raises if that card
     is missing.
@@ -324,8 +608,10 @@ def run_stream(x, mode: str = "wiener", fft_engine: str = "mxu8f", device="cuda"
     if len(x) == 0:  # the reference emits nothing on an empty payload
         return np.zeros(0, np.int16)
     blocks = stale_blocks(x, BLOCK_LEN)  # a partial final block keeps the stale tail
+    mxu = fft_engine.startswith("mxu")
     out, mask = enhance_blocks(
-        torch.from_numpy(np.ascontiguousarray(blocks)).to(dev), mode=mode,
+        torch.from_numpy(np.ascontiguousarray(blocks)).to(dev), mode=mode, dtype=dtype,
+        use_assoc_scan=use_assoc_scan, real_fft=mxu, resynth="ratio" if mxu else "trig",
         fft_engine=fft_engine,
     )
     return out[mask].reshape(-1).cpu().numpy()

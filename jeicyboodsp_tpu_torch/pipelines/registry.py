@@ -15,8 +15,9 @@ program does:
 
 ``kw`` is passed on to the op: ``device`` (a CUDA card by default; "cpu"
 runs the plain versions) for all, ``fft_engine`` for the enhancement chain,
-pitch, MFCC and fastconv, ``dtype`` for pitch, MFCC, fastconv and fft,
-``verbose`` for fft.
+pitch, MFCC and fastconv, ``dtype`` for the enhancement chain, pitch, MFCC,
+fastconv and fft, ``use_assoc_scan`` for the enhancement chain, ``verbose``
+for fft.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def geq(inp: str, out: str, **kw):
 
 
 def wiener(inp: str, out: str, **kw):
-    """Wiener NR: header NOT skipped.  kw: fft_engine, device."""
+    """Wiener NR: header NOT skipped.  kw: dtype, use_assoc_scan, fft_engine,
+    device (float64 ``xla`` by default, the compat contract)."""
     from jeicyboodsp_tpu_torch.ops import enhance as E
 
     y = E.run_stream(_read(inp, False), "wiener", **kw)
@@ -49,7 +51,7 @@ def wiener(inp: str, out: str, **kw):
 
 
 def specsub(inp: str, out: str, **kw):
-    """Spectral subtraction: header NOT skipped.  kw: fft_engine, device."""
+    """Spectral subtraction: header NOT skipped.  kw: as :func:`wiener`."""
     from jeicyboodsp_tpu_torch.ops import enhance as E
 
     y = E.run_stream(_read(inp, False), "specsub", **kw)

@@ -36,7 +36,7 @@ def profile_engine(blocks, engine, calls, out_dir):
 
     from jeicyboodsp_tpu_torch.ops.enhance import enhance_blocks
 
-    run = lambda: enhance_blocks(blocks, "wiener", fft_engine=engine)  # noqa: E731
+    run = lambda: enhance_blocks(blocks, "wiener", fft_engine=engine, resynth="ratio")  # noqa: E731
     run()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -472,7 +472,7 @@ def test_cli_features_on_cpu(tmp_path, capsys):
     ["pitch1", "a", "--engine", "mxu"],               # an engine needs --fast
     ["pitch2", "a", "--fast", "--engine", "mxu8"],    # not an engine of pitch
     ["mfcc", "a", "--fast", "--engine", "mxu8f"],     # an enhancement engine
-    ["wiener", "a", "b", "--engine", "xla"],          # not an enhancement engine
+    ["wiener", "a", "b", "--engine", "xla"],          # an engine needs --fast
     ["nlms", "a", "b", "c", "d", "--engine", "mxu"],  # nlms takes no engine
     ["pitch3", "a", "b"],                             # one file argument
 ])

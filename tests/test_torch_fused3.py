@@ -166,7 +166,7 @@ def test_fused3_vs_jax_and_oracle(jax_parts, engine, mode):
     oj, mj = JE._enhance_fused3(jnp.asarray(b), mode, False, interpret=True, F=F,
                                 int8=(engine == "mxu8"))
     oj, mj = np.asarray(oj), np.asarray(mj)
-    ot, mt = TE.enhance_blocks(torch.from_numpy(b), mode, fft_engine=engine)
+    ot, mt = TE.enhance_blocks(torch.from_numpy(b), mode, resynth="ratio", fft_engine=engine)
     ot, mt = ot.numpy(), mt.numpy()
     np.testing.assert_array_equal(mt, mj)
     d = np.abs(ot.astype(np.int32) - oj.astype(np.int32))
