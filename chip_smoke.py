@@ -25,7 +25,10 @@ print lines and raise on failure:
      forward planes bit-equal (the tensor-core pass K1 and K2 share); K2
      re/im/|X| planes bit-equal and flags equal; K4
      planes within 1e-5 of their row max and flags equal; the noise latch
-     within 1e-6; K3 and K5 >= 90 dB;
+     within 1e-6; K3 and K5 >= 90 dB; the inverse pass of K1 (both modes)
+     and K3 (wiener), hq and turbo: uv bit-equal to the plain inverse of the
+     kernel's own q8 and rowsc (the tensor-core pass K1 and K3 share), with
+     the scratch bytes that differ from the plain version's printed;
    - at the full stream counts and a shorter T for the plain loops: K6 and K7
      (T = 4096), K8 (T = 2048, both update pairings), K9 (8 blocks) and K6 at
      B = 3072, each bit-equal (else the differing samples are printed and
@@ -597,6 +600,28 @@ def _port():
 
 K1_ENGINES = {"mxu8f": True, "mxu8t": False}  # the engines of K1: hq
 MODES = ("wiener", "specsub")
+RS_SLOTS = ("q_re", "q2_re", "q_im", "q2_im", "Yren", "y512")
+
+
+def check_inv8(P, what, pk, pp, C, hq, sync):
+    """The int8 inverse pass (K1's and K3's, on the tensor cores): uv
+    bit-equal to the plain inverse of the kernel's own q8 and rowsc, else
+    it raises.  Also prints where the kernel's scratch differs from the
+    plain version's (pp): q8 bytes and rowsc slots."""
+    import torch
+
+    want = P.K1.inv8_plain(pk["q8"], pk["rowsc"], C, hq)
+    sync()
+    differ = int((pk["uv"].view(torch.int32) != want.view(torch.int32)).sum())
+    q8_diff = int((pk["q8"] != pp["q8"]).sum())
+    rs_diff = {k: int((pk["rowsc"][:, i].view(torch.int32) != pp["rowsc"][:, i].view(torch.int32))
+                      .sum()) for i, k in enumerate(RS_SLOTS)}
+    print(f"[3 kernel-vs-plain] {what} T={T_FULL}: uv bit-equal to the plain inverse of the "
+          f"kernel's own q8 and rowsc {differ == 0} ({differ} of {want.numel()} differ); against "
+          f"the plain version's scratch: q8 bytes differing {q8_diff} of {pk['q8'].numel()}, "
+          f"rowsc rows differing {json.dumps(rs_diff)}")
+    if differ:
+        raise RuntimeError(f"{what}: {differ} uv values differ from the plain inverse")
 
 
 def check_kernels(P, blocks, C, rowpack, speech, sync):
@@ -616,6 +641,7 @@ def check_kernels(P, blocks, C, rowpack, speech, sync):
             print(f"[3 kernel-vs-plain] K1 {mode} {eng}: forward planes bit-equal {same}")
             if not same:
                 raise RuntimeError("K1: forward planes are not bit-equal to the plain version")
+            check_inv8(P, f"K1 {mode} {eng}", pk, pp, C, hq, sync)
 
     back_ins = {}
     for name, (kernel, plain) in {"K2": (P.K2.enhance_fwd_int8, P.K2.enhance_fwd_int8_plain),
@@ -660,6 +686,12 @@ def check_kernels(P, blocks, C, rowpack, speech, sync):
             want = plain(*back_ins[fwd], C, mode)
             sync()
             err[name] = max(err[name], int16_diff(got, want, f"{name} {mode}"))
+    for eng, hq in K1_ENGINES.items():  # K3's inverse pass, hq and turbo
+        got, pk = P.K3.enhance_back_ola8(*back_ins["K2"], C, "wiener", hq, return_planes=True)
+        want, pp = P.K3.enhance_back_ola8_plain(*back_ins["K2"], C, "wiener", hq,
+                                                return_planes=True)
+        err["K3"] = max(err["K3"], int16_diff(got, want, f"K3 wiener {eng}"))
+        check_inv8(P, f"K3 wiener {eng}", pk, pp, C, hq, sync)
     return err, back_ins
 
 

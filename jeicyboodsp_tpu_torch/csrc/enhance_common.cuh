@@ -3,16 +3,16 @@
 //
 // Each pass body below is a __device__ function of one thread block; the
 // .cu files wrap them in their own __global__ kernels.  The int8 forward
-// pass is a whole __global__ kernel here, fwd8_kernel, which K1 and K2
-// launch through launch_fwd8.  Everything sits in
-// an anonymous namespace, so every file compiles its own copy and the
-// library links without -rdc.
+// and inverse passes are whole __global__ kernels here, fwd8_kernel (K1,
+// K2) and inv8_kernel (K1, K3), launched through launch_fwd8 and
+// launch_inv8.  Everything sits in an anonymous namespace, so every file
+// compiles its own copy and the library links without -rdc.
 //
 // Exactness rules the bodies keep (the files are built with -fmad=false):
-// int8 dots accumulate in int32 (on the tensor cores in the forward pass,
-// __dp4a in the inverse) and combine as 256*a + b in int32; the f32
-// epilogues keep the JAX package's operand order; rintf rounds half to
-// even as jnp.rint; row maxima propagate NaN (max_nan) as jnp.max does.
+// int8 dots accumulate in int32 on the tensor cores and combine as 256*a +
+// b in int32; the f32 epilogues keep the JAX package's operand order; rintf
+// rounds half to even as jnp.rint; row maxima propagate NaN (max_nan) as
+// jnp.max does.
 
 #pragma once
 
@@ -26,9 +26,6 @@ namespace {
 
 constexpr int N = 512;        // samples per block = bins per plane
 constexpr int NB = N + 1;     // bins with Nyquist, in the latch planes
-constexpr int KW = N / 4;     // int32 words in one int8 row
-constexpr int ROWS = 8;       // rows per block of the int8 inverse pass
-constexpr int COLS = 128;     // output columns (threads) per block
 constexpr int RP = 8;         // row-pack width: w, p, g, p[g], 0...
 constexpr int RS = 8;         // row scalars: q_re, q2_re, q_im, q2_im, Yren, y512
 constexpr int ROW_THREADS = 256;  // threads of the per-row reduction passes
@@ -112,8 +109,8 @@ __device__ __forceinline__ void bin_gain(float a, float b, float rn, float ns,
 //
 // mma.sync.m16n8k32 s8 x s8 -> s32.  Per output the 16-dot form has eight
 // int32 sums: the prev half ph.Whp, pl.Whp, ph.Wlp, pl.Wlp and the current
-// half ch.Whc, cl.Whc, ch.Wlc, cl.Wlc -- the same integers as the __dp4a
-// pass this replaces.  Each (plane, half) has four warps, each a 32 x 16
+// half ch.Whc, cl.Whc, ch.Wlc, cl.Wlc -- the integers of the plain
+// version's exact dots.  Each (plane, half) has four warps, each a 32 x 16
 // piece with four sums per output, which its 16-byte row reads and 8-byte
 // column reads feed twice.  The f32 epilogue keeps its order (zh = 256*a +
 // b in int32; v = s1p*zh + s2p*rh, handed from the prev warps to the
@@ -457,72 +454,237 @@ __device__ __forceinline__ void gain_quant_body(
   }
 }
 
-// Inverse int8 dots of one (ROWS x COLS) tile: plane 0 (blockIdx.z) u =
-// q*(s1U*z + s2U*r + crowU) [+ (q2*s1U)*z2.Uh] + Yren*u_nyq from the re
-// quantization; plane 1 v likewise from im with the V bases.  B: 4 int8
-// matrices [s][k]: Uh, Ul, Vh, Vl.  Turbo (hq = 0) drops l.Wl and the
-// level-2 plane (enhance_pallas.py:410-413).  uv: (2, T, 512).
-__device__ __forceinline__ void inv8_body(const int8_t* __restrict__ q8,
-                                          const int* __restrict__ B,
-                                          const float* __restrict__ scales,
-                                          const float* __restrict__ crows,
-                                          const float* __restrict__ rowsc,
-                                          const float* __restrict__ u_nyq,
-                                          float* __restrict__ uv, int T, int hq) {
-  __shared__ int sd[3][ROWS][KW];  // h, l, z2
-  const int t0 = blockIdx.x * ROWS;
-  const int plane = blockIdx.z;
-  const size_t pl = (size_t)T * N;
-  const int* q8w = reinterpret_cast<const int*>(q8);
-  const int nd = hq ? 3 : 2;
-  for (int i = threadIdx.x; i < nd * ROWS * KW; i += blockDim.x) {
-    const int d = i / (ROWS * KW), r = (i / KW) % ROWS, w = i % KW;
-    sd[d][r][w] = q8w[((3 * plane + d) * pl + (size_t)(t0 + r) * N) / 4 + w];
-  }
-  __syncthreads();
+// ---------------------------------------------------------------- the int8 inverse pass
+// Inverse int8 dots on the tensor cores (K1's pass 6 and K3's pass 2):
+// plane 0, u = q*(s1U*z + s2U*r + crowU) [+ (q2*s1U)*(z2.Uh)] + Yren*u_nyq,
+// from the re quantization; plane 1, v likewise from im with the V bases,
+// without the Nyquist term (enhance_pallas.py:_inv_plane8), where z = 256*
+// (h.Wh) + l.Wh and r = 256*(h.Wl) + l.Wl in int32.  Turbo (HQ false)
+// drops l.Wl and the level-2 plane z2 (enhance_pallas.py:410-413).  q8: 6
+// int8 planes (T, 512) h, l, z2 of re, then of im, as gain_quant_body writes
+// them; B: 4 int8 matrices [s][k] Uh, Ul, Vh, Vl (K-major, the "col" B
+// operand of the MMA); rowsc (T, RS); uv (2, T, 512).
+//
+// A persistent block of I8_THREADS threads per SM (launch_inv8) owns one
+// plane and one block of I8_BN output columns, keeps that column slice of
+// its plane's Wh and Wl, 64 KB, in shared memory, and walks the row tiles
+// rg, rg + groups, ...  Block b serves row group b / 16 and (plane, column
+// block) b % 16, so the 8 column blocks that read the same A rows run side
+// by side and their re-reads of those rows hit L2.  The A rows stream in K
+// chunks of I8_KC by cp.async into a ring of I8_STAGES stages, across tile
+// bounds, rows t >= T zero-filled (T is any multiple of 8 for K3); two
+// chunks a tile keep the block's barriers few.  Each of
+// the 8 warps owns a 16 x 32 piece of the 64 x 64 tile and all its sums
+// (5 per output, 80 int32 registers; 3 in turbo), so no sums cross warps
+// and each thread stores its outputs straight from the fragments: a quad's
+// four 8-byte stores fill one 32-byte sector of a row.
+//
+// mma.sync.m16n8k32 s8 x s8 -> s32, not wgmma: its fragments come from
+// registers, so the pass keeps fwd8's helpers and k-slot permutation, and
+// a 64 x 64 wgmma tile would hold 5 x 32 int32 sums a thread (160
+// registers before any operand) and need both operands in wgmma's
+// core-matrix layout in shared memory.  The tile's row scalars are loaded
+// with its first chunk, so the epilogue does not wait on them.
+// The products are exact and every partial sum stays below 2^31 (the bound
+// of enhance_pallas.py:402-404), so the sums are the integers of the plain
+// version in any order; the f32 epilogue keeps its order (-fmad=false), so
+// uv is bit-equal to the plain version on the same q8 and rowsc.
+// Within each 64-byte k block the fragments' k slots are permuted alike in
+// both operands -- thread quad c holds k 16c .. 16c+15, the first 8 for the
+// first k step of 32 and the rest for the second -- so a thread reads its A
+// rows and its B columns as 16-byte shared loads that feed two MMAs each.
+// Every 16-byte unit u of an A row or B column r sits at unit u ^ 4*(r & 1)
+// of its line, so the two rows (columns) of a quarter warp's loads fill the
+// 32 banks once, and the cp.async stores too.
+constexpr int I8_BM = 64, I8_BN = 64, I8_KC = 256, I8_STAGES = 3;
+constexpr int I8_THREADS = 256;              // 8 warps: 4 (rows) x 2 (columns)
+constexpr int I8_CBLOCKS = N / I8_BN;        // column blocks per plane
+constexpr int I8_KINDS = 2 * I8_CBLOCKS;     // (plane, column block) pairs
+constexpr int I8_BBYTES = 2 * I8_BN * N;     // the resident Wh, Wl slice: 65,536 bytes
+constexpr int I8_STAGE = 3 * I8_BM * I8_KC;  // h, l, z2 rows of one K chunk
+constexpr int I8_SMEM = I8_BBYTES + I8_STAGES * I8_STAGE + 4 * I8_BN * 4;  // 214,016 bytes
+static_assert(I8_THREADS == 4 * I8_BN, "one thread per column scalar");
 
-  const int s = blockIdx.y * COLS + threadIdx.x;
-  const size_t mat = (size_t)N * KW;
-  const int4* Bp = reinterpret_cast<const int4*>(B + 2 * plane * mat + (size_t)s * KW);
-  int acc[ROWS][5];
-  for (int r = 0; r < ROWS; ++r)
-    for (int d = 0; d < 5; ++d) acc[r][d] = 0;
-  for (int w4 = 0; w4 < KW / 4; ++w4) {
-    const int4 wh4 = Bp[w4], wl4 = Bp[mat / 4 + w4];
-    const int bh[4] = {wh4.x, wh4.y, wh4.z, wh4.w};
-    const int bl[4] = {wl4.x, wl4.y, wl4.z, wl4.w};
+template <bool HQ>
+__global__ void __launch_bounds__(I8_THREADS, 1) inv8_kernel(const int8_t* __restrict__ q8,
+                                                             int T,
+                                                             const int8_t* __restrict__ B,
+                                                             const float* __restrict__ scales,
+                                                             const float* __restrict__ crows,
+                                                             const float* __restrict__ rowsc,
+                                                             const float* __restrict__ u_nyq,
+                                                             float* __restrict__ uv) {
+  constexpr int NM = HQ ? 3 : 2;  // A planes: h, l (, z2)
+  constexpr int NS = HQ ? 5 : 3;  // sums: h.Wh, l.Wh, h.Wl (, l.Wl, z2.Wh)
+  constexpr int NCK = N / I8_KC;
+  extern __shared__ __align__(16) unsigned char i8smem[];
+  unsigned char* bs = i8smem;  // Wh, Wl [column][k]; the ring of A chunks; column scalars
+  unsigned char* ring = i8smem + I8_BBYTES;
+  float* colsc = reinterpret_cast<float*>(ring + I8_STAGES * I8_STAGE);  // s1, s2, crow, u_nyq
+  const int kind = blockIdx.x % I8_KINDS, rg = blockIdx.x / I8_KINDS;
+  const int plane = kind / I8_CBLOCKS, n0 = (kind % I8_CBLOCKS) * I8_BN;
+  const int groups = gridDim.x / I8_KINDS;
+  const int tiles = (T + I8_BM - 1) / I8_BM;
+  const int mine = rg < tiles ? (tiles - rg + groups - 1) / groups : 0;
+  const int Q = mine * NCK;  // this block's chunks, tile after tile
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;  // the fragment's row group and k quad
+  const int rA = (warp >> 1) * 16, cB = (warp & 1) * 32;  // the warp's piece
+  const int swz = (g & 1) << 2;  // every row and column this thread reads has g's parity
+  const size_t pl = (size_t)T * N;
+  const int8_t* A = q8 + 3 * plane * pl;
+
+  // the plane's Wh, Wl columns n0 .. n0 + 63, in the first copy group
+  for (int i = threadIdx.x; i < 2 * I8_BN * (N / 16); i += I8_THREADS) {
+    const int m = i / (I8_BN * (N / 16)), col = (i / (N / 16)) % I8_BN, u = i % (N / 16);
+    cp16(bs + (m * I8_BN + col) * N + 16 * (u ^ ((col & 1) << 2)),
+         B + (size_t)(2 * plane + m) * N * N + (size_t)(n0 + col) * N + 16 * u, 16);
+  }
+  {  // the columns' s1, s2, crow, u_nyq, one a thread
+    const int w = threadIdx.x / I8_BN, s = n0 + threadIdx.x % I8_BN;
+    colsc[threadIdx.x] = w == 0   ? scales[2 * plane * N + s]
+                         : w == 1 ? scales[(2 * plane + 1) * N + s]
+                         : w == 2 ? crows[plane * N + s]
+                                  : u_nyq[s];
+  }
+  // the copies of chunk q (tile q / NCK, K chunk q % NCK); an empty group past the last
+  auto fetch = [&](int q) {
+    if (q < Q) {
+      const int t0 = (rg + (q / NCK) * groups) * I8_BM, k0 = (q % NCK) * I8_KC;
+      unsigned char* st = ring + (q % I8_STAGES) * I8_STAGE;
+      for (int i = threadIdx.x; i < NM * I8_BM * (I8_KC / 16); i += I8_THREADS) {
+        const int m = i / (I8_BM * (I8_KC / 16)), r = (i / (I8_KC / 16)) % I8_BM;
+        const int u = i % (I8_KC / 16), t = t0 + r;
+        const bool in = t < T;
+        cp16(st + (m * I8_BM + r) * I8_KC + 16 * (u ^ ((r & 1) << 2)),
+             in ? A + m * pl + (size_t)t * N + k0 + 16 * u : A, in ? 16 : 0);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  int acc[NS][4][4];  // [sum][n8 piece][fragment]
+  float qs[2], q2[2], yren[2];  // the row scalars of rows g and g + 8 of the tile
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int w = 4 * w4 + e;
+  for (int s = 0; s < I8_STAGES - 1; ++s) fetch(s);
+  for (int q = 0; q < Q; ++q) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(I8_STAGES - 2));
+    __syncthreads();  // chunk q (and the bases) landed for all; stage (q - 1) % STAGES is free
+    fetch(q + I8_STAGES - 1);
+    const int ck = q % NCK;
+    const int t0 = (rg + (q / NCK) * groups) * I8_BM;
+    if (ck == 0) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int h = sd[0][r][w], l = sd[1][r][w];
-        acc[r][0] = __dp4a(h, bh[e], acc[r][0]);
-        acc[r][1] = __dp4a(l, bh[e], acc[r][1]);
-        acc[r][2] = __dp4a(h, bl[e], acc[r][2]);
-        if (hq) {
-          acc[r][3] = __dp4a(l, bl[e], acc[r][3]);
-          acc[r][4] = __dp4a(sd[2][r][w], bh[e], acc[r][4]);
+      for (int d = 0; d < NS; ++d)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[d][nt][e] = 0;
+      // the tile's row scalars, loaded now so that the epilogue finds them
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + rA + g + 8 * hr;
+        const float* rs = rowsc + (size_t)(t < T ? t : T - 1) * RS;
+        qs[hr] = rs[2 * plane];
+        q2[hr] = HQ ? rs[2 * plane + 1] : 0.0f;
+        yren[hr] = rs[4];
+      }
+    }
+    const unsigned char* st = ring + (q % I8_STAGES) * I8_STAGE + (rA + g) * I8_KC;
+    const unsigned char* bh = bs + (cB + g) * N + 16 * ck * (I8_KC / 16);
+#pragma unroll
+    for (int kb = 0; kb < I8_KC / 64; ++kb) {
+      const int u = 16 * ((4 * kb + c) ^ swz);
+      uint4 a[NM][2];  // rows g and g + 8 of each A plane, k 16c .. 16c+15 of the k block
+#pragma unroll
+      for (int m = 0; m < NM; ++m) {
+        a[m][0] = *reinterpret_cast<const uint4*>(st + m * I8_BM * I8_KC + u);
+        a[m][1] = *reinterpret_cast<const uint4*>(st + (m * I8_BM + 8) * I8_KC + u);
+      }
+      uint4 wh[4], wl[4];  // columns g of each n8 piece, the same k
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        wh[nt] = *reinterpret_cast<const uint4*>(bh + 8 * nt * N + u);
+        wl[nt] = *reinterpret_cast<const uint4*>(bh + (I8_BN + 8 * nt) * N + u);
+      }
+      // the two k steps of 32, each over all n8 pieces: an accumulator's
+      // next MMA comes 4 * NS MMAs after its last
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        unsigned f[NM][4];
+#pragma unroll
+        for (int m = 0; m < NM; ++m) {
+          f[m][0] = j ? a[m][0].z : a[m][0].x;
+          f[m][1] = j ? a[m][1].z : a[m][1].x;
+          f[m][2] = j ? a[m][0].w : a[m][0].y;
+          f[m][3] = j ? a[m][1].w : a[m][1].y;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const unsigned h0 = j ? wh[nt].z : wh[nt].x, h1 = j ? wh[nt].w : wh[nt].y;
+          const unsigned l0 = j ? wl[nt].z : wl[nt].x, l1 = j ? wl[nt].w : wl[nt].y;
+          mma_s8(acc[0][nt], f[0], h0, h1);
+          mma_s8(acc[1][nt], f[1], h0, h1);
+          mma_s8(acc[2][nt], f[0], l0, l1);
+          if constexpr (HQ) {
+            mma_s8(acc[3][nt], f[1], l0, l1);
+            mma_s8(acc[4][nt], f[2], h0, h1);
+          }
         }
       }
     }
-  }
-  const float s1 = scales[2 * plane * N + s], s2 = scales[(2 * plane + 1) * N + s];
-  const float crow = crows[plane * N + s];
-  for (int r = 0; r < ROWS; ++r) {
-    const int t = t0 + r;
-    const int z = 256 * acc[r][0] + acc[r][1];
-    const int rr = 256 * acc[r][2] + acc[r][3];  // acc[r][3] == 0 in turbo
-    const float q = rowsc[(size_t)t * RS + 2 * plane];
-    float o = s1 * (float)z + s2 * (float)rr;
-    o = q * (o + crow);
-    if (hq) {
-      const float q2 = rowsc[(size_t)t * RS + 2 * plane + 1];
-      o = o + (q2 * s1) * (float)acc[r][4];
+    if (ck != NCK - 1) continue;
+    // the tile's last chunk: the epilogue, in the plain version's order, while
+    // the next tile's chunks load
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = t0 + rA + g + 8 * hr;
+      if (t >= T) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float o2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cc = cB + 8 * nt + 2 * c + e, i = 2 * hr + e;
+          const float s1 = colsc[cc], s2 = colsc[I8_BN + cc];
+          const int z = 256 * acc[0][nt][i] + acc[1][nt][i];
+          int r = 256 * acc[2][nt][i];
+          if constexpr (HQ) r = r + acc[3][nt][i];
+          float o = s1 * (float)z + s2 * (float)r;
+          o = qs[hr] * (o + colsc[2 * I8_BN + cc]);
+          if constexpr (HQ) o = o + (q2[hr] * s1) * (float)acc[4][nt][i];
+          if (plane == 0) o = o + yren[hr] * colsc[3 * I8_BN + cc];
+          o2[e] = o;
+        }
+        *reinterpret_cast<float2*>(uv + plane * pl + (size_t)t * N + n0 + cB + 8 * nt +
+                                   2 * c) = make_float2(o2[0], o2[1]);
+      }
     }
-    if (plane == 0) o = o + rowsc[(size_t)t * RS + 4] * u_nyq[s];
-    uv[plane * pl + (size_t)t * N + s] = o;
   }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Launch the inverse pass on `st`: I8_KINDS (plane, column block) pairs
+// times as many row groups as fill the SMs with one block each (at most one
+// group per row tile); returns the launch's error.
+inline cudaError_t launch_inv8(const int8_t* q8, int T, const int8_t* B, const float* scales,
+                               const float* crows, const float* rowsc, const float* u_nyq,
+                               float* uv, int hq, cudaStream_t st) {
+  void (*kern)(const int8_t*, int, const int8_t*, const float*, const float*, const float*,
+               const float*, float*) = hq ? inv8_kernel<true> : inv8_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       I8_SMEM);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int tiles = (T + I8_BM - 1) / I8_BM;
+  int groups = sms / I8_KINDS;
+  groups = groups < 1 ? 1 : groups > tiles ? tiles : groups;
+  kern<<<groups * I8_KINDS, I8_THREADS, I8_SMEM, st>>>(q8, T, B, scales, crows, rowsc, u_nyq,
+                                                       uv);
+  return cudaGetLastError();
 }
 
 // Overlap-add of row t = blockIdx.x, thread j: out[t] = c_short(head[t] +

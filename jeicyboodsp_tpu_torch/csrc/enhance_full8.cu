@@ -17,7 +17,8 @@
 //   4. latch_scan      A0_{c+1} = a_c*A0_c + a_c*S_c over the T/L chunks
 //   5. gain_quant      ns = p_g*(P[g] + A0[chunk(g)]), gain, two-level
 //                      per-row int8 quantization, y512 column
-//   6. inv8_kernel     int8 inverse: u (with the Nyquist term) and v
+//   6. inv8_kernel     int8 inverse on the tensor cores: u (with the
+//                      Nyquist term) and v (enhance_common.cuh, shared with K3)
 //   7. ola_kernel      head = u - v, tail = [y512, flip(u + v)[1:]] of row
 //                      t-1 (an index permutation), OLA, c_short, mask
 //
@@ -28,17 +29,16 @@
 // the planes it reads and writes.
 //
 // Bound on this card: the int8 dots (16 per output bin forward, 3-5
-// inverse, K = 512) -- about 0.1 T int8 MACs at T = 16384 rows.  The
-// forward ones run on the tensor cores (mma.sync s8); the inverse ones as
-// __dp4a on CUDA cores with the data rows in shared memory and the bases
-// read through L1; the planes between passes go through device memory.
-// Tensor-core MMA in the inverse and keeping the planes on chip are later
-// work.
+// inverse, K = 512) -- about 0.1 T int8 MACs at T = 16384 rows.  Both
+// run on the tensor cores (mma.sync s8); the planes between passes go
+// through device memory.  Keeping the planes on chip is later work.
 // Exactness: see enhance_common.cuh.
 
 #include "enhance_common.cuh"
 
 namespace {
+
+constexpr int LATCH_COLS = 128;  // bins (threads) per block of the latch passes
 
 __global__ void nyq_kernel(const int16_t* __restrict__ x,
                            const float* __restrict__ nyq,
@@ -106,7 +106,7 @@ __device__ __forceinline__ float latched(const float* __restrict__ rowpack,
 }
 
 // 5. of jb_noise_latch: the estimate of every row, ns (T, 512) and the
-// Nyquist bin nsn (T,), one block of COLS bins.
+// Nyquist bin nsn (T,), one block of LATCH_COLS bins.
 __global__ void latch_gather_kernel(const float* __restrict__ rowpack,
                                     const float* __restrict__ pfx,
                                     const float* __restrict__ A0,
@@ -136,14 +136,6 @@ __global__ void __launch_bounds__(N) gain_quant_kernel(
                   y512col, q8, rowsc, T, wiener, hq);
 }
 
-__global__ void __launch_bounds__(COLS) inv8_kernel(
-    const int8_t* __restrict__ q8, const int* __restrict__ B,
-    const float* __restrict__ scales, const float* __restrict__ crows,
-    const float* __restrict__ rowsc, const float* __restrict__ u_nyq,
-    float* __restrict__ uv, int T, int hq) {
-  inv8_body(q8, B, scales, crows, rowsc, u_nyq, uv, T, hq);
-}
-
 __global__ void __launch_bounds__(N) ola_kernel(const float* __restrict__ uv,
                                                 const float* __restrict__ rowsc,
                                                 int16_t* __restrict__ out, int T,
@@ -166,19 +158,18 @@ extern "C" int jb_enhance_full8(
     float* im, float* ren, float* pfx, float* A0, int8_t* q8, float* rowsc,
     float* uv, int16_t* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 dots(T / ROWS, N / COLS, 2);
   const int C = T / L;
-  const int kb = (NB + COLS - 1) / COLS;
-  const cudaError_t e = launch_fwd8(x, T, fwd8, fscales, fcrows, re, im, nullptr, st);
+  const int kb = (NB + LATCH_COLS - 1) / LATCH_COLS;
+  cudaError_t e = launch_fwd8(x, T, fwd8, fscales, fcrows, re, im, nullptr, st);
   if (e != cudaSuccess) return (int)e;
   nyq_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, ren);
-  latch_prefix_kernel<false><<<dim3(C, kb), COLS, 0, st>>>(re, im, ren, rowpack,
-                                                          pfx, L);
-  latch_scan_kernel<<<kb, COLS, 0, st>>>(pfx, rowpack, A0, C, L);
+  latch_prefix_kernel<false><<<dim3(C, kb), LATCH_COLS, 0, st>>>(re, im, ren, rowpack, pfx,
+                                                               L);
+  latch_scan_kernel<<<kb, LATCH_COLS, 0, st>>>(pfx, rowpack, A0, C, L);
   gain_quant_kernel<<<T, N, 0, st>>>(re, im, ren, rowpack, pfx, A0, y512col,
                                      q8, rowsc, T, L, wiener, hq);
-  inv8_kernel<<<dots, COLS, 0, st>>>(q8, reinterpret_cast<const int*>(back8),
-                                     bscales, bcrows, rowsc, u_nyq, uv, T, hq);
+  e = launch_inv8(q8, T, back8, bscales, bcrows, rowsc, u_nyq, uv, hq, st);
+  if (e != cudaSuccess) return (int)e;
   ola_kernel<<<T, N, 0, st>>>(uv, rowsc, out, T, emit_all);
   return (int)cudaGetLastError();
 }
@@ -192,10 +183,10 @@ extern "C" int jb_noise_latch(const float* mag, const float* magn,
                               float* A0, float* ns, float* nsn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int C = T / L;
-  const int kb = (NB + COLS - 1) / COLS;
-  latch_prefix_kernel<true><<<dim3(C, kb), COLS, 0, st>>>(mag, nullptr, magn,
-                                                         rowpack, pfx, L);
-  latch_scan_kernel<<<kb, COLS, 0, st>>>(pfx, rowpack, A0, C, L);
-  latch_gather_kernel<<<dim3(T, kb), COLS, 0, st>>>(rowpack, pfx, A0, ns, nsn, L);
+  const int kb = (NB + LATCH_COLS - 1) / LATCH_COLS;
+  latch_prefix_kernel<true><<<dim3(C, kb), LATCH_COLS, 0, st>>>(mag, nullptr, magn, rowpack,
+                                                              pfx, L);
+  latch_scan_kernel<<<kb, LATCH_COLS, 0, st>>>(pfx, rowpack, A0, C, L);
+  latch_gather_kernel<<<dim3(T, kb), LATCH_COLS, 0, st>>>(rowpack, pfx, A0, ns, nsn, L);
   return (int)cudaGetLastError();
 }

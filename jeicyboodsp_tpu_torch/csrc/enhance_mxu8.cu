@@ -13,7 +13,8 @@
 // (_make_back_ola8_kernel): re, im, ren and the latched noise planes ->
 // int16 (T, 512), in three passes:
 //   1. gain_quant_kernel  gain, two-level per-row int8 quantization, y512
-//   2. inv8_kernel        int8 inverse u, v (K1's inverse pass)
+//   2. inv8_kernel        the int8 inverse u, v on the tensor cores (K1's
+//                         inverse pass, enhance_common.cuh)
 //   3. ola_kernel         flip as an index permutation, OLA with row t-1's
 //                         tail (the TPU kernel's ctail carry), c_short, the
 //                         t < 2 mask
@@ -21,9 +22,7 @@
 // Bound on this card at T = 16384: K2 does 16 int8 dots of (T, 512) x
 // (512, 512), 6.9e10 MACs (0.069 ms at the int8 tensor-core peak), and
 // moves ~117 MB; K3 (hq) 10 dots, 4.3e10 MACs (0.043 ms) against ~118 MB
-// (0.035 ms).  K2's dots run as mma.sync s8 on the tensor cores; K3's
-// still run as __dp4a on CUDA cores, so instruction throughput bounds it
-// far above its bound: tensor-core MMA there is later work.
+// (0.035 ms).  Both run their dots as mma.sync s8 on the tensor cores.
 
 #include "enhance_common.cuh"
 
@@ -47,14 +46,6 @@ __global__ void __launch_bounds__(N) gain_quant_kernel(
   const size_t i = (size_t)blockIdx.x * N + threadIdx.x;
   gain_quant_body(re[i], im[i], ren[blockIdx.x], ns[i], nsn[blockIdx.x],
                   y512col, q8, rowsc, T, wiener, hq);
-}
-
-__global__ void __launch_bounds__(COLS) inv8_kernel(
-    const int8_t* __restrict__ q8, const int* __restrict__ B,
-    const float* __restrict__ scales, const float* __restrict__ crows,
-    const float* __restrict__ rowsc, const float* __restrict__ u_nyq,
-    float* __restrict__ uv, int T, int hq) {
-  inv8_body(q8, B, scales, crows, rowsc, u_nyq, uv, T, hq);
 }
 
 __global__ void __launch_bounds__(N) ola_kernel(const float* __restrict__ uv,
@@ -92,9 +83,8 @@ extern "C" int jb_enhance_back_ola8(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   gain_quant_kernel<<<T, N, 0, st>>>(re, im, ren, ns, nsn, y512col, q8, rowsc, T,
                                      wiener, hq);
-  inv8_kernel<<<dim3(T / ROWS, N / COLS, 2), COLS, 0, st>>>(
-      q8, reinterpret_cast<const int*>(back8), bscales, bcrows, rowsc, u_nyq, uv,
-      T, hq);
+  const cudaError_t e = launch_inv8(q8, T, back8, bscales, bcrows, rowsc, u_nyq, uv, hq, st);
+  if (e != cudaSuccess) return (int)e;
   ola_kernel<<<T, N, 0, st>>>(uv, rowsc, out, T, emit_all);
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,7 @@ import torch
 from jeicyboodsp_tpu_torch.kernels import _build
 from jeicyboodsp_tpu_torch.kernels._common import N, check_mode
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola8 import check_planes
-from jeicyboodsp_tpu_torch.kernels.enhance_full8 import bin_gain
+from jeicyboodsp_tpu_torch.kernels.enhance_full8 import bin_gain, y512_col
 
 CONSTS = ("UC512", "VS512", "u_nyq", "y512col")
 
@@ -38,9 +38,7 @@ def enhance_back_plain(re, im, re_n, ns, ns_n, C, mode="wiener"):
     Yre, Yim, Yren = re * g, im * g, ren * gn
     u = Yre @ C["UC512"] + Yren[:, None] * C["u_nyq"]
     v = Yim @ C["VS512"]
-    ycol = C["y512col"]
-    y512 = Yre @ ycol[:N] + Yren * ycol[N]
-    return u - v, u + v, y512[:, None]
+    return u - v, u + v, y512_col(Yre, Yren, C)[:, None]
 
 
 def enhance_back(re, im, re_n, ns, ns_n, C, mode="wiener"):

@@ -25,7 +25,7 @@ import torch
 from jeicyboodsp_tpu_torch.kernels import _build
 from jeicyboodsp_tpu_torch.kernels._common import N, check_mode
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola8 import check_planes
-from jeicyboodsp_tpu_torch.kernels.enhance_full8 import bin_gain, flip_ola
+from jeicyboodsp_tpu_torch.kernels.enhance_full8 import bin_gain, flip_ola, y512_col
 
 CONSTS = ("UC512", "VS512", "u_nyq", "y512col")
 
@@ -37,7 +37,7 @@ def enhance_back_ola3_plain(re, im, re_n, ns, ns_n, C, mode="wiener", emit_all=F
     Yre, Yim, Yren = re * g, im * g, ren * gn
     u = Yre @ C["UC512"] + Yren[:, None] * C["u_nyq"]
     v = Yim @ C["VS512"]
-    return flip_ola(u, v, Yre, Yren, C, emit_all)
+    return flip_ola(u, v, y512_col(Yre, Yren, C), emit_all)
 
 
 def enhance_back_ola3(re, im, re_n, ns, ns_n, C, mode="wiener", emit_all=False):

@@ -21,15 +21,16 @@ import torch
 
 from jeicyboodsp_tpu_torch.kernels import _build
 from jeicyboodsp_tpu_torch.kernels._common import N, check, check_mode, check_rows
-from jeicyboodsp_tpu_torch.kernels.enhance_full8 import inverse8_plain
+from jeicyboodsp_tpu_torch.kernels.enhance_full8 import back8_scratch, inverse8_plain
 
 CONSTS = ("back8", "bscales", "bcrows", "u_nyq", "y512col")
 
 
 def enhance_back_ola8_plain(re, im, re_n, ns, ns_n, C, mode="wiener", hq=True,
-                            emit_all=False):
+                            emit_all=False, return_planes=False):
     """Plain PyTorch version of :func:`enhance_back_ola8` (any device)."""
-    return inverse8_plain(re, im, re_n[:, 0], ns, ns_n[:, 0], C, mode, hq, emit_all)
+    return inverse8_plain(re, im, re_n[:, 0], ns, ns_n[:, 0], C, mode, hq, emit_all,
+                          return_planes)
 
 
 def check_planes(re, im, re_n, ns, ns_n, C, consts):
@@ -44,29 +45,31 @@ def check_planes(re, im, re_n, ns, ns_n, C, consts):
 
 
 def enhance_back_ola8(re, im, re_n, ns, ns_n, C, mode="wiener", hq=True,
-                      emit_all=False):
+                      emit_all=False, return_planes=False):
     """Spectra + latched noise -> (T, 512) int16, rows t < 2 zero unless
     ``emit_all``.  T a multiple of 8; ``hq=False`` is the turbo inverse.
 
     C: constants from ``ops.enhance.enhance_constants``, on re's device.
     CUDA tensors launch ``jb_enhance_back_ola8``; CPU tensors run
-    :func:`enhance_back_ola8_plain`.
+    :func:`enhance_back_ola8_plain`.  ``return_planes`` also returns the
+    scratch q8 (6, T, 512), rowsc (T, 8) and uv (2, T, 512), laid out as
+    :func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.quant8_plain` and
+    :func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.inv8_plain` lay them.
     """
     check_mode(mode)
     dev = check_planes(re, im, re_n, ns, ns_n, C, CONSTS)
     if dev.type == "cpu":
-        return enhance_back_ola8_plain(re, im, re_n, ns, ns_n, C, mode, hq, emit_all)
+        return enhance_back_ola8_plain(re, im, re_n, ns, ns_n, C, mode, hq, emit_all,
+                                       return_planes)
     T = re.shape[0]
-    q8 = torch.empty(6, T, N, dtype=torch.int8, device=dev)
-    rowsc = torch.empty(T, 8, dtype=torch.float32, device=dev)
-    uv = torch.empty(2, T, N, dtype=torch.float32, device=dev)
+    q8, rowsc, uv = back8_scratch(T, dev, return_planes)
     out = torch.empty(T, N, dtype=torch.int16, device=dev)
     p = lambda x: x.data_ptr()  # noqa: E731
     _build.launch("jb_enhance_back_ola8", dev, p(re), p(im), p(re_n), p(ns), p(ns_n), T,
                   int(mode == "wiener"), int(hq), int(emit_all), *(p(C[k]) for k in CONSTS),
                   p(q8), p(rowsc), p(uv), p(out))
     enhance_back_ola8.launches += 1
-    return out
+    return (out, {"q8": q8, "rowsc": rowsc, "uv": uv}) if return_planes else out
 
 
 enhance_back_ola8.launches = 0

@@ -139,28 +139,57 @@ def _inv_plane8(h, l, W, s1, s2, crow, q, z2, q2, hq: bool):
     return out
 
 
-def flip_ola(u, v, Yre, Yren, C, emit_all):
-    """y512 column, head = u - v, tail = [y512, flip(u + v)[1:]], OLA with
-    row t-1's tail, ``c_short`` -> (T, 512) int16."""
+def y512_col(Yre, Yren, C):
+    """The y512 column of the OLA tail: Yre @ y512col[:512] + Yren*y512col[512]."""
     ycol = C["y512col"]
-    y512 = Yre @ ycol[:N] + Yren * ycol[N]
+    return Yre @ ycol[:N] + Yren * ycol[N]
+
+
+def flip_ola(u, v, y512, emit_all):
+    """head = u - v, tail = [y512, flip(u + v)[1:]], OLA with row t-1's
+    tail, ``c_short`` -> (T, 512) int16."""
     head = u - v
     tail = torch.cat([y512[:, None], (u + v)[:, 1:].flip(1)], 1)  # the lane flip
     return _ola(head, tail, emit_all)
 
 
-def inverse8_plain(re, im, ren, ns, nsn, C, mode, hq, emit_all):
-    """Back half of the int8 chain (K3's function): gain, per-row two-level
-    quantization, int8 inverse, flip, OLA.  ren, nsn: (T,)."""
+def quant8_plain(re, im, ren, ns, nsn, C, mode, hq):
+    """Gain and per-row two-level quantization: the scratch the kernels'
+    gain_quant pass writes for the inverse pass.  q8 (6, T, 512) int8: h,
+    l, z2 of Yre, then of Yim (z2 zero in turbo); rowsc (T, 8) f32: q_re,
+    q2_re, q_im, q2_im, Yren, y512, 0, 0 (q2 zero in turbo)."""
     g, gn = bin_gain(re, im, ren, ns, nsn, mode)
     Yre, Yim, Yren = re * g, im * g, ren * gn
-    hre, lre, qre, z2re, q2re = _quant_row_int8(Yre, hq)
-    him, lim, qim, z2im, q2im = _quant_row_int8(Yim, hq)
+    zero = torch.zeros_like(Yren)
+    planes, cols = [], []
+    for Y in (Yre, Yim):
+        h, l, q, z2, q2 = _quant_row_int8(Y, hq)
+        planes += [h, l, z2 if hq else torch.zeros_like(h)]
+        cols += [q[:, 0], q2[:, 0] if hq else zero]
+    rowsc = torch.stack([*cols, Yren, y512_col(Yre, Yren, C), zero, zero], 1)
+    return torch.stack(planes).to(torch.int8), rowsc
+
+
+def inv8_plain(q8, rowsc, C, hq):
+    """The int8 inverse pass on that scratch -> uv (2, T, 512): u from the
+    re planes with the Nyquist term Yren*u_nyq, v from the im planes."""
     B, sv, cr = C["back8"], C["bscales"], C["bcrows"]
-    u = _inv_plane8(hre, lre, B[0:2], sv[0], sv[1], cr[0], qre, z2re, q2re, hq)
-    u = u + Yren[:, None] * C["u_nyq"]
-    v = _inv_plane8(him, lim, B[2:4], sv[2], sv[3], cr[1], qim, z2im, q2im, hq)
-    return flip_ola(u, v, Yre, Yren, C, emit_all)
+    u = _inv_plane8(q8[0], q8[1], B[0:2], sv[0], sv[1], cr[0], rowsc[:, 0:1], q8[2],
+                    rowsc[:, 1:2], hq)
+    u = u + rowsc[:, 4:5] * C["u_nyq"]
+    v = _inv_plane8(q8[3], q8[4], B[2:4], sv[2], sv[3], cr[1], rowsc[:, 2:3], q8[5],
+                    rowsc[:, 3:4], hq)
+    return torch.stack([u, v])
+
+
+def inverse8_plain(re, im, ren, ns, nsn, C, mode, hq, emit_all, return_planes=False):
+    """Back half of the int8 chain (K3's function): gain, per-row two-level
+    quantization, int8 inverse, flip, OLA.  ren, nsn: (T,).
+    ``return_planes`` also returns the scratch q8, rowsc and uv."""
+    q8, rowsc = quant8_plain(re, im, ren, ns, nsn, C, mode, hq)
+    uv = inv8_plain(q8, rowsc, C, hq)
+    out = flip_ola(uv[0], uv[1], rowsc[:, 5], emit_all)
+    return (out, {"q8": q8, "rowsc": rowsc, "uv": uv}) if return_planes else out
 
 
 def enhance_full8_plain(blocks, rowpack, C, mode="wiener", hq=True,
@@ -169,8 +198,9 @@ def enhance_full8_plain(blocks, rowpack, C, mode="wiener", hq=True,
     re, im, ren = forward8_plain(blocks, C)
     mags = torch.cat([torch.sqrt(re * re + im * im), ren.abs()[:, None]], 1)
     ns = latch_from_rowpack(rowpack, mags, L)
-    out = inverse8_plain(re, im, ren, ns[:, :N], ns[:, N], C, mode, hq, emit_all)
-    return (out, {"re": re, "im": im}) if return_planes else out
+    out, planes = inverse8_plain(re, im, ren, ns[:, :N], ns[:, N], C, mode, hq, emit_all,
+                                 return_planes=True)
+    return (out, {"re": re, "im": im, **planes}) if return_planes else out
 
 
 def _ola(head, tail, emit_all):
@@ -186,6 +216,17 @@ def _ola(head, tail, emit_all):
 
 
 # ---------------------------------------------------------------- wrapper
+
+
+def back8_scratch(T, device, zeroed=False):
+    """The int8 back half's scratch: q8 (6, T, 512) int8, rowsc (T, 8) and
+    uv (2, T, 512) f32.  ``zeroed`` for a caller that reads it back: the
+    turbo pass writes no level-2 planes, and rowsc's last two slots are
+    never written."""
+    new = torch.zeros if zeroed else torch.empty
+    return (new(6, T, N, dtype=torch.int8, device=device),
+            new(T, 8, dtype=torch.float32, device=device),
+            torch.empty(2, T, N, dtype=torch.float32, device=device))
 
 
 def _check(blocks, rowpack, C, mode, L):
@@ -204,8 +245,10 @@ def enhance_full8(blocks, rowpack, C, mode="wiener", hq=True, emit_all=False,
     C: constants from ``ops.enhance.enhance_constants``, on blocks' device.
     CUDA tensors launch the hand-written kernels (T a multiple of L and of
     8; on a copy where the blocks do not start on a 16-byte boundary); CPU
-    tensors run :func:`enhance_full8_plain`.  ``return_planes``
-    also returns the forward re/im planes, for checks of the forward pass.
+    tensors run :func:`enhance_full8_plain`.  ``return_planes`` also
+    returns the forward re/im planes and the back half's scratch q8, rowsc
+    and uv (as :func:`quant8_plain` and :func:`inv8_plain` lay them out),
+    for checks of the forward and inverse passes.
     """
     _check(blocks, rowpack, C, mode, L)
     if blocks.device.type == "cpu":
@@ -219,9 +262,7 @@ def enhance_full8(blocks, rowpack, C, mode="wiener", hq=True, emit_all=False,
     ren = torch.empty(T, **f32)
     pfx = torch.empty(T, NB, **f32)
     A0 = torch.empty(T // L, NB, **f32)
-    q8 = torch.empty(6, T, N, dtype=torch.int8, device=blocks.device)
-    rowsc = torch.empty(T, 8, **f32)
-    uv = torch.empty(2, T, N, **f32)
+    q8, rowsc, uv = back8_scratch(T, blocks.device, return_planes)
     out = torch.empty(T, N, dtype=torch.int16, device=blocks.device)
     p = lambda x: x.data_ptr()  # noqa: E731
     _build.launch(
@@ -231,7 +272,9 @@ def enhance_full8(blocks, rowpack, C, mode="wiener", hq=True, emit_all=False,
         p(uv), p(out),
     )
     enhance_full8.launches += 1
-    return (out, {"re": re, "im": im}) if return_planes else out
+    if return_planes:
+        return out, {"re": re, "im": im, "q8": q8, "rowsc": rowsc, "uv": uv}
+    return out
 
 
 enhance_full8.launches = 0

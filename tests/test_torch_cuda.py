@@ -153,10 +153,11 @@ def _rel(got, want):
     return ((got - want).abs().amax(1) / want.abs().amax(1).clamp_min(1e-30)).max().item()
 
 
-def _back_inputs(fwd_name, blocks, C):
-    """K3 / K5 inputs from a forward kernel's outputs and the noise latch."""
+def _back_inputs(fwd_name, blocks, C, L=64):
+    """K3 / K5 inputs from a forward kernel's outputs and the noise latch
+    (in chunks of L rows: T a multiple of L)."""
     re, im, re_n, mag, mag_n, sp = FWD[fwd_name][0](blocks, C)
-    ns, ns_n = K.noise_latch(E._latch_rowpack(sp[:, 0] > 0.5), mag, mag_n)
+    ns, ns_n = K.noise_latch(E._latch_rowpack(sp[:, 0] > 0.5, L), mag, mag_n, L)
     return re, im, re_n, ns, ns_n
 
 
@@ -211,14 +212,39 @@ def test_int8_forward_pass_bit_equal(cuda, T):
         assert torch.equal(pk["re"], pp["re"]) and torch.equal(pk["im"], pp["im"])
 
 
+@pytest.mark.parametrize("hq", [True, False], ids=["hq", "turbo"])
+@pytest.mark.parametrize("T", [64, 200, 16384])
+def test_int8_inverse_pass_bit_equal(cuda, T, hq):
+    """The tensor-core inverse pass that K1 and K3 share: uv bit-equal to
+    the plain inverse (inv8_plain) of the kernels' own q8 and rowsc, on the
+    card -- exact int32 sums and the same f32 epilogue order.  K3 also at
+    T = 200, a ragged last row tile (K1 takes T a multiple of 64)."""
+    blocks = torch.from_numpy(_signal(T, T).reshape(-1, 512)).to(cuda)
+    C = E.enhance_constants(cuda)
+    runs = {"K3": K3.enhance_back_ola8(*_back_inputs("K2", blocks, C, 8), C, "wiener", hq,
+                                       return_planes=True)}
+    if T % 64 == 0:
+        rowpack = E._latch_rowpack(E.vad_flags(blocks))
+        runs["K1"] = K.enhance_full8(blocks, rowpack, C, "wiener", hq, return_planes=True)
+    for name, (_, p) in runs.items():
+        got = p["uv"].view(torch.int32)
+        want = K.inv8_plain(p["q8"], p["rowsc"], C, hq).view(torch.int32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"{name}: {int((got != want).sum())} of {got.numel()} differ"
+
+
 @pytest.mark.parametrize("engine", ["mxu8", "mxu8f", "mxu8t"])
 def test_int8_engines_equal_their_cpu_runs(cuda, engine):
     """On the 192-block probe the int8 engines' int16 output on the card is
     its CPU run's (the plain versions') to one step on under 0.1% of the
-    samples: the forward planes are bit-equal (above), but the inverse pass
-    sums its f32 epilogue in another order than its plain version, which
-    flips a truncation now and then (K1 differs from its plain version on
-    about 1e-5 of the samples at T = 16384 in chip_smoke.py)."""
+    samples.  The forward planes are bit-equal (above), and so is the
+    inverse pass on its own q8 and rowsc (test_int8_inverse_pass_bit_equal);
+    the flips come from the gain and quantization pass, which divides 32512
+    by the row max where the plain version multiplies by its reciprocal (a
+    few q8 values one step apart) and sums the y512 column (K1 also the
+    Nyquist bin) in another order.  chip_smoke.py prints those counts at
+    T = 16384, where K1 differs from its plain version on about 1e-5 of the
+    samples."""
     blocks = torch.from_numpy(_signal(192, 5).reshape(-1, 512))
     kw = dict(resynth="ratio", fft_engine=engine)
     out, mask = E.enhance_blocks(blocks.to(cuda), "wiener", **kw)

@@ -211,6 +211,27 @@ def test_k1_plain_vs_jax_interpret(jax_full8, mode, hq):
         assert snr_db(want, got) >= FLOOR[hq]
 
 
+@pytest.mark.parametrize("hq", [True, False], ids=["mxu8f", "mxu8t"])
+def test_k1_plain_planes_rebuild_its_output(probe, hq):
+    """K1's plain version with ``return_planes``: its back half is K3's
+    plain version on the forward planes and the latch, and flip_ola
+    rebuilds the int16 output from the uv and rowsc planes it returns."""
+    _, x = probe
+    blocks = torch.from_numpy(x.reshape(-1, 512))
+    C = TE.enhance_constants("cpu")
+    rowpack = TE._latch_rowpack(TE.vad_flags(blocks))
+    out, p = K.enhance_full8(blocks, rowpack, C, "wiener", hq, L=16, return_planes=True)
+    assert torch.equal(out, K.enhance_full8(blocks, rowpack, C, "wiener", hq, L=16))
+    re, im, ren = K.forward8_plain(blocks, C)
+    assert torch.equal(p["re"], re) and torch.equal(p["im"], im)
+    mags = torch.cat([torch.sqrt(re * re + im * im), ren.abs()[:, None]], 1)
+    ns = K.latch_from_rowpack(rowpack, mags, 16)
+    q8, rowsc = K.quant8_plain(re, im, ren, ns[:, :512], ns[:, 512], C, "wiener", hq)
+    assert torch.equal(p["q8"], q8) and torch.equal(p["rowsc"], rowsc)
+    assert torch.equal(p["uv"], K.inv8_plain(q8, rowsc, C, hq))
+    assert torch.equal(K.flip_ola(p["uv"][0], p["uv"][1], rowsc[:, 5], False), out)
+
+
 def test_chip_smoke_reference_matches_oracle():
     """chip_smoke.py carries its own numpy reference (it may not import the
     JAX package); it must equal the oracle byte for byte."""

@@ -151,6 +151,62 @@ def test_back_plain_vs_jax_interpret(jax_parts, kernel, mode):
     assert d.max() <= 1
 
 
+@pytest.mark.parametrize("hq", [True, False], ids=["hq", "turbo"])
+@pytest.mark.parametrize("mode", MODES)
+def test_k3_plain_planes_rebuild_its_output(jax_parts, mode, hq):
+    """K3's plain version with ``return_planes``: the same int16 output,
+    which flip_ola rebuilds from uv and the y512 slot of rowsc; uv is the
+    plain inverse of q8 and rowsc; q8 holds Z = 256h + l + 128 =
+    rint(Y * 32512 / rowmax) (to the few f32 roundings of 32512 that the
+    f32 scaling makes), and z2 only in hq."""
+    name, _, _, back = jax_parts
+    ins = _t(back["K2", mode][0])
+    C = TE.enhance_constants("cpu")
+    out, p = K3.enhance_back_ola8(*ins, C, mode, hq, return_planes=True)
+    q8, rowsc, uv = p["q8"], p["rowsc"], p["uv"]
+    T = out.shape[0]
+    assert q8.shape == (6, T, 512) and q8.dtype == torch.int8
+    assert rowsc.shape == (T, 8) and uv.shape == (2, T, 512)
+    assert torch.equal(out, K3.enhance_back_ola8(*ins, C, mode, hq))
+    assert torch.equal(K1.flip_ola(uv[0], uv[1], rowsc[:, 5], False), out)
+    assert torch.equal(K1.inv8_plain(q8, rowsc, C, hq), uv)
+    re, im, re_n, ns, ns_n = ins
+    g, gn = K1.bin_gain(re, im, re_n[:, 0], ns, ns_n[:, 0], mode)
+    for c, Y in enumerate((re * g, im * g)):
+        Z = 256 * q8[3 * c].double() + q8[3 * c + 1].double() + 128
+        Yd = Y.double()
+        err = (Z - Yd * 32512 / Yd.abs().amax(1, keepdim=True)).abs().max()
+        assert err <= 0.5 + 32512 * 2.0 ** -21
+        assert hq or (q8[3 * c + 2].eq(0).all() and rowsc[:, 2 * c + 1].eq(0).all())
+    assert torch.equal(rowsc[:, 4], re_n[:, 0] * gn) and rowsc[:, 6:].eq(0).all()
+
+
+@pytest.mark.parametrize("hq", [True, False], ids=["hq", "turbo"])
+def test_inv8_plain_vs_jax_inv_plane8(jax_parts, hq):
+    """The plain inverse pass on K3's own q8 and rowsc, with the port's
+    transposed int8 bases, bit-equal to JAX's ``_inv_plane8`` on the same
+    int8 planes and row scales with ``_dft_mats_int8_back``'s [k, s] bases
+    (exact int32 dots, the same f32 epilogue), u with its Nyquist term.
+    The CUDA pass is held bit-equal to this plain version on the card."""
+    name, _, _, back = jax_parts
+    C = TE.enhance_constants("cpu")
+    _, p = K3.enhance_back_ola8(*_t(back["K2", "wiener"][0]), C, "wiener", hq,
+                                return_planes=True)
+    q8, rs, uv = p["q8"].numpy(), p["rowsc"].numpy(), p["uv"].numpy()
+    M8B, u_nyq = JE._dft_mats_int8_back(), np.asarray(JE._dft_mats_aligned()["u_nyq"])
+    sv, cr = M8B["scales"], M8B["crows"]
+    for plane, (wh, wl) in enumerate((("Uh", "Ul"), ("Vh", "Vl"))):
+        h, l, z2 = (jnp.asarray(q8[3 * plane + i]) for i in range(3))
+        q, q2 = rs[:, 2 * plane:2 * plane + 1], rs[:, 2 * plane + 1:2 * plane + 2]
+        want = np.asarray(EP._inv_plane8(
+            h, l, M8B[wh], M8B[wl], sv[2 * plane:2 * plane + 1],
+            sv[2 * plane + 1:2 * plane + 2], cr[plane:plane + 1], q,
+            z2 if hq else None, q2 if hq else None, hq=hq))
+        if plane == 0:
+            want = want + rs[:, 4:5] * u_nyq.reshape(1, 512)
+        np.testing.assert_array_equal(uv[plane].view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("engine", ["mxu8", "mxu3"])
 def test_fused3_vs_jax_and_oracle(jax_parts, engine, mode):
