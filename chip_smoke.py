@@ -100,7 +100,9 @@ print lines and raise on failure:
    blocks, ``_enhance_fused``, engines mxu8f / mxu8t with the torch VAD and
    with K14 in turns, and K12 at (2041, 8192) and (16384, 512) (with
    ``torch.fft.fft`` on the same complex64 batch), K13 (with its f32 matmul
-   core) and K14 alone.
+   core) and K14 alone; K5 and K13 once more in turns with that core, Wiener
+   and spectral subtraction.  The bounds of K5 and K13 count their GEMMs as
+   the 3xTF32 they run, with the bf16x3 figure beside.
 
 Then the card's line, one JSON line of per-kernel results and, last, the
 ``{"ok": true, ...}`` line.  Imports neither jax nor the JAX package.
@@ -135,8 +137,8 @@ PLAIN_T = {"K6": 4096, "K7": 4096, "K8": 2048, "K9": 8 * 1024}
 PLAIN_TIME_T = {"K6": 256, "K7": 256, "K8": 256, "K9": 1024}
 PLAIN_REPS = 3
 GEQ_LINEAR_DB = 55.0  # K7's f32 cascade against a float64 one (tests/test_pallas_kernels.py:17)
-# published H100 SXM peaks (dense): bytes/s of HBM3, int8 and bf16 tensor-core op/s
-HBM_BPS, INT8_OPS, BF16_OPS = 3.35e12, 1979e12, 989e12
+# published H100 SXM peaks (dense): bytes/s of HBM3, int8, bf16 and TF32 tensor-core op/s
+HBM_BPS, INT8_OPS, BF16_OPS, TF32_OPS = 3.35e12, 1979e12, 989e12, 495e12
 # f64 and f32 outside the tensor cores (NVIDIA's H100 SXM data sheet), FMA counted as two
 F64_OPS, F32_OPS = 34e12, 67e12
 # dependent cycles per step of each recursion's longest chain, an estimate from the
@@ -534,6 +536,11 @@ def bound(nbytes, ops, peak):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def tf32_note(ops, peak):
+    """For a 3xTF32 bound, the same GEMMs' bound as bf16x3 beside it."""
+    return f"; as bf16x3 {ops / BF16_OPS * 1e3:.4f} ms" if peak == TF32_OPS else ""
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -864,7 +871,7 @@ def time_kernels(P, blocks, C, rowpack, back_ins, card, sync):
         "K5": (lambda: K5.enhance_back_ola3(*back_ins["K4"], C, "wiener"),
                lambda: K5.enhance_back_ola3_plain(*back_ins["K4"], C, "wiener"),
                nbytes(*back_ins["K4"], *consts(K5), blocks),
-               3 * 2 * 2 * dots, BF16_OPS),
+               3 * 2 * 2 * dots, TF32_OPS),  # its 2 f32 GEMMs as 3xTF32, as the kernel runs them
     }
     library = gemm_cores(P, blocks, C, back_ins)
     times = {}
@@ -876,7 +883,8 @@ def time_kernels(P, blocks, C, rowpack, back_ins, card, sync):
                            library_ms=lib_ms)
         print(f"[5 timing] {name} wiener T={T_FULL} on {card}: kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, GEMM core {'-' if lib_ms is None else '%.3f ms' % lib_ms}, "
-              f"bound {b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops)")
+              f"bound {b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops"
+              f"{tf32_note(ops, peak)})")
     mag, mag_n = K2.enhance_fwd_int8(blocks, C)[3:5]
     latch = (median_ms(lambda: K1.noise_latch(rowpack, mag, mag_n), sync),
              median_ms(lambda: K1.latch_from_rowpack(rowpack, torch.cat([mag, mag_n], 1), 64),
@@ -2038,7 +2046,7 @@ def time_transforms(P, xc, xf, blocks, C, back_ins, card, sync):
         "K13": (lambda: P.K13.enhance_back(*ins13, C, "wiener"),
                 lambda: P.K13.enhance_back_plain(*ins13, C, "wiener"),
                 nbytes(*ins13, *(C[k] for k in P.K13.CONSTS), *out13),
-                3 * 2 * 2 * dots, BF16_OPS, gemm_cores(P, blocks, C, back_ins)["K5"]),
+                3 * 2 * 2 * dots, TF32_OPS, gemm_cores(P, blocks, C, back_ins)["K5"]),
         "K14": (lambda: P.K14.vad_flags(blocks, w), lambda: P.K2.vad_rows(blocks, w),
                 nbytes(blocks, w, flags), 6 * blocks.numel(), F32_OPS, None),
     }
@@ -2050,7 +2058,17 @@ def time_transforms(P, xc, xf, blocks, C, back_ins, card, sync):
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         print(f"[5 timing] {name} alone on {card}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"library {'-' if lib_ms is None else '%.3f ms' % lib_ms}, bound {b_ms:.4f} ms by "
-              f"{b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops)")
+              f"{b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops{tf32_note(ops, peak)})")
+    core = gemm_cores(P, blocks, C, back_ins)["K5"]
+    for mode in MODES:  # K5 and K13 beside their f32 matmul core, in turns, both gains
+        t = [median_ms(f, sync) for f in (
+            lambda: P.K5.enhance_back_ola3(*ins13, C, mode), lambda: P.K13.enhance_back(*ins13, C, mode),
+            core, lambda: P.K13.enhance_back(*ins13, C, mode),
+            lambda: P.K5.enhance_back_ola3(*ins13, C, mode))]
+        k5, k13 = (t[0] + t[4]) / 2, (t[1] + t[3]) / 2
+        print(f"[5 timing] K5 / K13 {mode} T={T_FULL} on {card}: K5 {t[0]:.4f} / {t[4]:.4f} ms, "
+              f"K13 {t[1]:.4f} / {t[3]:.4f} ms, f32 matmul core {t[2]:.4f} ms; faster than the "
+              f"core: K5 {k5 < t[2]}, K13 {k13 < t[2]}")
     wall, busy, kernels, _ = profile_call(runs["K14"][0], sync, top=1)
     print(f"[5 profile] K14 alone under torch.profiler on {card}: wall {wall:.4f} ms, device busy "
           f"{busy:.4f} ms; the rest of the wall time is the wrapper's host path (checks, "

@@ -10,10 +10,12 @@
 //
 // K5, jb_enhance_back_ola3, replaces enhance_back_ola3_pallas
 // (_make_back_ola3_kernel): re, im, ren and the latched noise planes ->
-// int16 (T, 512), in three passes:
-//   1. gain_kernel    gain -> Yre, Yim planes, Yren and the y512 column
-//   2. inv32_kernel   u = Yre @ UC512 + Yren*u_nyq, v = Yim @ VS512
-//   3. ola_kernel     flip as an index permutation, OLA with row t-1's
+// int16 (T, 512), in two passes:
+//   1. x3_kernel<BackOp>  the gain on the way in, u = Yre @ UC512 +
+//                     Yren*u_nyq and v = Yim @ VS512 on the tensor cores
+//                     (3xTF32, tf32x3.cuh), head = u - v and w2 = u + v out,
+//                     and the y512 column
+//   2. ola_hw_kernel  flip as an index permutation, OLA with row t-1's
 //                     tail (the TPU kernel's ctail carry), c_short, mask
 // The TPU kernel returns f32 c_short values that its caller casts to int16
 // and masks (ops/enhance.py:542-550); those values are exact integers, so
@@ -21,23 +23,26 @@
 //
 // K13, jb_enhance_back, replaces enhance_back_pallas (_make_back_kernel):
 // the same inputs -> head = u - v, w2 = u + v (T, 512) and the y512 column
-// (T,), with no OLA (its caller assembles it), in three passes: K5's
-// gain_kernel and inv32_kernel, then
-//   3. split_kernel   head and w2 in place of the (u, v) planes, y512 out
-//                     of the row scalars
-// Bound at T = 16384: its two GEMMs as bf16x3 on tensor cores 0.052 ms;
-// re, im, ns in and head, w2 out are 168 MB, 0.050 ms.
+// (T,), with no OLA (its caller assembles it): K5's pass 1 alone.
 //
-// The TPU kernels run their f32 GEMMs as bf16x3 only because Mosaic has no
-// Precision.HIGH.  Here they are plain f32 FMA GEMMs on CUDA cores, the tile
-// GEMM of sgemm.cuh (shared with K10, mfcc.cu).  Bound on this card at
-// T = 16384: K4 is 1.7e10 MACs (0.51 ms at the 67 TFLOP/s f32 CUDA-core
-// peak, 0.10 ms as bf16x3 on tensor cores) against ~117 MB (0.035 ms); K5
-// half that work.  So both are compute-bound; a tensor-core form (bf16x3 or
-// 3xTF32) is later work.
+// Bound of K5's and K13's pass 1 at T = 16384: the two 512 x 512 GEMMs are
+// 8.59e9 MACs, 0.104 ms as 3xTF32 at the 495 TFLOP/s TF32 peak (0.052 ms
+// as bf16x3 at 989); re, im, ns in and head, w2 out are 168 MB, 0.050 ms.
+// So the pass is bound by the tensor cores.  What the design does about it:
+// Y = (re, im) * gain is computed as the chunks land in shared memory and
+// never goes to device memory; head and w2 come out of the GEMM's epilogue
+// (no pass re-reads u and v); A's TF32 halves are made once a block, as
+// the spectra land, B's once on the host (the back32 constant).
+//
+// K4 (fwd32_kernel) runs its f32 GEMMs as plain f32 FMAs on CUDA cores, the
+// tile GEMM of sgemm.cuh (shared with K10, mfcc.cu).  Bound on this card at
+// T = 16384: 1.7e10 MACs (0.51 ms at the 67 TFLOP/s f32 CUDA-core peak,
+// 0.10 ms as bf16x3 on tensor cores) against ~117 MB (0.035 ms), so
+// compute-bound; its move to tf32x3.cuh is later work.
 
 #include "enhance_common.cuh"
 #include "sgemm.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -55,15 +60,6 @@ struct FramesA {  // K4: [prev | cur] int16 rows as f32, K = 1024
       return make_float4((float)p[0], (float)p[1], (float)p[2], (float)p[3]);
     const short4 v = *reinterpret_cast<const short4*>(p);
     return make_float4((float)v.x, (float)v.y, (float)v.z, (float)v.w);
-  }
-};
-
-struct PlaneA {  // K5: one (T, 512) f32 plane, K = 512
-  const float* a;
-  int T;
-  __device__ float4 load(int t, int k) const {
-    if (t >= T) return make_float4(0.f, 0.f, 0.f, 0.f);
-    return *reinterpret_cast<const float4*>(a + (size_t)t * N + k);
   }
 };
 
@@ -96,72 +92,169 @@ __global__ void __launch_bounds__(ROW_THREADS) rowstat_kernel(
   rowstat_body(x, nyq, w2, re, im, ren, mag, magn, sp);
 }
 
-// K5 pass 1, one block of N threads per row: Y (2, T, 512) = re*g, im*g;
-// rowsc[t]: slot 4 Yren, slot 5 y512 = Yre . ycol[:512] + Yren*ycol[512].
-__global__ void __launch_bounds__(N) gain_kernel(
-    const float* __restrict__ re, const float* __restrict__ im,
-    const float* __restrict__ ren, const float* __restrict__ ns,
-    const float* __restrict__ nsn, const float* __restrict__ y512col,
-    float* __restrict__ Y, float* __restrict__ rowsc, int T, int wiener) {
-  __shared__ float red[32];
-  const int t = blockIdx.x, k = threadIdx.x;
-  const size_t i = (size_t)t * N + k;
-  float gk, gn;
-  bin_gain(re[i], im[i], ren[t], ns[i], nsn[t], wiener, &gk, &gn);
-  const float yre = re[i] * gk;
-  Y[i] = yre;
-  Y[(size_t)T * N + i] = im[i] * gk;
-  const float yren = ren[t] * gn;
-  const float y512 = block_reduce<false>(yre * y512col[k], red) + yren * y512col[N];
-  if (k == 0) {
-    rowsc[(size_t)t * RS + 4] = yren;
-    rowsc[(size_t)t * RS + 5] = y512;
+// bin_gain's gk with the division as div.full.f32 and the square root as
+// sqrt.approx.f32: each within 2 ulp of the IEEE result, 0/0 NaN, x/0
+// infinite and sqrt(0) 0 as there, and without the IEEE forms' slow-path
+// branches, which serialised the chunks' preparation
+__device__ __forceinline__ float div_full(float x, float y) {
+  float r;
+  asm("div.full.f32 %0, %1, %2;\n" : "=f"(r) : "f"(x), "f"(y));
+  return r;
+}
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ float bin_gain_full(float a, float b, float ns, int wiener) {
+  if (wiener) {
+    const float v = div_full(ns * ns, a * a + b * b);
+    return 1.0f - (v >= 1.0f ? 1.0f : v);
   }
+  const float mag = sqrt_approx(a * a + b * b);
+  return div_full(mag - ns, mag);
 }
 
-// K5 pass 2.  Grid (ceil(T/BM), N/BN, 2): plane 0 u, plane 1 v.
-__global__ void __launch_bounds__(GT) inv32_kernel(const float* __restrict__ Y, int T,
-                                                   const float* __restrict__ UC,
-                                                   const float* __restrict__ VS,
-                                                   const float* __restrict__ rowsc,
-                                                   const float* __restrict__ u_nyq,
-                                                   float* __restrict__ uv) {
-  const int plane = blockIdx.z, n0 = blockIdx.y * BN;
-  const size_t pl = (size_t)T * N;
-  float acc[8][8];
-  sgemm_tile(PlaneA{Y + plane * pl, T}, N, plane ? VS : UC, N, n0, acc);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  for (int i = 0; i < 8; ++i) {
-    const int t = blockIdx.x * BM + sub(ty, i);
-    if (t >= T) continue;
-    const float yren = rowsc[(size_t)t * RS + 4];
-    for (int j = 0; j < 8; ++j) {
-      const int s = n0 + sub(tx, j);
-      float o = acc[i][j];
-      if (plane == 0) o = o + yren * u_nyq[s];
-      uv[plane * pl + (size_t)t * N + s] = o;
+// The Nyquist bin's Y: ren * gn (bin_gain's gn; its other operands fold)
+__device__ __forceinline__ float nyq_y(float rn, float nsn, int wiener) {
+  float gk, gn;
+  bin_gain(1.0f, 0.0f, rn, 0.0f, nsn, wiener, &gk, &gn);
+  return rn * gn;
+}
+
+// K5 and K13 pass 1: the x3_kernel policy (tf32x3.cuh).  Raw chunks: the
+// re, im and ns rows; prepare turns them into the TF32 halves of Yre = re*g
+// and Yim = im*g (g as bin_gain, but for the last 2 ulp of its division
+// and square root; rows t >= T zero), and the blocks of column block 0,
+// which see every k of their rows, sum y512 = Yre . ycol[:512] + Yren*ycol[512] on the way; the
+// epilogue adds Yren*u_nyq to u and writes head = u - v, w2 = u + v.
+struct BackOp {
+  static constexpr int NP = 2, NA = 3, K = N, NCOLS = N, UNITS = 2;
+  int T;
+  CUtensorMap amap[NA];  // re, im, ns (T, 512)
+  CUtensorMap bmap;      // back32: TF32 halves of UC512, VS512 transposed, (2048, 512) [s][k]
+  const float *ren, *nsn, *u_nyq, *ycol;
+  float* hw;    // (2, T, 512): head, then w2
+  float* y512;  // (T,)
+  int wiener;
+  struct State {
+    float y[2];  // y512 partial sums of this thread's two rows
+  };
+
+  // part j: unit u = tid % 4 of row tid / 4 + 64 j
+  __device__ void prepare(State& s, unsigned char* st, int t0, int ck, int n0, int j) const {
+    const int u = threadIdx.x & 3, r = (threadIdx.x >> 2) + 64 * j, t = t0 + r;
+    unsigned char* pr = st + x3_off(r, u);
+    const float4 a4 = *reinterpret_cast<const float4*>(pr);
+    const float4 b4 = *reinterpret_cast<const float4*>(pr + X3_APLANE);
+    const float4 n4 = *reinterpret_cast<const float4*>(pr + 2 * X3_APLANE);
+    const float a[4] = {a4.x, a4.y, a4.z, a4.w}, b[4] = {b4.x, b4.y, b4.z, b4.w};
+    const float n[4] = {n4.x, n4.y, n4.z, n4.w};
+    float ya[4], yb[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float gk = bin_gain_full(a[e], b[e], n[e], wiener);
+      ya[e] = t < T ? a[e] * gk : 0.0f;
+      yb[e] = t < T ? b[e] * gk : 0.0f;
+    }
+    // Yre's and Yim's TF32 halves: hi over re and im, lo over ns and the 4th plane
+    float4 hi, lo;
+    x3_split4(make_float4(ya[0], ya[1], ya[2], ya[3]), &hi, &lo);
+    *reinterpret_cast<float4*>(pr) = hi;
+    *reinterpret_cast<float4*>(pr + 2 * X3_APLANE) = lo;
+    x3_split4(make_float4(yb[0], yb[1], yb[2], yb[3]), &hi, &lo);
+    *reinterpret_cast<float4*>(pr + X3_APLANE) = hi;
+    *reinterpret_cast<float4*>(pr + 3 * X3_APLANE) = lo;
+    if (n0 != 0) return;  // y512: the blocks of column block 0 see every k of their rows
+    const float4 c = *reinterpret_cast<const float4*>(ycol + ck * X3_KC + 4 * u);
+    const float yc[4] = {c.x, c.y, c.z, c.w};
+    float y = ck == 0 ? 0.0f : s.y[j];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y = y + ya[e] * yc[e];
+    s.y[j] = y;
+  }
+
+  // after the tile's last chunk: each row's y512 from its four quarters (lanes 4i .. 4i + 3)
+  __device__ void prepared(State& s, int t0, int ck, int n0) const {
+    if (n0 != 0 || ck != K / X3_KC - 1) return;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v = s.y[j];
+      v = v + __shfl_xor_sync(0xffffffffu, v, 1);
+      v = v + __shfl_xor_sync(0xffffffffu, v, 2);
+      const int t = t0 + (threadIdx.x >> 2) + 64 * j;
+      if ((threadIdx.x & 3) == 0 && t < T) y512[t] = v + nyq_y(ren[t], nsn[t], wiener) * ycol[N];
     }
   }
+
+  __device__ void epilogue(State&, const float (&acc)[2][64], int t0, int n0) const {
+    const size_t pl = (size_t)T * N;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {  // this thread's two rows
+      const int t = t0 + x3_row(2 * hr);
+      if (t >= T) continue;
+      const float yren = nyq_y(ren[t], nsn[t], wiener);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int s = n0 + x3_col(j, 0);
+        const float2 un = *reinterpret_cast<const float2*>(u_nyq + s);
+        const float uu[2] = {acc[0][4 * j + 2 * hr] + yren * un.x,
+                             acc[0][4 * j + 2 * hr + 1] + yren * un.y};
+        const float vv[2] = {acc[1][4 * j + 2 * hr], acc[1][4 * j + 2 * hr + 1]};
+        const size_t o = (size_t)t * N + s;
+        *reinterpret_cast<float2*>(hw + o) = make_float2(uu[0] - vv[0], uu[1] - vv[1]);
+        *reinterpret_cast<float2*>(hw + pl + o) = make_float2(uu[0] + vv[0], uu[1] + vv[1]);
+      }
+    }
+  }
+};
+
+// K5 pass 2: ola_body (enhance_common.cuh) on head and w2 instead of u and
+// v -- the same values, so the same output: out[t] = c_short(head[t] +
+// tail[t-1]), tail[0] = y512, tail[j] = w2[512 - j] for j >= 1.  A block
+// of N threads takes OLA_ROWS rows, so each thread has that many
+// independent loads in flight.
+constexpr int OLA_ROWS = 8;
+__global__ void __launch_bounds__(N) ola_hw_kernel(const float* __restrict__ hw,
+                                                   const float* __restrict__ y512,
+                                                   int16_t* __restrict__ out, int T,
+                                                   int emit_all) {
+  const int j = threadIdx.x;
+  const size_t pl = (size_t)T * N;
+  float head[OLA_ROWS], tp[OLA_ROWS];
+#pragma unroll
+  for (int i = 0; i < OLA_ROWS; ++i) {
+    const int t = blockIdx.x * OLA_ROWS + i;
+    head[i] = t < T ? hw[(size_t)t * N + j] : 0.0f;
+    tp[i] = 0.0f;
+    if (t > 0 && t < T) tp[i] = j == 0 ? y512[t - 1] : hw[pl + (size_t)(t - 1) * N + (N - j)];
+  }
+#pragma unroll
+  for (int i = 0; i < OLA_ROWS; ++i) {
+    const int t = blockIdx.x * OLA_ROWS + i;
+    if (t >= T) break;
+    const float acc = head[i] + tp[i] * (t >= 2 ? 1.0f : 0.0f);
+    int16_t o = c_short(acc * (t >= 1 ? 1.0f : 0.0f));
+    if (!emit_all && t < 2) o = 0;  // warm-up rows are not part of the stream
+    out[(size_t)t * N + j] = o;
+  }
 }
 
-// K13 pass 3, one block of N threads per row: (u, v) -> (u - v, u + v)
-// in place, in the TPU kernel's operand order; y512 from rowsc slot 5.
-__global__ void __launch_bounds__(N) split_kernel(float* __restrict__ uv,
-                                                  const float* __restrict__ rowsc,
-                                                  float* __restrict__ y512, int T) {
-  const int t = blockIdx.x, k = threadIdx.x;
-  const size_t i = (size_t)t * N + k, pl = (size_t)T * N;
-  const float u = uv[i], v = uv[pl + i];
-  uv[i] = u - v;
-  uv[pl + i] = u + v;
-  if (k == 0) y512[t] = rowsc[(size_t)t * RS + 5];
-}
-
-__global__ void __launch_bounds__(N) ola_kernel(const float* __restrict__ uv,
-                                                const float* __restrict__ rowsc,
-                                                int16_t* __restrict__ out, int T,
-                                                int emit_all) {
-  ola_body(uv, rowsc, out, T, emit_all);
+// K5's and K13's pass 1 on `st`: the policy with its TMA maps, then the launch
+cudaError_t launch_back(const float* re, const float* im, const float* ren, const float* ns,
+                        const float* nsn, int T, int wiener, const float* back32,
+                        const float* u_nyq, const float* y512col, float* hw, float* y512,
+                        cudaStream_t st) {
+  BackOp op;
+  op.T = T, op.ren = ren, op.nsn = nsn, op.u_nyq = u_nyq, op.ycol = y512col;
+  op.hw = hw, op.y512 = y512, op.wiener = wiener;
+  const float* planes[3] = {re, im, ns};
+  for (int m = 0; m < 3; ++m) {
+    const cudaError_t e = x3_map(&op.amap[m], planes[m], T, N);
+    if (e != cudaSuccess) return e;
+  }
+  const cudaError_t e = x3_map(&op.bmap, back32, 4 * N, N);
+  return e != cudaSuccess ? e : x3_launch(op, st);
 }
 
 }  // namespace
@@ -178,32 +271,28 @@ extern "C" int jb_enhance_fwd(const int16_t* x, int T, const float* WC,
   return (int)cudaGetLastError();
 }
 
-// K5.  UC, VS: (512, 512) f32 inverse bases.  Scratch from the caller: Y,
-// uv (2, T, 512) f32, rowsc (T, 8) f32; out (T, 512) int16.
+// K5.  back32: (4, 512, 512) f32, the TF32 halves hi, lo of UC512, then of
+// VS512, each transposed, [s][k].  Scratch from the caller: hw (2, T, 512) f32, y512
+// (T,) f32; out (T, 512) int16.
 extern "C" int jb_enhance_back_ola3(
     const float* re, const float* im, const float* ren, const float* ns,
-    const float* nsn, int T, int wiener, int emit_all, const float* UC,
-    const float* VS, const float* u_nyq, const float* y512col, float* Y,
-    float* rowsc, float* uv, int16_t* out, void* stream) {
+    const float* nsn, int T, int wiener, int emit_all, const float* back32,
+    const float* u_nyq, const float* y512col, float* hw, float* y512, int16_t* out,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  gain_kernel<<<T, N, 0, st>>>(re, im, ren, ns, nsn, y512col, Y, rowsc, T, wiener);
-  inv32_kernel<<<dim3((T + BM - 1) / BM, N / BN, 2), GT, 0, st>>>(Y, T, UC, VS, rowsc,
-                                                                  u_nyq, uv);
-  ola_kernel<<<T, N, 0, st>>>(uv, rowsc, out, T, emit_all);
+  const cudaError_t e =
+      launch_back(re, im, ren, ns, nsn, T, wiener, back32, u_nyq, y512col, hw, y512, st);
+  if (e != cudaSuccess) return (int)e;
+  ola_hw_kernel<<<(T + OLA_ROWS - 1) / OLA_ROWS, N, 0, st>>>(hw, y512, out, T, emit_all);
   return (int)cudaGetLastError();
 }
 
-// K13.  As K5 up to the inverse; outputs from the caller: hw (2, T, 512)
-// f32 (head, then w2), y512 (T,) f32; scratch Y (2, T, 512), rowsc (T, 8).
+// K13.  As K5's pass 1; outputs from the caller: hw (2, T, 512) f32 (head,
+// then w2), y512 (T,) f32.
 extern "C" int jb_enhance_back(const float* re, const float* im, const float* ren,
                                const float* ns, const float* nsn, int T, int wiener,
-                               const float* UC, const float* VS, const float* u_nyq,
-                               const float* y512col, float* Y, float* rowsc, float* hw,
-                               float* y512, void* stream) {
+                               const float* back32, const float* u_nyq,
+                               const float* y512col, float* hw, float* y512, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  gain_kernel<<<T, N, 0, st>>>(re, im, ren, ns, nsn, y512col, Y, rowsc, T, wiener);
-  inv32_kernel<<<dim3((T + BM - 1) / BM, N / BN, 2), GT, 0, st>>>(Y, T, UC, VS, rowsc,
-                                                                  u_nyq, hw);
-  split_kernel<<<T, N, 0, st>>>(hw, rowsc, y512, T);
-  return (int)cudaGetLastError();
+  return (int)launch_back(re, im, ren, ns, nsn, T, wiener, back32, u_nyq, y512col, hw, y512, st);
 }

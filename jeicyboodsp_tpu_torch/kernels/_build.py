@@ -45,8 +45,8 @@ ENTRIES = {
     "jb_enhance_back_ola8": [_P] * 5 + [_I] * 4 + [_P] * 10,
     # x, T, WC, WS, nyq, w2, re, im, ren, mag, magn, sp, stream
     "jb_enhance_fwd": [_P, _I] + [_P] * 11,
-    # re, im, ren, ns, nsn, T, wiener, emit_all, 4 constants, Y, rowsc, uv, out, stream
-    "jb_enhance_back_ola3": [_P] * 5 + [_I] * 3 + [_P] * 9,
+    # re, im, ren, ns, nsn, T, wiener, emit_all, 3 constants, hw, y512, out, stream
+    "jb_enhance_back_ola3": [_P] * 5 + [_I] * 3 + [_P] * 7,
     # x, coef, state in, y, state out, B, T, stream
     "jb_geq_cascade_quant": [_P] * 5 + [_I] * 2 + [_P],
     # x, coef, y, B, T, stream
@@ -59,8 +59,8 @@ ENTRIES = {
     "jb_mfcc_fused": [_P, _P, _I] + [_P] * 3 + [_I] + [_P] * 4,
     # frames, T, lo, out, stream
     "jb_amdf": [_P, _I, _I, _P, _P],
-    # re, im, ren, ns, nsn, T, wiener, 4 constants, Y, rowsc, head/w2, y512, stream
-    "jb_enhance_back": [_P] * 5 + [_I] * 2 + [_P] * 9,
+    # re, im, ren, ns, nsn, T, wiener, 3 constants, head/w2, y512, stream
+    "jb_enhance_back": [_P] * 5 + [_I] * 2 + [_P] * 6,
     # x, w2, T, flags, stream
     "jb_vad_flags": [_P, _P, _I, _P, _P],
     # re, im (or null), T, n, forward, twiddle tables, out re, out im, stream

@@ -26,6 +26,7 @@ CONST_SPECS = {
     "bcrows": (_F32, (2, N)),
     "UC512": (_F32, (N, N)),      # f32 symmetry-halved inverse bases
     "VS512": (_F32, (N, N)),
+    "back32": (_F32, (4, N, N)),  # TF32 hi/lo of UC512 / VS512, [s, k]: Uh Ul Vh Vl
     "u_nyq": (_F32, (N,)),
     "y512col": (_F32, (NB,)),
 }

@@ -9,12 +9,15 @@ spectral-subtraction gain (0/0 -> NaN, as the reference) and the
 symmetry-halved inverse u = Yre @ UC512 + Yren*u_nyq, v = Yim @ VS512, with
 y512 = Yre @ y512col[:512] + Yren*y512col[512].  Its caller assembles the
 OLA (``ops.enhance._enhance_fused``).  The TPU kernel runs the two GEMMs as
-bf16x3 only because Mosaic has no ``Precision.HIGH``; these are f32 GEMMs.
+bf16x3 only because Mosaic has no ``Precision.HIGH``; here they are
+3xTF32 (about 2^-22 of each product), the plain version's cuBLAS f32.
 
 - :func:`enhance_back` is the wrapper: on a CUDA tensor it launches the
-  hand-written kernels of ``csrc/enhance_mxu3.cu`` (counted in
-  ``enhance_back.launches``); on a CPU tensor it runs the plain version;
-  anything else raises.
+  hand-written kernel of ``csrc/enhance_mxu3.cu`` (counted in
+  ``enhance_back.launches``): the gain applied as the spectra land in
+  shared memory and both GEMMs on the tensor cores as 3xTF32
+  (``csrc/tf32x3.cuh``), head and w2 written by its epilogue; on a CPU
+  tensor it runs the plain version; anything else raises.
 - :func:`enhance_back_plain` is the plain PyTorch version: K1's gain and
   f32 matmuls.
 """
@@ -28,7 +31,8 @@ from jeicyboodsp_tpu_torch.kernels._common import N, check_mode
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola8 import check_planes
 from jeicyboodsp_tpu_torch.kernels.enhance_full8 import bin_gain, y512_col
 
-CONSTS = ("UC512", "VS512", "u_nyq", "y512col")
+CONSTS = ("back32", "u_nyq", "y512col")  # what the kernel reads
+CHECKED = ("UC512", "VS512", *CONSTS)  # with what the plain version reads
 
 
 def enhance_back_plain(re, im, re_n, ns, ns_n, C, mode="wiener"):
@@ -50,19 +54,16 @@ def enhance_back(re, im, re_n, ns, ns_n, C, mode="wiener"):
     :func:`enhance_back_plain`.
     """
     check_mode(mode)
-    dev = check_planes(re, im, re_n, ns, ns_n, C, CONSTS)
+    dev = check_planes(re, im, re_n, ns, ns_n, C, CHECKED)
     if dev.type == "cpu":
         return enhance_back_plain(re, im, re_n, ns, ns_n, C, mode)
     T = re.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
-    Y = torch.empty(2, T, N, **f32)
-    rowsc = torch.empty(T, 8, **f32)
     hw = torch.empty(2, T, N, **f32)
     y512 = torch.empty(T, 1, **f32)
     p = lambda x: x.data_ptr()  # noqa: E731
     _build.launch("jb_enhance_back", dev, p(re), p(im), p(re_n), p(ns), p(ns_n), T,
-                  int(mode == "wiener"), *(p(C[k]) for k in CONSTS), p(Y), p(rowsc), p(hw),
-                  p(y512))
+                  int(mode == "wiener"), *(p(C[k]) for k in CONSTS), p(hw), p(y512))
     enhance_back.launches += 1
     return hw[0], hw[1], y512
 

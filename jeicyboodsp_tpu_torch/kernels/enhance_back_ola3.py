@@ -12,8 +12,9 @@ equals the cast.
 
 - :func:`enhance_back_ola3` is the wrapper: on a CUDA tensor it launches
   the hand-written kernels of ``csrc/enhance_mxu3.cu`` (counted in
-  ``enhance_back_ola3.launches``); on a CPU tensor it runs the plain
-  version; anything else raises.
+  ``enhance_back_ola3.launches``): K13's tensor-core pass (the gain on the
+  way in, 3xTF32 GEMMs, head and w2 out), then the flip and OLA; on a CPU
+  tensor it runs the plain version; anything else raises.
 - :func:`enhance_back_ola3_plain` is the plain PyTorch version: f32 matmuls
   and K1's gain and flip/OLA.
 """
@@ -27,7 +28,8 @@ from jeicyboodsp_tpu_torch.kernels._common import N, check_mode
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola8 import check_planes
 from jeicyboodsp_tpu_torch.kernels.enhance_full8 import bin_gain, flip_ola, y512_col
 
-CONSTS = ("UC512", "VS512", "u_nyq", "y512col")
+CONSTS = ("back32", "u_nyq", "y512col")  # what the kernel reads
+CHECKED = ("UC512", "VS512", *CONSTS)  # with what the plain version reads
 
 
 def enhance_back_ola3_plain(re, im, re_n, ns, ns_n, C, mode="wiener", emit_all=False):
@@ -49,19 +51,18 @@ def enhance_back_ola3(re, im, re_n, ns, ns_n, C, mode="wiener", emit_all=False):
     :func:`enhance_back_ola3_plain`.
     """
     check_mode(mode)
-    dev = check_planes(re, im, re_n, ns, ns_n, C, CONSTS)
+    dev = check_planes(re, im, re_n, ns, ns_n, C, CHECKED)
     if dev.type == "cpu":
         return enhance_back_ola3_plain(re, im, re_n, ns, ns_n, C, mode, emit_all)
     T = re.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
-    Y = torch.empty(2, T, N, **f32)
-    rowsc = torch.empty(T, 8, **f32)
-    uv = torch.empty(2, T, N, **f32)
+    hw = torch.empty(2, T, N, **f32)  # head, w2
+    y512 = torch.empty(T, **f32)
     out = torch.empty(T, N, dtype=torch.int16, device=dev)
     p = lambda x: x.data_ptr()  # noqa: E731
     _build.launch("jb_enhance_back_ola3", dev, p(re), p(im), p(re_n), p(ns), p(ns_n), T,
                   int(mode == "wiener"), int(emit_all), *(p(C[k]) for k in CONSTS),
-                  p(Y), p(rowsc), p(uv), p(out))
+                  p(hw), p(y512), p(out))
     enhance_back_ola3.launches += 1
     return out
 

@@ -113,10 +113,14 @@ def bin_gain(re, im, ren, ns, nsn, mode):
 
 def _quant_row_int8(Y, hq: bool):
     """Per-row two-level quantization (enhance_pallas.py:_quant_row_int8).
-    Returns int-valued float planes h, l, z2 and row scales q, q2."""
+    Returns int-valued float planes h, l, z2 and row scales q, q2.
+
+    ``32512 / ms`` and ``127 / m2`` divide a tensor by a tensor, as JAX and
+    the kernels divide: a Python scalar over a tensor is a reciprocal
+    multiply in torch, which rounds differently."""
     tiny = torch.tensor(1e-30, dtype=Y.dtype, device=Y.device)
     ms = torch.maximum(Y.abs().amax(1, keepdim=True), tiny)  # NaN propagates
-    Z = torch.round(Y * (32512.0 / ms))  # half to even, as jnp.rint
+    Z = torch.round(Y * (torch.full_like(ms, 32512.0) / ms))  # half to even, as jnp.rint
     h = torch.floor(Z * (1.0 / 256.0))
     l = Z - 256.0 * h - 128.0
     q = ms * (1.0 / 32512.0)
@@ -124,7 +128,7 @@ def _quant_row_int8(Y, hq: bool):
         return h, l, q, None, None
     R = Y - q * Z
     m2 = torch.maximum(R.abs().amax(1, keepdim=True), tiny)
-    Z2 = torch.round(R * (127.0 / m2))
+    Z2 = torch.round(R * (torch.full_like(m2, 127.0) / m2))
     return h, l, q, Z2, m2 * (1.0 / 127.0)
 
 

@@ -344,6 +344,19 @@ def _dft_matrices():
     return fwd_re, fwd_im, inv_re, inv_im
 
 
+def tf32_split(x):
+    """f32 x -> its TF32 halves (hi, lo) as f32 with the 13 low mantissa bits
+    zero: hi = x rounded to TF32 (nearest, ties away: PTX ``cvt.rna``), lo =
+    x - hi (exact in f32) rounded likewise, so |x - hi - lo| <= 2^-22 |x|."""
+    def rna(v):
+        bits = np.ascontiguousarray(v).view(np.uint32)
+        return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+    x = np.asarray(x, np.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 def enhance_constants(device, arrays=None):
     """The chain's bases as tensors on ``device``.
 
@@ -351,7 +364,9 @@ def enhance_constants(device, arrays=None):
     three dicts (aligned, int8, int8_back) the JAX package's basis functions return.
     The int8 bases are stored transposed ([out column, contraction]) so a
     kernel reads each output column's weights contiguously; the f32 bases
-    keep the JAX layout ([contraction, out column]).  The J flip matrix of
+    keep the JAX layout ([contraction, out column]); ``back32`` holds the
+    TF32 halves of UC512 and VS512, transposed, as the tensor-core inverse
+    of K5 and K13 reads them.  The J flip matrix of
     the TPU kernels has no counterpart: the flip is an index permutation here.
     """
     M, F8, B8 = arrays or (_dft_mats_aligned(), _dft_mats_int8(), _dft_mats_int8_back())
@@ -362,6 +377,8 @@ def enhance_constants(device, arrays=None):
         "back8": tr(("Uh", "Ul", "Vh", "Vl"), B8),
         "bscales": B8["scales"], "bcrows": B8["crows"],
         **{k: M[k] for k in ("nyq", "w2", "WC", "WS", "UC512", "VS512", "u_nyq", "y512col")},
+        # the TF32 halves of the f32 inverse bases, [s, k]: Uh Ul Vh Vl (K5, K13)
+        "back32": np.stack([h for k in ("UC512", "VS512") for h in tf32_split(M[k].T)]),
     }
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in host.items()}
 

@@ -89,6 +89,21 @@ def test_constants_from_jax_arrays_equal_own():
         assert torch.equal(own[k], jx[k]), k
 
 
+def test_back32_is_the_tf32_split_of_the_inverse_bases():
+    """back32 (K5's and K13's right operands) holds TF32 halves of UC512 and
+    VS512, transposed: no bits below TF32's 10-bit mantissa, hi the nearest
+    TF32 value, and hi + lo within 2^-22 of each entry."""
+    C = TE.enhance_constants("cpu")
+    b = C["back32"].numpy()
+    for i, name in enumerate(("UC512", "VS512")):
+        B = C[name].numpy().T.astype(np.float64)
+        hi, lo = b[2 * i], b[2 * i + 1]
+        for half in (hi, lo):
+            assert not (half.view(np.uint32) & 0x1FFF).any(), name
+        assert (np.abs(B - hi) <= 2.0 ** -11 * np.abs(B)).all(), name
+        assert (np.abs(B - hi - lo) <= 2.0 ** -22 * np.abs(B)).all(), name
+
+
 @pytest.mark.parametrize("v", [
     float("nan"), float("inf"), -float("inf"), 2.0 ** 31, -(2.0 ** 31), 2.0 ** 31 - 1,
     -(2.0 ** 31) - 1, 2.0 ** 31 + 1, 32767.9, 32768.0, -32769.0, 65535.5, 65536.0,
@@ -180,6 +195,40 @@ def test_quant_row_nan_row_outputs_zero():
     head[2] = float("nan")
     out = K._ola(head, torch.zeros(4, 512), emit_all=True)
     assert out[2].eq(0).all() and out[3].eq(5).all()
+
+
+@pytest.mark.parametrize("hq", [True, False], ids=["hq", "turbo"])
+def test_quant_row_bit_equal_to_jax(hq):
+    """The port's per-row two-level quantization is JAX's bit for bit: the
+    planes h, l, z2 and the scales q, q2 on 128 rows of 512 at row scales
+    1 to 3e4, a NaN row and an all-zero row.  Written as a Python scalar
+    over a tensor (a reciprocal multiply in torch), the port gave another l
+    in 18 values, z2 in 935 and q2 in 11 rows on this probe; both now divide
+    tensor by tensor, as JAX does."""
+    from jeicyboodsp_tpu.kernels import enhance_pallas as KP
+
+    rng = np.random.default_rng(8)
+    Y = rng.normal(0, 1, (130, 512)) * np.geomspace(1.0, 3e4, 130)[:, None]
+    Y[128, 77] = np.nan
+    Y[129] = 0.0
+    Y = Y.astype(np.float32)
+    got = K._quant_row_int8(torch.from_numpy(Y), hq)
+    want = KP._quant_row_int8(jnp.asarray(Y), hq)
+    finite = np.arange(130) != 128  # JAX casts the NaN row's planes to int8, the port keeps NaN
+    for name, g, w in zip(("h", "l", "q", "z2", "q2"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        g = g.numpy().astype(np.float32)
+        w = np.asarray(w).astype(np.float32)
+        assert g.shape == w.shape, name
+        if name.startswith("q"):  # the scales: the NaN row's is NaN in both
+            assert np.isnan(g[128]).all() and np.isnan(w[128]).all(), name
+        g, w = g[finite], w[finite]
+        # planes as the kernels store them, int8 (-0 is 0); scales bit for bit
+        g, w = (g.astype(np.int8), w.astype(np.int8)) if name[0] != "q" else (
+            g.view(np.int32), w.view(np.int32))
+        assert np.array_equal(g, w), f"{name}: {int((g != w).sum())} differ"
 
 
 @pytest.fixture(scope="module")
