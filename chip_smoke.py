@@ -23,8 +23,12 @@ print lines and raise on failure:
 3. each kernel against its plain version on the same inputs:
    - at T = 16384, wiener and specsub: K1 >= 90 dB of the int16 outputs with
      forward planes bit-equal (the tensor-core pass K1 and K2 share); K2
-     re/im/|X| planes bit-equal and flags equal; K4
-     planes within 1e-5 of their row max and flags equal; the noise latch
+     re/im/|X| planes bit-equal and flags equal; K4 (the shared-memory real
+     FFT of csrc/rfft1024.cuh) flags equal, planes within 2^-16 of each
+     row's largest sum of |a*b| of the plain version's, and against float64
+     products of the frames and the f64 window-folded bases within 1e-5 of
+     each plane's row max (re/im within 2^-18 of the sum of |a*b|); the
+     noise latch
      within 1e-6; K3 and K5 >= 90 dB; the inverse pass of K1 (both modes)
      and K3 (wiener), hq and turbo: uv bit-equal to the plain inverse of the
      kernel's own q8 and rowsc (the tensor-core pass K1 and K3 share), with
@@ -92,7 +96,9 @@ print lines and raise on failure:
    ``nlms_apply`` and ``bnlms_apply``, ``mfcc_blocks(mxu3)``,
    ``pitch_frames(method=2, mxu)`` and ``speech_classify`` at full size, and
    each kernel alone against its plain version (K6-K9 at their shorter T)
-   and one PyTorch call of its GEMM core where there is one, the median of
+   and one PyTorch call of its GEMM core where there is one (for K4 and K10
+   also ``torch.fft.rfft`` of the windowed f32 frames, the faster of the two
+   as their library time, both timed in turns with the kernel), the median of
    7 batches after warm-up (of 3 for the plain versions of K6-K11),
    with the bytes, operations and dependency-chain bounds; ``speech_classify``
    once more under ``torch.profiler`` (device busy time, host ops); each
@@ -102,7 +108,9 @@ print lines and raise on failure:
    ``torch.fft.fft`` on the same complex64 batch), K13 (with its f32 matmul
    core) and K14 alone; K5 and K13 once more in turns with that core, Wiener
    and spectral subtraction.  The bounds of K5 and K13 count their GEMMs as
-   the 3xTF32 they run, with the bf16x3 figure beside.
+   the 3xTF32 they run, with the bf16x3 figure beside; those of K4 and K10
+   count their functions through a real FFT, with the dense-DFT GEMM figure
+   beside.
 
 Then the card's line, one JSON line of per-kernel results and, last, the
 ``{"ok": true, ...}`` line.  Imports neither jax nor the JAX package.
@@ -125,7 +133,12 @@ FS = 16000
 SEED = 20260817
 FLOORS = {"mxu8f": 78.0, "mxu8t": 65.0, "mxu8": 78.0, "mxu3": 85.0}  # dB vs the reference
 KERNEL_VS_PLAIN_DB = 90.0
-F32_RTOL = 1e-5     # K4's f32 planes: its sums run in another order than cuBLAS's
+F32_RTOL = 1e-5     # K4's f32 planes against f64: of each plane's row max
+K4_F64_TOL = 2.0 ** -18  # K4's re/im vs f64 products: of each row's largest sum of |a*b|
+K4_PLAIN_TOL = 2.0 ** -16  # K4 vs its plain version: of each row's largest sum of |a*b|
+# K4's function per frame through a real FFT: window (1024), the FFT (2.5 n log2 n), |X|
+# (4 per bin), the Nyquist dot (2 per sample), the VAD (6 per sample of a block)
+K4_FRAME_FLOPS = 1024 + 2.5 * 1024 * 10 + 4 * 512 + 2 * 1024 + 6 * 512
 LATCH_RTOL = 1e-6
 REPS = 7
 BATCH_MS, BATCH_MAX = 2.0, 50  # back-to-back calls timed together (median_ms)
@@ -631,6 +644,56 @@ def check_inv8(P, what, pk, pp, C, hq, sync):
         raise RuntimeError(f"{what}: {differ} uv values differ from the plain inverse")
 
 
+def k4_f64_bases(device):
+    """float64 (1024, 512) window-folded cos and sin bases of K4's function:
+    the Hamming window with REF_PI times exp(-2 pi i n k / 1024)."""
+    import torch
+
+    n = np.arange(1024)
+    ang = -2.0 * np.pi * n[:, None] * np.arange(512)[None, :] / 1024
+    ham = (0.54 - 0.46 * np.cos(2.0 * REF_PI * n / 1023))[:, None]
+    return tuple(torch.from_numpy(ham * f(ang)).to(device) for f in (np.cos, np.sin))
+
+
+def check_k4(P, blocks, got, want, sync):
+    """K4's planes: re, im and |X| within K4_PLAIN_TOL of each row's largest
+    sum of |a*b| of the plain version; against float64 products of the
+    frames and the f64 window-folded bases within F32_RTOL of each plane's
+    row max and re, im within K4_F64_TOL of each row's largest sum of
+    |a*b|.  Raises otherwise.  The plain version's own distance from f64 is
+    printed beside: its cuBLAS f32 sums lose several 1e-5 of the im plane's
+    row max where that plane is small beside re, more than the FFT does."""
+    import torch
+
+    WC, WS = k4_f64_bases(blocks.device)
+    frames = P.K4.frames_f32(blocks).double()
+    a = frames.abs()
+    scale = torch.maximum(a @ WC.abs(), a @ WS.abs()).amax(1, keepdim=True).clamp_min(1e-30)
+    re64, im64 = frames @ WC, frames @ WS
+    exact = (re64, im64, torch.sqrt(re64 * re64 + im64 * im64))
+    planes = (0, 1, 3)  # re, im, |X|
+    vs_plain = max(float(((got[i].double() - want[i].double()).abs() / scale).max())
+                   for i in planes)
+    f64_rel = max(rel_err(got[i].double(), w) for i, w in zip(planes, exact))
+    plain_rel = max(rel_err(want[i].double(), w) for i, w in zip(planes, exact))
+    f64_sum = max(float(((got[i].double() - exact[i]).abs() / scale).max()) for i in (0, 1))
+    sync()
+    print(f"[3 kernel-vs-plain] K4 T={len(blocks)}: against the plain version max |err| / the "
+          f"row's largest sum of |a*b| {vs_plain:.3e} (limit {K4_PLAIN_TOL:.3e}); against "
+          f"float64 max err/rowmax {f64_rel:.2e} (limit {F32_RTOL}; the plain version's own "
+          f"{plain_rel:.2e}), re/im max |err| / the row's largest sum of |a*b| {f64_sum:.3e} "
+          f"(limit {K4_F64_TOL:.3e})")
+    if not vs_plain <= K4_PLAIN_TOL:
+        raise RuntimeError(f"K4: {vs_plain:.3e} of the row's sum of |a*b| from the plain "
+                           f"version > {K4_PLAIN_TOL}")
+    if not f64_rel <= F32_RTOL:
+        raise RuntimeError(f"K4: planes differ from f64 by {f64_rel:.2e} of the row max > "
+                           f"{F32_RTOL}")
+    if not f64_sum <= K4_F64_TOL:
+        raise RuntimeError(f"K4: {f64_sum:.3e} of the row's sum of |a*b| against f64 > "
+                           f"{K4_F64_TOL}")
+
+
 def check_kernels(P, blocks, C, rowpack, speech, sync):
     """Phase 3: every kernel against its plain version on the same inputs.
     Returns the max |kernel - plain| of each and the K3 / K5 inputs (the
@@ -669,8 +732,10 @@ def check_kernels(P, blocks, C, rowpack, speech, sync):
             raise RuntimeError(f"{name}: {flags_diff} speech flags differ from the plain version")
         if name == "K2" and not bit_equal:
             raise RuntimeError("K2: re/im/|X| planes are not bit-equal to the plain version")
-        if not rel <= F32_RTOL:
+        if name == "K2" and not rel <= F32_RTOL:
             raise RuntimeError(f"{name}: planes differ by {rel:.2e} of the row max > {F32_RTOL}")
+        if name == "K4":
+            check_k4(P, blocks, got, want, sync)
         re, im, re_n, mag, mag_n, sp = got
         rp = P.E._latch_rowpack(sp[:, 0] > 0.5)
         ns, ns_n = P.K1.noise_latch(rp, mag, mag_n)
@@ -865,9 +930,10 @@ def time_kernels(P, blocks, C, rowpack, back_ins, card, sync):
                lambda: K3.enhance_back_ola8_plain(*back_ins["K2"], C, "wiener"),
                nbytes(*back_ins["K2"], *consts(K3), blocks),
                2 * 10 * dots, INT8_OPS),
+        # K4: its function through a real FFT, not the dense-DFT GEMMs of the TPU kernel
         "K4": (lambda: K4.enhance_fwd(blocks, C), lambda: K4.enhance_fwd_plain(blocks, C),
                nbytes(blocks, *consts(K4), *K4.enhance_fwd(blocks, C)),
-               3 * 2 * 4 * dots, BF16_OPS),  # 4 f32 GEMMs as bf16x3 on tensor cores
+               K4_FRAME_FLOPS * T_FULL, F32_OPS),
         "K5": (lambda: K5.enhance_back_ola3(*back_ins["K4"], C, "wiener"),
                lambda: K5.enhance_back_ola3_plain(*back_ins["K4"], C, "wiener"),
                nbytes(*back_ins["K4"], *consts(K5), blocks),
@@ -885,6 +951,11 @@ def time_kernels(P, blocks, C, rowpack, back_ins, card, sync):
               f"{plain_ms:.3f} ms, GEMM core {'-' if lib_ms is None else '%.3f ms' % lib_ms}, "
               f"bound {b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops"
               f"{tf32_note(ops, peak)})")
+    win = torch.from_numpy(P.K4.rfft_constants()[P.K4.WINDOW:]).to(blocks.device)
+    windowed = P.K4.frames_f32(blocks) * win
+    times["K4"]["library_ms"] = fft_library_turns(
+        "K4", lambda: K4.enhance_fwd(blocks, C), library["K4"],
+        lambda: torch.fft.rfft(windowed), 3 * 2 * 4 * dots / BF16_OPS * 1e3, card, sync)
     mag, mag_n = K2.enhance_fwd_int8(blocks, C)[3:5]
     latch = (median_ms(lambda: K1.noise_latch(rowpack, mag, mag_n), sync),
              median_ms(lambda: K1.latch_from_rowpack(rowpack, torch.cat([mag, mag_n], 1), 64),
@@ -892,6 +963,26 @@ def time_kernels(P, blocks, C, rowpack, back_ins, card, sync):
     print(f"[5 timing] noise latch T={T_FULL} on {card}: kernel {latch[0]:.3f} ms, "
           f"plain {latch[1]:.3f} ms")
     return times
+
+
+def fft_library_turns(name, kern, core, rfft, gemm_bound_ms, card, sync):
+    """K4 or K10 in turns with its two PyTorch calls of the same function (the
+    f32 matmul of the dense-DFT core, torch.fft.rfft of the windowed f32
+    frames): kernel, core, rfft, rfft, core, kernel.  Prints them, the
+    dense-DFT GEMM's bound as bf16x3 and the kernel's and rfft's device time
+    under torch.profiler; returns the faster call's ms."""
+    t = [median_ms(f, sync) for f in (kern, core, rfft, rfft, core, kern)]
+    k, c, r = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
+    print(f"[5 timing] {name} in turns on {card}: kernel {t[0]:.4f} / {t[5]:.4f} ms, f32 "
+          f"matmul core {t[1]:.4f} / {t[4]:.4f} ms, torch.fft.rfft {t[2]:.4f} / {t[3]:.4f} ms; "
+          f"faster than the core {k < c}, than rfft {k < r}; the dense-DFT GEMM's own bound "
+          f"as bf16x3 {gemm_bound_ms:.4f} ms")
+    for what, fn in (("kernel", kern), ("torch.fft.rfft", rfft)):
+        wall, busy, kernels, _ = profile_call(fn, sync, top=4)
+        top = ", ".join(f"{kn[:40]} x{cnt} {ms:.4f}" for ms, cnt, kn in kernels)
+        print(f"[5 profile] {name} {what} alone under torch.profiler on {card}: wall {wall:.4f} "
+              f"ms, device busy {busy:.4f} ms; kernels by device time (ms): {top}")
+    return min(c, r)
 
 
 def time_chains(P, blocks, C, card, sync):
@@ -1716,9 +1807,13 @@ def time_features(P, feat, classify, card, sync):
               f"{b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops)")
     gemm_ms = 3 * 2 * N * 1024 * 1024 / BF16_OPS * 1e3
     lds_ms = 2 * pairs / (sms * 32 * clock_hz) * 1e3
-    print(f"[5 timing] the kernels' own formulations: K10's dense DFT GEMM as bf16x3 on "
-          f"tensor cores {gemm_ms:.4f} ms; K11's two shared-memory loads per pair {lds_ms:.3f} ms "
-          f"at 32 lanes per SM per cycle, {clock_hz / 1e6:.0f} MHz")
+    print(f"[5 timing] the kernels' own formulations: K11's two shared-memory loads per pair "
+          f"{lds_ms:.3f} ms at 32 lanes per SM per cycle, {clock_hz / 1e6:.0f} MHz")
+    win = torch.from_numpy(P.K4.rfft_constants()[P.K4.WINDOW:]).to(frames.device)
+    pre = torch.cat([torch.zeros_like(frames_f32[:, :1]),
+                     frames_f32[:, 1:] - P.F.PRE_EMPHASIS * frames_f32[:, :-1]], 1) * win
+    times["K10"]["library_ms"] = fft_library_turns(
+        "K10", runs["K10"][0], runs["K10"][4], lambda: torch.fft.rfft(pre), gemm_ms, card, sync)
     return times
 
 
@@ -2112,6 +2207,9 @@ SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (f
     "K13": ("enhance_back", "enhance_mxu3.cu", "enhance_pallas.py:837"),
     "K14": ("vad_flags", "vad.cu", "enhance_pallas.py:540"),
 }
+# the shared device code a kernel's source includes for its main pass
+HEADERS = {"K4": "rfft1024.cuh", "K10": "rfft1024.cuh", "K12": "rfft1024.cuh",
+           "K5": "tf32x3.cuh", "K13": "tf32x3.cuh"}
 
 
 def main() -> int:
@@ -2177,6 +2275,7 @@ def main() -> int:
         "name": fn,
         "route": "cuda",
         "source": f"jeicyboodsp_tpu_torch/csrc/{src}",
+        **({"header": f"jeicyboodsp_tpu_torch/csrc/{HEADERS[name]}"} if name in HEADERS else {}),
         "replaces": f"jeicyboodsp_tpu/kernels/{tpu}",
         "launches": launches[name],
         "max_abs_err": err[name],

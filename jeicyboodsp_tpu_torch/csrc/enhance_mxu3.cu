@@ -4,9 +4,20 @@
 // K4, jb_enhance_fwd, replaces jeicyboodsp_tpu/kernels/enhance_pallas.py:
 // enhance_fwd_pallas (_fwd_kernel): int16 blocks -> re, im, |X| (T, 512)
 // and ren, |ren|, speech flags (T,), in two passes:
-//   1. fwd32_kernel   re = [prev, cur] @ WC, im = [prev, cur] @ WS, K = 1024
-//                     (the window is folded into the bases; prev = row t-1)
-//   2. rowstat_kernel per row: the Nyquist dot, |X|, |ren|, VAD flags
+//   1. rfft_fwd_kernel  per frame [x[t-1] | x[t]] (x[-1] = 0) the windowed
+//                       real FFT of rfft1024.cuh: re, im and |X| of bins
+//                       0..511 from its split
+//   2. rowstat_kernel   per row: the Nyquist dot, |ren|, VAD flags (it reads
+//                       only the blocks: re == nullptr)
+// The TPU kernel computes the window-folded DFT as dense GEMMs ([prev, cur]
+// @ WC, @ WS, K = 1024) because its matrix unit was the fast unit.  The same
+// function as a real FFT is about 5.5e8 f32 flops at T = 16384 (0.008 ms at
+// the 67 TFLOP/s f32 peak) against 121.8 MB of blocks in and planes out
+// (0.036 ms at 3.35 TB/s), so bytes bound it.  What the design does about
+// that: each frame is transformed in shared memory and only the blocks (each
+// int16 row about once: a block's consecutive frames share their rows) and
+// the three planes cross device memory.  The flags stay in rowstat_kernel,
+// whose sums the plain version's flags are held against bit for bit.
 //
 // K5, jb_enhance_back_ola3, replaces enhance_back_ola3_pallas
 // (_make_back_ola3_kernel): re, im, ren and the latched noise planes ->
@@ -33,54 +44,62 @@
 // never goes to device memory; head and w2 come out of the GEMM's epilogue
 // (no pass re-reads u and v); A's TF32 halves are made once a block, as
 // the spectra land, B's once on the host (the back32 constant).
-//
-// K4 (fwd32_kernel) runs its f32 GEMMs as plain f32 FMAs on CUDA cores, the
-// tile GEMM of sgemm.cuh (shared with K10, mfcc.cu).  Bound on this card at
-// T = 16384: 1.7e10 MACs (0.51 ms at the 67 TFLOP/s f32 CUDA-core peak,
-// 0.10 ms as bf16x3 on tensor cores) against ~117 MB (0.035 ms), so
-// compute-bound; its move to tf32x3.cuh is later work.
 
 #include "enhance_common.cuh"
-#include "sgemm.cuh"
+#include "rfft1024.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
-// The GEMMs' left operands: 4 consecutive values of row t at column k
-// (k a multiple of 4), zeros for rows t >= T.
-struct FramesA {  // K4: [prev | cur] int16 rows as f32, K = 1024
+// K4's frame source for rfft_frame: frame t is [x[t-1] | x[t]] of the int16
+// blocks, x[-1] = 0
+struct BlockFrame {
   const int16_t* x;
-  int T;
-  __device__ float4 load(int t, int k) const {
-    if (t >= T || (k < N && t == 0)) return make_float4(0.f, 0.f, 0.f, 0.f);
-    const int16_t* p = k < N ? x + (size_t)(t - 1) * N + k : x + (size_t)t * N + (k - N);
-    // p is 8-byte aligned exactly when x is (k % 4 == 0, rows 1 KB apart):
-    // the same branch for every load; a view at an odd offset reads scalars
-    if (reinterpret_cast<uintptr_t>(p) % 8)
-      return make_float4((float)p[0], (float)p[1], (float)p[2], (float)p[3]);
-    const short4 v = *reinterpret_cast<const short4*>(p);
-    return make_float4((float)v.x, (float)v.y, (float)v.z, (float)v.w);
+  long long t;
+  __device__ void pair(int m, float& a, float& b) const {
+    const bool prev = m < N / 2;
+    if (prev && t == 0) {
+      a = b = 0.0f;
+      return;
+    }
+    const int16_t* p = x + (size_t)(prev ? t - 1 : t) * N + (2 * m - (prev ? 0 : N));
+    // p is 4-byte aligned exactly when x is (2m even, rows 1 KB apart): the
+    // same branch for every load; a view at an odd 2-byte offset reads scalars
+    if (reinterpret_cast<uintptr_t>(x) & 3) {
+      a = (float)p[0];
+      b = (float)p[1];
+      return;
+    }
+    const short2 v = *reinterpret_cast<const short2*>(p);
+    a = (float)v.x;
+    b = (float)v.y;
   }
 };
 
-// K4 pass 1.  Grid (ceil(T/BM), 2N/BN): columns [0, 512) are re, [512,
-// 1024) im.
-__global__ void __launch_bounds__(GT) fwd32_kernel(const int16_t* __restrict__ x, int T,
-                                                   const float* __restrict__ WC,
-                                                   const float* __restrict__ WS,
-                                                   float* __restrict__ re,
-                                                   float* __restrict__ im) {
-  const int nb = blockIdx.y * BN, plane = nb / N, n0 = nb % N;
-  float acc[8][8];
-  sgemm_tile(FramesA{x, T}, 2 * N, plane ? WS : WC, N, n0, acc);
-  float* out = plane ? im : re;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  for (int i = 0; i < 8; ++i) {
-    const int t = blockIdx.x * BM + sub(ty, i);
-    if (t >= T) continue;
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float4*>(out + (size_t)t * N + n0 + sub(tx, 4 * h)) =
-          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+// K4 pass 1, persistent: a block of RF_FPB warps keeps the constants (as
+// rfft1024.cuh lays them out, with the f32 Hamming window) in shared
+// memory, and each warp transforms frames f0, f0 + RF_FPB * grid, ...
+static_assert(RF_SMEM <= 48 * 1024, "K4 launches without raising its shared-memory limit");
+__global__ void __launch_bounds__(RF_THREADS, 3) rfft_fwd_kernel(
+    const int16_t* __restrict__ x, int T, const float* __restrict__ consts,
+    float* __restrict__ re, float* __restrict__ im, float* __restrict__ mag) {
+  extern __shared__ float smem[];
+  for (int i = threadIdx.x; i < RF_CONSTS; i += blockDim.x) smem[i] = consts[i];
+  __syncthreads();
+  const int slot = threadIdx.x / 32, t = threadIdx.x % 32;
+  float* sr = smem + RF_CONSTS + 2 * slot * RF_PLANE;
+  for (long long f = (long long)blockIdx.x * RF_FPB + slot; f < T;
+       f += (long long)gridDim.x * RF_FPB) {
+    float xr[RF_VPT], xi[RF_VPT];
+    rfft_frame(BlockFrame{x, f}, smem, sr, sr + RF_PLANE, t, xr, xi);
+#pragma unroll
+    for (int q = 0; q < RF_VPT; ++q) {
+      const size_t o = (size_t)f * N + t + 32 * q;
+      re[o] = xr[q];
+      im[o] = xi[q];
+      mag[o] = sqrtf(xr[q] * xr[q] + xi[q] * xi[q]);
+    }
+    __syncwarp();  // the split's reads of the planes before the next frame writes them
   }
 }
 
@@ -259,15 +278,16 @@ cudaError_t launch_back(const float* re, const float* im, const float* ren, cons
 
 }  // namespace
 
-// K4.  WC, WS: (1024, 512) f32 window-folded bases.  Outputs from the
-// caller: re, im, mag (T, 512) f32; ren, magn, sp (T,) f32.
-extern "C" int jb_enhance_fwd(const int16_t* x, int T, const float* WC,
-                              const float* WS, const float* nyq, const float* w2,
-                              float* re, float* im, float* ren, float* mag,
+// K4.  rfft: (RF_CONSTS,) f32, rfft1024.cuh's constants with the Hamming
+// window.  Outputs from the caller: re, im, mag (T, 512) f32; ren, magn, sp
+// (T,) f32.
+extern "C" int jb_enhance_fwd(const int16_t* x, int T, const float* rfft, const float* nyq,
+                              const float* w2, float* re, float* im, float* ren, float* mag,
                               float* magn, float* sp, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fwd32_kernel<<<dim3((T + BM - 1) / BM, 2 * N / BN), GT, 0, st>>>(x, T, WC, WS, re, im);
-  rowstat_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, w2, re, im, ren, mag, magn, sp);
+  const int grid = rf_grid(rfft_fwd_kernel, RF_SMEM, (T + RF_FPB - 1) / RF_FPB);
+  rfft_fwd_kernel<<<grid, RF_THREADS, RF_SMEM, st>>>(x, T, rfft, re, im, mag);
+  rowstat_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, w2, nullptr, nullptr, ren, mag, magn, sp);
   return (int)cudaGetLastError();
 }
 

@@ -37,228 +37,38 @@
 // order than the four-step's, so K12 is held within 1e-5 of max |X| of its
 // plain version (kernels/fft_four_step.py:fft_four_step), not bit-equal.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+// The power-of-two device code (butterflies, twiddles, the compile-time
+// passes passes_ct with this file's Rows as their IO policy) lives in
+// rfft1024.cuh, which K4 and K10 share.
+
+#include "rfft1024.cuh"
 
 namespace {
 
-constexpr int TWN = 128;           // entries per twiddle table
 constexpr int MAX_PASSES = 16;
-constexpr int BLOCK_TARGET = 256;  // threads a block aims for when frames are small
-
-__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
-
-// cos, sin of 2*pi*k/16, k < 8: the R-point butterflies' own twiddles
-__constant__ float kC16[8] = {1.0f, 0.92387953f, 0.70710678f, 0.38268343f,
-                              0.0f, -0.38268343f, -0.70710678f, -0.92387953f};
-__constant__ float kS16[8] = {0.0f, 0.38268343f, 0.70710678f, 0.92387953f,
-                              1.0f, 0.92387953f, 0.70710678f, 0.38268343f};
-
-// (xr, xi) *= (c, s)
-__device__ __forceinline__ void cmul(float& xr, float& xi, float c, float s) {
-  const float r = fmaf(xr, c, -(xi * s));
-  xi = fmaf(xr, s, xi * c);
-  xr = r;
-}
-
-// W_n^e (e < n <= 128*128) from the two shared tables: lo[e mod 128] *
-// hi[e div 128]
-__device__ __forceinline__ void twiddle(const float* tw, int e, float* c, float* s) {
-  *c = tw[e & (TWN - 1)];
-  *s = tw[TWN + (e & (TWN - 1))];
-  cmul(*c, *s, tw[2 * TWN + (e >> 7)], tw[3 * TWN + (e >> 7)]);
-}
-
-// (xr, xi) *= W16^m of the direction, m compile-time after unrolling
-template <bool FWD>
-__device__ __forceinline__ void w16(float& xr, float& xi, int m) {
-  m &= 15;
-  if (m == 0) return;
-  const float sg = FWD ? -1.0f : 1.0f;
-  if (m == 4) {  // sg * i
-    const float r = -sg * xi;
-    xi = sg * xr;
-    xr = r;
-    return;
-  }
-  if (m == 8) {
-    xr = -xr;
-    xi = -xi;
-    return;
-  }
-  if (m == 12) {  // -sg * i
-    const float r = sg * xi;
-    xi = -sg * xr;
-    xr = r;
-    return;
-  }
-  const float c = m < 8 ? kC16[m] : -kC16[m - 8];
-  const float s = sg * (m < 8 ? kS16[m] : -kS16[m - 8]);
-  cmul(xr, xi, c, s);
-}
-
-// radix-4 butterfly on x[a], x[a+d], x[a+2d], x[a+3d] (natural order out)
-template <bool FWD, int R>
-__device__ __forceinline__ void bfly4(float (&xr)[R], float (&xi)[R], int a, int d) {
-  const float sg = FWD ? -1.0f : 1.0f;
-  const float a0r = xr[a] + xr[a + 2 * d], a0i = xi[a] + xi[a + 2 * d];
-  const float a1r = xr[a] - xr[a + 2 * d], a1i = xi[a] - xi[a + 2 * d];
-  const float a2r = xr[a + d] + xr[a + 3 * d], a2i = xi[a + d] + xi[a + 3 * d];
-  const float br = xr[a + d] - xr[a + 3 * d], bi = xi[a + d] - xi[a + 3 * d];
-  const float a3r = -sg * bi, a3i = sg * br;  // (x1 - x3) * (sg * i)
-  xr[a] = a0r + a2r; xi[a] = a0i + a2i;
-  xr[a + 2 * d] = a0r - a2r; xi[a + 2 * d] = a0i - a2i;
-  xr[a + d] = a1r + a3r; xi[a + d] = a1i + a3i;
-  xr[a + 3 * d] = a1r - a3r; xi[a + 3 * d] = a1i - a3i;
-}
-
-// In-register R-point DFT, natural order in and out, R in {2, 4, 8, 16}
-template <bool FWD, int R>
-__device__ __forceinline__ void dft_ct(float (&xr)[R], float (&xi)[R]) {
-  if constexpr (R == 2) {
-    const float r = xr[0] - xr[1], i = xi[0] - xi[1];
-    xr[0] = xr[0] + xr[1]; xi[0] = xi[0] + xi[1];
-    xr[1] = r; xi[1] = i;
-  } else if constexpr (R == 4) {
-    bfly4<FWD, 4>(xr, xi, 0, 1);
-  } else if constexpr (R == 8) {
-    // E = DFT4(x0, x2, x4, x6), O = DFT4(x1, x3, x5, x7); X[k] = E[k] + W8^k O[k]
-    bfly4<FWD, 8>(xr, xi, 0, 2);
-    bfly4<FWD, 8>(xr, xi, 1, 2);
-    float yr[8], yi[8];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float orr = xr[2 * k + 1], oi = xi[2 * k + 1];
-      w16<FWD>(orr, oi, 2 * k);
-      yr[k] = xr[2 * k] + orr; yi[k] = xi[2 * k] + oi;
-      yr[k + 4] = xr[2 * k] - orr; yi[k + 4] = xi[2 * k] - oi;
-    }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) { xr[k] = yr[k]; xi[k] = yi[k]; }
-  } else {
-    // 16 = 4 x 4: x[4 n1 + n2]; inner DFT4 over n1 per n2, twiddle
-    // W16^(n2 k1), outer DFT4 over n2; X[k1 + 4 k2] lands in y[4 k2 + k1]
-#pragma unroll
-    for (int n2 = 0; n2 < 4; ++n2) bfly4<FWD, 16>(xr, xi, n2, 4);  // now x[4 k1 + n2]
-#pragma unroll
-    for (int k1 = 1; k1 < 4; ++k1)
-#pragma unroll
-      for (int n2 = 1; n2 < 4; ++n2) w16<FWD>(xr[4 * k1 + n2], xi[4 * k1 + n2], n2 * k1);
-#pragma unroll
-    for (int k1 = 0; k1 < 4; ++k1) bfly4<FWD, 16>(xr, xi, 4 * k1, 1);  // x[4 k1 + k2]
-    float yr[16], yi[16];
-#pragma unroll
-    for (int k1 = 0; k1 < 4; ++k1)
-#pragma unroll
-      for (int k2 = 0; k2 < 4; ++k2) {
-        yr[k1 + 4 * k2] = xr[4 * k1 + k2];
-        yi[k1 + 4 * k2] = xi[4 * k1 + k2];
-      }
-#pragma unroll
-    for (int k = 0; k < 16; ++k) { xr[k] = yr[k]; xi[k] = yi[k]; }
-  }
-}
-
-// multiply v[r] (r >= 1) by W^r, W = W_n^e1, from the table entries of
-// e1, 2 e1, 4 e1, 8 e1 (those below R)
-template <int R>
-__device__ __forceinline__ void twiddle_ct(const float* tw, int e1, float (&xr)[R],
-                                           float (&xi)[R]) {
-  float pr[4], pi[4];  // W^1, W^2, W^4, W^8
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    if ((1 << b) < R) twiddle(tw, e1 << b, &pr[b], &pi[b]);
-#pragma unroll
-  for (int r = 1; r < R; ++r) {
-    float c = 1.0f, s = 0.0f;
-    bool first = true;
-#pragma unroll
-    for (int b = 3; b >= 0; --b) {
-      if (r & (1 << b)) {
-        if (first) {
-          c = pr[b]; s = pi[b]; first = false;
-        } else {
-          cmul(c, s, pr[b], pi[b]);
-        }
-      }
-    }
-    cmul(xr[r], xi[r], c, s);
-  }
-}
 
 // ---------------------------------------------------------------- power-of-two n
 
-template <int LOGN> struct Pow2 {
-  static constexpr int n = 1 << LOGN;
-  static constexpr int vpt = n > 8192 ? 32 : 16;
-  static constexpr int nthr = n / vpt;
-  static constexpr int fpb = nthr >= BLOCK_TARGET ? 1 : BLOCK_TARGET / nthr;
-  static constexpr int threads = fpb * nthr;
-};
-
-// The frame's global rows, for the first pass to read and the last to write.
+// passes_ct's IO policy (rfft1024.cuh): the frame's global rows, read by
+// the first pass and written by the last.
 struct Rows {
   const float* xr;
   const float* xi;  // null: real input
   float* outr;
   float* outi;
   bool live;        // false for the slots past the last frame
+  static constexpr bool kInPlace = false;
+  __device__ void load(int i, float& re, float& im) const {
+    re = live ? xr[i] : 0.0f;
+    im = live && xi ? xi[i] : 0.0f;
+  }
+  __device__ void store(int i, float re, float im) const {
+    if (live) {
+      outr[i] = re;
+      outi[i] = im;
+    }
+  }
 };
-
-// the passes from Ns = NS on: radix 16 while 16 divides n / NS, then the
-// rest.  The first pass (NS = 1, no twiddles) reads the frame from device
-// memory and the last one (its outputs land at j + r*NS) writes it there,
-// both with neighbouring threads on neighbouring addresses, so the frame
-// crosses shared memory only between passes.
-template <int LOGN, bool FWD, int NS>
-__device__ __forceinline__ void passes_ct(float* sr, float* si, const float* tw, int t,
-                                          const Rows& io) {
-  constexpr int n = Pow2<LOGN>::n, VPT = Pow2<LOGN>::vpt, NTHR = Pow2<LOGN>::nthr;
-  constexpr int R = (n / NS) >= 16 ? 16 : n / NS;
-  constexpr int G = VPT / R, STRIDE = n / R, STEP = n / (NS * R);
-  constexpr bool FIRST = NS == 1, LAST = NS * R == n;
-  float xr[G][R], xi[G][R];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const int j = t + g * NTHR;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if constexpr (FIRST) {
-        xr[g][r] = io.live ? io.xr[j + r * STRIDE] : 0.0f;
-        xi[g][r] = io.live && io.xi ? io.xi[j + r * STRIDE] : 0.0f;
-      } else {
-        const int i = pad(j + r * STRIDE);
-        xr[g][r] = sr[i];
-        xi[g][r] = si[i];
-      }
-    }
-    if constexpr (NS > 1) twiddle_ct<R>(tw, (j & (NS - 1)) * STEP, xr[g], xi[g]);
-  }
-  if constexpr (!FIRST && !LAST) __syncthreads();  // every read done before the writes
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    dft_ct<FWD, R>(xr[g], xi[g]);
-    const int j = t + g * NTHR;
-    const int base = (j / NS) * NS * R + (j & (NS - 1));  // NS a power of two: shifts
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if constexpr (LAST) {
-        if (io.live) {
-          io.outr[base + r * NS] = xr[g][r];
-          io.outi[base + r * NS] = xi[g][r];
-        }
-      } else {
-        const int i = pad(base + r * NS);
-        sr[i] = xr[g][r];
-        si[i] = xi[g][r];
-      }
-    }
-  }
-  if constexpr (!LAST) {
-    __syncthreads();
-    passes_ct<LOGN, FWD, NS * R>(sr, si, tw, t, io);
-  }
-}
 
 template <int LOGN, bool FWD>
 __global__ void __launch_bounds__(Pow2<LOGN>::threads, Pow2<LOGN>::vpt <= 16 ? 2 : 1)
@@ -274,9 +84,10 @@ fft_pow2_kernel(const float* __restrict__ xr, const float* __restrict__ xi, int 
   float* si = sr + fs;
   const long long f = (long long)blockIdx.x * P::fpb + slot;
   for (int i = threadIdx.x; i < 4 * TWN; i += blockDim.x) tw[i] = consts[i];
+  if constexpr (P::nthr <= 32) __syncthreads();  // the passes' barriers are the warp's own
   const size_t row = (size_t)f * n;
   const Rows io{xr + row, xi ? xi + row : nullptr, outr + row, outi + row, f < T};
-  passes_ct<LOGN, FWD, 1>(sr, si, tw, t, io);  // the table is read after the first barrier
+  passes_ct<LOGN, FWD, 1>(sr, si, tw, t, io);  // else the table is read after the first barrier
 }
 
 template <int LOGN, bool FWD>

@@ -43,8 +43,8 @@ ENTRIES = {
     "jb_enhance_fwd_int8": [_P, _I] + [_P] * 12,
     # re, im, ren, ns, nsn, T, wiener, hq, emit_all, 5 constants, q8, rowsc, uv, out, stream
     "jb_enhance_back_ola8": [_P] * 5 + [_I] * 4 + [_P] * 10,
-    # x, T, WC, WS, nyq, w2, re, im, ren, mag, magn, sp, stream
-    "jb_enhance_fwd": [_P, _I] + [_P] * 11,
+    # x, T, rfft, nyq, w2, re, im, ren, mag, magn, sp, stream
+    "jb_enhance_fwd": [_P, _I] + [_P] * 10,
     # re, im, ren, ns, nsn, T, wiener, emit_all, 3 constants, hw, y512, out, stream
     "jb_enhance_back_ola3": [_P] * 5 + [_I] * 3 + [_P] * 7,
     # x, coef, state in, y, state out, B, T, stream
@@ -55,8 +55,8 @@ ENTRIES = {
     "jb_nlms": [_P] * 8 + [_I] * 3 + [_P],
     # x, ref, gates, coef in, keep in, est, err, coef out, keep out, B, nb, stream
     "jb_bnlms": [_P] * 9 + [_I] * 2 + [_P],
-    # prev, cur, N, bases, mel runs, mel weights, n weights, dct, mag, out, stream
-    "jb_mfcc_fused": [_P, _P, _I] + [_P] * 3 + [_I] + [_P] * 4,
+    # prev, cur, N, rfft, mel runs, mel weights, n weights, dct, out, stream
+    "jb_mfcc_fused": [_P, _P, _I] + [_P] * 3 + [_I] + [_P] * 3,
     # frames, T, lo, out, stream
     "jb_amdf": [_P, _I, _I, _P, _P],
     # re, im, ren, ns, nsn, T, wiener, 3 constants, head/w2, y512, stream

@@ -21,6 +21,7 @@ CONST_SPECS = {
     "w2": (_F32, (N,)),           # second Hamming half, for the VAD
     "WC": (_F32, (2 * N, N)),     # f32 window-folded forward bases
     "WS": (_F32, (2 * N, N)),
+    "rfft": (_F32, (2560,)),      # K4's real-FFT twiddles, split and window (csrc/rfft1024.cuh)
     "back8": (_I8, (4, N, N)),    # int8 splits of UC512 / VS512, [s, k]: Uh Ul Vh Vl
     "bscales": (_F32, (4, N)),
     "bcrows": (_F32, (2, N)),

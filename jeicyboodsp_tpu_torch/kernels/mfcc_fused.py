@@ -2,19 +2,22 @@
 
 Replaces the Pallas kernel ``jeicyboodsp_tpu/kernels/mfcc_pallas.py:
 mfcc_fused_pallas`` (``_kernel``, constants ``_mfcc_consts``): (N, 512)
-int16 frame halves prev, cur -> (N, 12) f32 MFCC features.  Pre-emphasis and
-the Hamming window are linear, so they are folded into the 1024 x 512 rDFT
-bases Cf, Sf on the host; then |X|, the 38-channel mel, log and DCT-II with
-liftering.  The TPU kernel runs its rDFT GEMMs as bf16x3 only because Mosaic
-has no ``Precision.HIGH``; these are f32.  Its ones-padded mel columns and
-zero-padded DCT rows were a 128-lane layout and have no counterpart here.
+int16 frame halves prev, cur -> (N, 12) f32 MFCC features: pre-emphasis,
+the Hamming window and the real DFT of each 1024-sample frame, |X|, the
+38-channel mel, log and DCT-II with liftering.  The TPU kernel folds
+pre-emphasis and window into the 1024 x 512 rDFT bases Cf, Sf and runs
+GEMMs (bf16x3); the kernel here applies them to the samples and runs a
+real FFT in shared memory (``csrc/rfft1024.cuh``, shared with K4), with
+|X|, mel, log and DCT in the same block.  The TPU kernel's ones-padded mel
+columns and zero-padded DCT rows were a 128-lane layout and have no
+counterpart here.
 
 - :func:`mfcc_fused` is the wrapper: on a CUDA tensor it launches the
-  hand-written kernels of ``csrc/mfcc.cu`` (counted in
+  hand-written kernel of ``csrc/mfcc.cu`` (counted in
   ``mfcc_fused.launches``); on a CPU tensor it runs the plain version;
   anything else raises.
-- :func:`mfcc_fused_plain` is the plain PyTorch version: f32 matmuls on the
-  same constants, then sqrt, mel, log and DCT.
+- :func:`mfcc_fused_plain` is the plain PyTorch version: f32 matmuls with
+  the folded bases Cf, Sf, then sqrt, mel, log and DCT.
 
 A frame whose mel channels are all zero (digital silence) gives log 0 = -inf
 there and NaN features, as in the oracle and the JAX package.
@@ -29,6 +32,7 @@ import torch
 
 from jeicyboodsp_tpu_torch.kernels import _build
 from jeicyboodsp_tpu_torch.kernels._common import check
+from jeicyboodsp_tpu_torch.kernels.enhance_fwd import rfft_constants
 
 HALF = 512
 N_CEP = 12
@@ -86,14 +90,12 @@ def mel_table(mel):
 
 @functools.lru_cache(maxsize=4)
 def kernel_constants(device: torch.device):
-    """The kernels' operands on ``device``: bases (1024, 1024), the forward
-    bases with cos and sin columns interleaved in runs of 64, so a GEMM tile
-    holds re and im of the same 64 bins; the mel table; the DCT+lifter
-    matrix."""
-    Cf, Sf, mel, dct = mfcc_consts()
-    bases = np.stack([Cf.reshape(1024, 8, 64), Sf.reshape(1024, 8, 64)], 2).reshape(1024, 1024)
+    """The kernel's operands on ``device``: the real FFT's twiddles, split
+    and Hamming window (``enhance_fwd.rfft_constants``, K4's too); the mel
+    table; the DCT+lifter matrix."""
+    _, _, mel, dct = mfcc_consts()
     runs, weights = mel_table(mel)
-    host = {"bases": bases, "mel_runs": runs, "mel_w": weights, "dct": dct}
+    host = {"rfft": rfft_constants(), "mel_runs": runs, "mel_w": weights, "dct": dct}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in host.items()}
 
 
@@ -127,14 +129,11 @@ def mfcc_fused(prev, cur):
     out = torch.empty(N, N_CEP, dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    if prev.data_ptr() % 8 or cur.data_ptr() % 8:
-        raise ValueError("prev and cur must start on 8-byte boundaries (the kernel reads short4)")
     K = kernel_constants(dev)
-    mag = torch.empty(N, HALF, dtype=torch.float32, device=dev)  # |X| scratch
     _build.launch("jb_mfcc_fused", dev, prev.data_ptr(), cur.data_ptr(), N,
-                  K["bases"].data_ptr(), K["mel_runs"].data_ptr(),
+                  K["rfft"].data_ptr(), K["mel_runs"].data_ptr(),
                   K["mel_w"].data_ptr(), K["mel_w"].numel(), K["dct"].data_ptr(),
-                  mag.data_ptr(), out.data_ptr())
+                  out.data_ptr())
     mfcc_fused.launches += 1
     return out
 

@@ -46,7 +46,7 @@ from jeicyboodsp_tpu_torch.kernels.enhance_back_ola8 import enhance_back_ola8
 from jeicyboodsp_tpu_torch.kernels.enhance_full8 import (
     enhance_full8, latch_from_rowpack, noise_latch,
 )
-from jeicyboodsp_tpu_torch.kernels.enhance_fwd import enhance_fwd
+from jeicyboodsp_tpu_torch.kernels.enhance_fwd import enhance_fwd, rfft_constants
 from jeicyboodsp_tpu_torch.kernels.enhance_fwd_int8 import enhance_fwd_int8
 from jeicyboodsp_tpu_torch.kernels.vad_flags import vad_flags as vad_kernel
 from jeicyboodsp_tpu_torch.ops.dft import const, int8_col_split
@@ -366,7 +366,8 @@ def enhance_constants(device, arrays=None):
     kernel reads each output column's weights contiguously; the f32 bases
     keep the JAX layout ([contraction, out column]); ``back32`` holds the
     TF32 halves of UC512 and VS512, transposed, as the tensor-core inverse
-    of K5 and K13 reads them.  The J flip matrix of
+    of K5 and K13 reads them; ``rfft`` the twiddles, split and window of
+    K4's real FFT (``kernels.enhance_fwd.rfft_constants``).  The J flip matrix of
     the TPU kernels has no counterpart: the flip is an index permutation here.
     """
     M, F8, B8 = arrays or (_dft_mats_aligned(), _dft_mats_int8(), _dft_mats_int8_back())
@@ -379,6 +380,7 @@ def enhance_constants(device, arrays=None):
         **{k: M[k] for k in ("nyq", "w2", "WC", "WS", "UC512", "VS512", "u_nyq", "y512col")},
         # the TF32 halves of the f32 inverse bases, [s, k]: Uh Ul Vh Vl (K5, K13)
         "back32": np.stack([h for k in ("UC512", "VS512") for h in tf32_split(M[k].T)]),
+        "rfft": rfft_constants(),
     }
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in host.items()}
 

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import make_signal
+from chip_smoke import k4_f64_bases, make_signal
 from jeicyboodsp_tpu_torch.kernels import _build
 from jeicyboodsp_tpu_torch.kernels import enhance_back_ola3 as K5
 from jeicyboodsp_tpu_torch.kernels import enhance_back_ola8 as K3
@@ -185,6 +185,75 @@ def test_forward_kernels_match_plain(cuda, name):
             assert ((got[i] - want[i]).abs() <= tol).all(), i
     tol_n = 2.0 ** -16 * (absf @ C["nyq"].abs().double())[:, None]
     assert ((got[2] - want[2]).abs() <= tol_n).all()  # the Nyquist bin, an f32 dot
+
+
+def _k4_blocks(T, seed):
+    """(T, 512) int16 blocks of the chain's signal with rows 4 and 5 digital
+    silence (frame 5 all zero), a quiet row 6 (samples in -3..3) beside a
+    full-scale random row 7; the rows wrap for T < 8."""
+    rng = np.random.default_rng(seed)
+    x = _signal(max(T, 8), seed).reshape(-1, 512)
+    x[4:6] = 0
+    x[6] = rng.integers(-3, 4, 512)
+    x[7] = rng.integers(-32768, 32768, 512)
+    return torch.from_numpy(x[:T].copy())
+
+
+def _k4_row_scale(blocks, C, double_bases=None):
+    """(T, 1) f64: each row's largest sum of |a*b| over K4's contraction, with
+    the f32 bases of C (or the given f64 ones)."""
+    WC, WS = double_bases or (C["WC"].double(), C["WS"].double())
+    a = K4.frames_f32(blocks).abs().double()
+    return torch.maximum(a @ WC.abs(), a @ WS.abs()).amax(1, keepdim=True)
+
+
+@pytest.mark.parametrize("odd", [False, True], ids=["aligned", "odd-offset"])
+@pytest.mark.parametrize("T", [8, 200, 16392])
+def test_k4_fft_pass_rows_and_offsets(cuda, T, odd):
+    """K4's real-FFT pass (8 frames a block) at T = 8, 200 and 16392, on
+    blocks that start 16-byte aligned or at an odd 2-byte offset: re, im and
+    |X| within 2^-16 of each row's largest sum of |a*b| of the plain
+    version, the flags and the all-zero frame's zeros exact."""
+    C = E.enhance_constants(cuda)
+    blocks = _k4_blocks(T, T).to(cuda)
+    if odd:
+        buf = torch.zeros(blocks.numel() + 1, dtype=torch.int16, device=cuda)
+        buf[1:] = blocks.reshape(-1)
+        blocks = buf[1:].view(T, 512)
+        assert blocks.data_ptr() % 4
+    before = K4.enhance_fwd.launches
+    got, want = K4.enhance_fwd(blocks, C), K4.enhance_fwd_plain(blocks, C)
+    torch.cuda.synchronize()
+    assert K4.enhance_fwd.launches == before + 1
+    assert torch.equal(got[5], want[5])
+    tol = 2.0 ** -16 * _k4_row_scale(blocks, C)
+    for i in (0, 1, 3):  # re, im, |X|
+        err = (got[i].double() - want[i].double()).abs()
+        assert (err <= tol).all(), (i, float((err / tol.clamp_min(1e-30)).max()))
+    if T >= 8:
+        assert got[0][5].eq(0).all() and got[1][5].eq(0).all() and got[3][5].eq(0).all()
+
+
+def test_k4_fft_pass_against_f64(cuda):
+    """K4's re and im against f64 products of the frames and the f64
+    window-folded bases, within 2^-18 of each row's largest sum of |a*b|:
+    the f32 FFT keeps about 2^-21 of it, and a wrong twiddle or a lost term
+    of the split would miss by orders of magnitude.  re, im and |X| within
+    1e-5 of each plane's row max of the f64 values (chip_smoke.F32_RTOL)."""
+    C = E.enhance_constants(cuda)
+    blocks = _k4_blocks(1024, 21).to(cuda)
+    WC, WS = k4_f64_bases(cuda)
+    frames = K4.frames_f32(blocks).double()
+    got = K4.enhance_fwd(blocks, C)
+    torch.cuda.synchronize()
+    tol = 2.0 ** -18 * _k4_row_scale(blocks, C, (WC, WS))
+    exact = (frames @ WC, frames @ WS)
+    for i in (0, 1):
+        err = (got[i].double() - exact[i]).abs()
+        assert (err <= tol).all(), (i, float((err / tol.clamp_min(1e-30)).max()))
+    exact += (torch.sqrt(exact[0] ** 2 + exact[1] ** 2),)
+    for i, w in zip((0, 1, 3), exact):
+        assert _rel(got[i].double(), w) <= 1e-5, i
 
 
 @pytest.mark.parametrize("T", [64, 192, 200, 16384])
@@ -610,6 +679,33 @@ def test_mfcc_kernel_matches_plain(cuda, n_blocks):
         assert snr_db(w[fin], g[fin]) >= KERNEL_VS_PLAIN_DB
 
 
+@pytest.mark.parametrize("N", [1, 37, 300, 16384])
+def test_mfcc_kernel_frame_counts(cuda, N):
+    """K10 at N frames (8 a block: 1, 37 and 300 leave the last block
+    ragged) >= 90 dB of its plain version over the finite features, with
+    equal NaN and infinity masks, on rows with a digital-silence stretch
+    (frames 3-5 NaN) and a quiet row 8 (samples in -3..3) beside a
+    full-scale random row 9."""
+    rng = np.random.default_rng(N)
+    rows = _feature_rows((N + 1) // 2 + 4, N, silent=(1024, 3072)).numpy()
+    rows[8] = rng.integers(-3, 4, 512)
+    rows[9] = rng.integers(-32768, 32768, 512)
+    rows = torch.from_numpy(rows).to(cuda)
+    prev, cur = rows[:N], rows[1:N + 1]
+    before = K10.mfcc_fused.launches
+    got = K10.mfcc_fused(prev, cur)
+    want = K10.mfcc_fused_plain(prev, cur)
+    torch.cuda.synchronize()
+    assert K10.mfcc_fused.launches == before + 1
+    g, w = got.cpu().double().numpy(), want.cpu().double().numpy()
+    assert g.shape == (N, 12)
+    assert np.array_equal(np.isnan(g), np.isnan(w)) and np.array_equal(np.isinf(g), np.isinf(w))
+    if N > 9:
+        assert np.isnan(w[3:6]).all() and np.isfinite(w[7:10]).all()
+    fin = np.isfinite(w)
+    assert fin.any() and snr_db(w[fin], g[fin]) >= KERNEL_VS_PLAIN_DB
+
+
 @pytest.mark.parametrize("lo", [0, 8, 96, 504])
 @pytest.mark.parametrize("T", [1, 333])
 def test_amdf_kernel_bit_equal_to_plain(cuda, T, lo):
@@ -731,13 +827,16 @@ def test_fft4_kernel_matches_plain(cuda, n, forward):
         xi = None if forward else xi
         K12.fft_pallas(xr, xi, n, forward)  # the twiddle tables are made once
         torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
+        # the bytes the calls ask for: a cached block that the allocator hands
+        # out whole (its tail too small to split) would count in full in
+        # memory_allocated, depending on what earlier tests left
+        base = torch.cuda.memory_stats()["requested_bytes.all.current"]
         torch.cuda.reset_peak_memory_stats()
         before = K12.fft_pallas.launches
         r, i = K12.fft_pallas(xr, xi, n, forward)
         torch.cuda.synchronize()
-        out_bytes = 2 * (-(-T * n * 4 // 512) * 512)  # the caching allocator's 512-byte blocks
-        assert torch.cuda.max_memory_allocated() - base <= out_bytes
+        out_bytes = 2 * T * n * 4
+        assert torch.cuda.memory_stats()["requested_bytes.all.peak"] - base <= out_bytes
         assert K12.fft_pallas.launches == before + 1
         pr, pi = K12.fft_four_step(xr, xi, n, forward)
         assert r.shape == (T, n) and r.dtype == torch.float32
