@@ -34,9 +34,10 @@ print lines and raise on failure:
      kernel's own q8 and rowsc (the tensor-core pass K1 and K3 share), with
      the scratch bytes that differ from the plain version's printed;
    - at the full stream counts and a shorter T for the plain loops: K6 and K7
-     (T = 4096), K8 (T = 2048, both update pairings), K9 (8 blocks) and K6 at
-     B = 3072, each bit-equal (else the differing samples are printed and
-     the phase fails);
+     (T = 4096), K8 (T = 2048, both update pairings, and T = 257 from a
+     nonzero state with coefficients holding -0.0, compared bit for bit),
+     K9 (8 blocks) and K6 at B = 3072, each bit-equal (else the differing
+     samples are printed and the phase fails);
    - at full size: K10 >= 90 dB over the finite features with equal NaN and
      infinity masks (a silent stretch gives NaN frames); K11 bit-equal at
      lo = 96 and lo = 0;
@@ -100,7 +101,9 @@ print lines and raise on failure:
    also ``torch.fft.rfft`` of the windowed f32 frames, the faster of the two
    as their library time, both timed in turns with the kernel), the median of
    7 batches after warm-up (of 3 for the plain versions of K6-K11),
-   with the bytes, operations and dependency-chain bounds; ``speech_classify``
+   with the bytes, operations and dependency-chain bounds (K6 and K8 also
+   with their chain figures before the redesign, K6-K9 with their previous
+   times); ``speech_classify``
    once more under ``torch.profiler`` (device busy time, host ops); each
    fastconv engine at 2048 blocks, ``roundtrip_blocks`` per engine at 16,384
    blocks, ``_enhance_fused``, engines mxu8f / mxu8t with the torch VAD and
@@ -155,14 +158,25 @@ HBM_BPS, INT8_OPS, BF16_OPS, TF32_OPS = 3.35e12, 1979e12, 989e12, 495e12
 # f64 and f32 outside the tensor cores (NVIDIA's H100 SXM data sheet), FMA counted as two
 F64_OPS, F32_OPS = 34e12, 67e12
 # dependent cycles per step of each recursion's longest chain, an estimate from the
-# kernels' instruction chains at ~8 cycles per f64 op, ~4 per f32 op, ~30 per shuffle,
-# ~40 per f64 division (not measured): K6 per sample one band's y1 -> a1*y1 -> two
-# adds -> c_short (the skewed cascade runs the seven bands side by side); K7 per
-# sample one band's s0 -> y -> c3*y -> two adds; K8 per sample the estimate (a product,
-# 7 adds, 5 shuffle-adds), c_short, the update's product and division and add; K9 per
-# block 128 sequential estimate adds and 1024 sequential gradient adds
-CHAIN_CYCLES = {"K6": 60, "K7": 16, "K8": 380, "K9": 9300}
-CHAIN_STEPS = {"K6": GEQ_T, "K7": GEQ_T, "K8": AEC_T, "K9": AEC_T // 1024}
+# kernels' instruction chains at ~8 cycles per f64 op, ~4 per f32 op, ~27 per shuffle,
+# ~19 per f64 <-> int conversion, ~5 per integer op (not measured here):
+# - K6 per step one band's y1 -> a1*y1 -> the subtraction -> + b0*x0 -> the truncating
+#   conversion and the sign extension -> the conversion back to f64: 3 x 8 + 19 + 5 + 19
+#   ~ 67; the lane layout hands band k-1's output over a step ahead (skew 2), lane 0's
+#   load is made a step ahead and c_short's range compares are left out where the
+#   coefficients bound every acc, so none of them is on it; T + 12 steps (fill, drain);
+# - K7 per sample one band's s0 -> y -> c3*y -> two adds;
+# - K8 per sample the estimate (a product and 7 adds: 64), the tree (5 shuffle-adds:
+#   175), c_short (two compares, the conversion, the sign extension: ~50), the error
+#   and its conversion (~24), then one tap's numerator, q0, four FMAs, its sign and
+#   its add (~61): ~375; d and 1/d come from the input alone, off the chain;
+# - K9 per block 128 sequential estimate adds and 1024 sequential gradient adds.
+CHAIN_CYCLES = {"K6": 67, "K7": 16, "K8": 375, "K9": 9300}
+CHAIN_STEPS = {"K6": GEQ_T + 12, "K7": GEQ_T, "K8": AEC_T, "K9": AEC_T // 1024}
+# the figures of the kernels before the lane-per-band K6 and the one-reciprocal K8:
+# chain cycles, and each kernel's time (NVIDIA H100 80GB HBM3, 700 W; PERF.md, section 6)
+OLD_CHAIN_CYCLES = {"K6": 60, "K8": 380}
+PREVIOUS_MS = {"K6": 20.354, "K7": 6.951, "K8": 50.158, "K9": 15.567}
 
 
 def make_signal(n, rng):
@@ -1102,6 +1116,24 @@ def check_recursions(P, geq, aec, sync):
         pairs = list(zip(got[:2], want[:2])) + list(zip(got[2], want[2]))
         err["K8"] = max(err["K8"], _bit_equal(
             "K8", f"compat={compat} B={len(xa)} T={xa.shape[1]} (est, err, coef, hist)", pairs))
+    # T = 257 (the window's first 256 samples and a chunk's edge) from a nonzero state:
+    # the 255 far-end samples before it as history, small coefficients, every fifth -0.0
+    t0 = PLAIN_T["K8"]
+    xa, ra = (v[:, t0:t0 + 257].contiguous() for v in aec)
+    hist = aec[0][:, t0 - 255:t0].contiguous()
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    coef = 1e-3 * torch.randn(len(xa), 256, generator=g, dtype=torch.float64, device=dev)
+    coef[:, ::5] = -0.0
+    for compat in (True, False):
+        got = P.K8.nlms(xa, ra, (coef, hist), compat=compat)
+        want = P.K8.nlms_plain(xa, ra, coef, hist, compat=compat)
+        sync()
+        pairs = list(zip(got[:2], want[:2])) + [(got[2][0].view(torch.int64),
+                                                 want[2][0].view(torch.int64)),
+                                                (got[2][1], want[2][1])]
+        err["K8"] = max(err["K8"], _bit_equal(
+            "K8", f"compat={compat} B={len(xa)} T=257 from a nonzero state (est, err, "
+            "coef bits, hist)", pairs))
     xa, ra = (v[:, :PLAIN_T["K9"]].contiguous() for v in aec)
     keep = torch.zeros(len(xa), 127, dtype=torch.int16, device=dev)
     gates = P.K9.bnlms_gates(xa, ra, keep, keep)
@@ -1354,12 +1386,15 @@ def time_recursions(P, geq, aec, card, sync):
         chain_ms = CHAIN_STEPS[name] * CHAIN_CYCLES[name] / clock_hz * 1e3
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
         T = GEQ_T if name in ("K6", "K7") else AEC_T
+        old_chain = (f"; {OLD_CHAIN_CYCLES[name]} cycles before the redesign"
+                     if name in OLD_CHAIN_CYCLES else "")
         print(f"[5 timing] {name} {GEQ_B if T == GEQ_T else AEC_B}x{T} on {card}: kernel "
               f"{ms:.3f} ms = {(n_geq if T == GEQ_T else n_aec) / (ms * 1e-3):.4g} samples/s; "
               f"plain {plain_ms:.3f} ms at T={PLAIN_TIME_T[name]}; bound {b_ms:.4f} ms by {b_by} "
               f"({nb / 1e6:.1f} MB, {ops:.3g} ops); chain bound {chain_ms:.3f} ms "
               f"({CHAIN_CYCLES[name]} cycles x {CHAIN_STEPS[name]} steps at "
-              f"{clock_hz / 1e6:.0f} MHz); library call: none")
+              f"{clock_hz / 1e6:.0f} MHz{old_chain}); library call: none; "
+              f"previously {PREVIOUS_MS[name]:.3f} ms")
     print(f"[5 timing] bnlms gates {AEC_B}x{AEC_T} (float64 matmul DFT, torch.matmul) on {card}: "
           f"{gate_ms:.3f} ms; {n_open} of {gates.numel()} open")
     # the ops a user calls, state dicts in and out (through the host), as one call each

@@ -53,6 +53,8 @@ ENTRIES = {
     "jb_geq_cascade": [_P] * 3 + [_I] * 2 + [_P],
     # x, ref, coef in, hist in, est, err, coef out, hist out, B, T, compat, stream
     "jb_nlms": [_P] * 8 + [_I] * 3 + [_P],
+    # K8's quotient alone, for the tests: a, d, q, want, n, stream
+    "jb_test_quotient": [_P] * 4 + [_I, _P],
     # x, ref, gates, coef in, keep in, est, err, coef out, keep out, B, nb, stream
     "jb_bnlms": [_P] * 9 + [_I] * 2 + [_P],
     # prev, cur, N, rfft, mel runs, mel weights, n weights, dct, out, stream

@@ -7,9 +7,10 @@ direct-form-I cascade ``y = short(b2*x2 - a2*y2 + b1*x1 - a1*y1 + b0*x0)``
 per band, each band fed the previous band's int16 output
 (``7Band_GEQ.cpp:279-300``), bit-exact against ``oracle/geq.py``.  The TPU
 kernel computes it in double-single f32; this one in f64 with every
-operation rounded as written.  Its state is per stream, (B, 7, 4) int16 =
-x1, x2, y1, y2 of each band, so any B works and no batch tile shapes it
-(ROADMAP R2, R3).
+operation rounded as written, the seven bands of a stream on seven lanes
+of a warp, skewed so that they run side by side (``csrc/biquad.cu``).  Its
+state is per stream, (B, 7, 4) int16 = x1, x2, y1, y2 of each band, so any
+B works and no batch tile shapes it (ROADMAP R2, R3).
 
 - :func:`geq_cascade_quant` is the wrapper: on a CUDA tensor it launches the
   hand-written kernel of ``csrc/biquad.cu`` (counted in

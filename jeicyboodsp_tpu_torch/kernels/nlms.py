@@ -16,7 +16,13 @@ each 8-tap group in tap order and then the 32 group sums as a fixed tree
 (:func:`tree_dot`); the window energy is a running sum of exact integers
 (equal to the oracle's sequential sum); the update is the oracle's per-tap
 ``((2.0*w[j])*MU*e)/d`` (``compat=True``), or ``nlms_apply(compat=False)``'s
-``g = (2*MU)*e/d; c[j] += g*w[255-j]``.
+``g = (2*MU)*e/d; c[j] += g*w[255-j]``.  The kernel reaches the same bits
+by another route: the energy and ``d`` per 32-sample chunk from an exact
+integer scan, one correctly rounded ``1/d`` per sample, each quotient from it
+with two FMA corrections (bit-equal to IEEE division on its ranges; the
+proof is in ``csrc/nlms.cu``), ``2.0*w*MU`` as ``w*(2*MU)``
+(``tests/test_torch_recursion_arith.py`` holds each step against this
+module's arithmetic on the CPU).
 
 - :func:`nlms` is the wrapper: on a CUDA tensor it launches the hand-written
   kernel of ``csrc/nlms.cu`` (counted in ``nlms.launches``); on a CPU tensor

@@ -506,21 +506,40 @@ def _echo_pair(B, T, seed):
             torch.from_numpy(np.clip(r, -32768, 32767).astype(np.int16)))
 
 
-@pytest.mark.parametrize("B,T", [(1, 1), (37, 1000), (3072, 300)])
+GEQ_CASES = [(B, T) for B in (1, 3, 4, 5, 2049, 3072) for T in (1, 5, 6, 7, 255, 256, 257)]
+
+
+@pytest.mark.parametrize("B,T", GEQ_CASES + [(37, 1000), (3072, 300)])
 def test_geq_quant_kernel_matches_plain(cuda, B, T):
-    """K6 bit-equal to its plain version for odd B and T, wrapping input, and
-    B = 3072, where the JAX op raises; state threaded across two calls."""
+    """K6 bit-equal to its plain version for odd B and T (T = 1 .. 7 shorter
+    than the skew's 12-step lag, ragged groups of 4 streams a warp), wrapping
+    input, and B = 3072, where the JAX op raises; from a nonzero state and
+    threaded across two calls."""
     x = _int16((B, T), B + T).to(cuda)
+    st = (_int16((B, K6.BANDS, 4), B) // 64).to(cuda)
     coef = _geq_coef().to(cuda)
     before = K6.geq_cascade_quant.launches
-    y1, s1 = K6.geq_cascade_quant(x[:, : T // 2].contiguous(), coef)
+    y1, s1 = K6.geq_cascade_quant(x[:, : T // 2].contiguous(), coef, st)
     y2, s2 = K6.geq_cascade_quant(x[:, T // 2:].contiguous(), coef, s1)
-    yw, sw = K6.geq_cascade_quant(x, coef)
+    yw, sw = K6.geq_cascade_quant(x, coef, st)
     torch.cuda.synchronize()
     assert K6.geq_cascade_quant.launches == before + 2 + (T // 2 > 0)
-    want, want_s = K6.geq_cascade_quant_plain(x, coef, K6.init_state(B, cuda))
+    want, want_s = K6.geq_cascade_quant_plain(x, coef, st)
     assert torch.equal(yw, want) and torch.equal(sw, want_s)
     assert torch.equal(torch.cat([y1, y2], 1), yw) and torch.equal(s2, sw)
+
+
+def test_geq_quant_kernel_unbounded_coefficients(cuda):
+    """Coefficients whose sums break K6's bound (sum |coef| * 32768 >= 2^30)
+    run with c_short's range compares: sums beyond int32 give 0, as the
+    reference's cvttsd2si does, bit-equal to the plain version."""
+    x = _int16((5, 300), 21).to(cuda)
+    coef = (_geq_coef() * 1e5).to(cuda)
+    y, s = K6.geq_cascade_quant(x, coef)
+    want, want_s = K6.geq_cascade_quant_plain(x, coef, K6.init_state(5, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(y, want) and torch.equal(s, want_s)
+    assert 0.1 < want.eq(0).float().mean() < 0.9  # sums in and beyond int32 both
 
 
 @pytest.mark.parametrize("B,T", [(5, 777), (64, 2048)])
@@ -536,20 +555,76 @@ def test_geq_linear_kernel_matches_plain(cuda, B, T):
     assert torch.equal(got, K7.geq_cascade_plain(x, coef))
 
 
+NLMS_CASES = [(B, T) for B in (1, 5, 1025) for T in (1, 31, 32, 33, 255, 256, 257)]
+
+
+def _nlms_state(B, seed):
+    """A nonzero history and small coefficients, every fifth one -0.0; stream
+    0 holds only +-0 coefficients and a negative history, so with x < 0 and
+    ref = 0 its errors stay 0 and its updates are -0 (IEEE's -0 / d)."""
+    rng = np.random.default_rng(seed)
+    coef = torch.from_numpy(rng.normal(0, 1e-3, (B, K8.TAPS)))
+    coef[:, ::5] = -0.0
+    coef[0] = torch.where(torch.arange(K8.TAPS) % 2 == 0, 0.0, -0.0).double()
+    hist = _int16((B, K8.KEEP), seed)
+    hist[0] = -5
+    return coef, hist
+
+
 @pytest.mark.parametrize("compat", [True, False])
-@pytest.mark.parametrize("B,T", [(3, 1100), (33, 400)])
+@pytest.mark.parametrize("B,T", NLMS_CASES + [(3, 1100), (33, 400)])
 def test_nlms_kernel_matches_plain(cuda, B, T, compat):
-    """K8 bit-equal to its plain version (est, err, coefficients, history),
-    also when the stream is cut into two calls."""
-    x, r = (v.to(cuda) for v in _echo_pair(B, T, B))
+    """K8 bit-equal to its plain version (est, err, coefficients bit for bit
+    with the sign of zero, history) over chunk edges and the window's first
+    256 samples, from a nonzero state, also when the stream is cut into two
+    calls."""
+    x, r = _echo_pair(B, T, B)
+    x[0], r[0] = -5, 0
+    x, r = x.to(cuda), r.to(cuda)
+    state = tuple(v.to(cuda) for v in _nlms_state(B, T))
+    cut = T // 3 if T > 2 else T
     before = K8.nlms.launches
-    e1, r1, s = K8.nlms(x[:, :333].contiguous(), r[:, :333].contiguous(), compat=compat)
-    e2, r2, s = K8.nlms(x[:, 333:].contiguous(), r[:, 333:].contiguous(), s, compat=compat)
+    e1, r1, s = K8.nlms(x[:, :cut].contiguous(), r[:, :cut].contiguous(), state, compat=compat)
+    if cut < T:
+        e2, r2, s = K8.nlms(x[:, cut:].contiguous(), r[:, cut:].contiguous(), s, compat=compat)
+        e1, r1 = torch.cat([e1, e2], 1), torch.cat([r1, r2], 1)
     torch.cuda.synchronize()
-    assert K8.nlms.launches == before + 2
-    we, wr, (wc, wh) = K8.nlms_plain(x, r, *K8.init_state(B, cuda), compat=compat)
-    assert torch.equal(torch.cat([e1, e2], 1), we) and torch.equal(torch.cat([r1, r2], 1), wr)
-    assert torch.equal(s[0], wc) and torch.equal(s[1], wh)
+    assert K8.nlms.launches == before + 1 + (cut < T)
+    we, wr, (wc, wh) = K8.nlms_plain(x, r, *state, compat=compat)
+    assert torch.equal(e1, we) and torch.equal(r1, wr)
+    assert torch.equal(s[0].view(torch.int64), wc.view(torch.int64))
+    assert torch.equal(s[1], wh)
+    assert wc[0].view(torch.int64).lt(0).any()  # -0.0 kept where IEEE keeps it
+
+
+def test_nlms_quotient_matches_ieee_division(cuda):
+    """K8's quotient from one reciprocal equals __ddiv_rn bit for bit on 2^26
+    pairs from the kernel's ranges (int16 w, e in +-65535, integer norms in
+    [0, 2^38] over every binade) and on the edges: d = EPS, norms at powers
+    of two and 2^38, a = +-0, the largest |a|."""
+    g = torch.Generator(device=cuda).manual_seed(20261017)
+    n = 1 << 26
+    f64 = dict(dtype=torch.float64, device=cuda)
+    w = torch.randint(-32768, 32768, (n,), generator=g, device=cuda).double()
+    e = torch.randint(-65535, 65536, (n,), generator=g, device=cuda).double()
+    norm = torch.floor(2.0 ** (38.0 * torch.rand(n, generator=g, **f64)))
+    a = (w * (2.0 * K8.MU)) * e
+    a[::4] = (2.0 * K8.MU) * e[::4]
+    norms = [0.0, 1.0, 2.0 ** 38, 2.0 ** 38 - 1] + [2.0 ** k + j for k in range(1, 38)
+                                                  for j in (-1, 0, 1)]
+    nums = [(wv * 2.0 * K8.MU) * ev for wv in (-32768, -1, 0, 1, 32767)
+            for ev in (-65535, -1, 0, 1, 65535)] + [-0.0, 0.0]
+    edge_a = torch.tensor(nums, **f64).repeat_interleave(len(norms))
+    edge_d = torch.tensor(norms, **f64).repeat(len(nums))
+    a = torch.cat([a, edge_a])
+    d = torch.cat([norm + K8.EPS, edge_d + K8.EPS])
+    q, want = torch.empty_like(a), torch.empty_like(a)
+    _build.launch("jb_test_quotient", a.device, a.data_ptr(), d.data_ptr(), q.data_ptr(),
+                  want.data_ptr(), a.numel())
+    torch.cuda.synchronize()
+    bad = int((q.view(torch.int64) != want.view(torch.int64)).sum())
+    assert bad == 0, f"{bad} of {a.numel()} quotients differ from __ddiv_rn"
+    assert torch.equal(want.view(torch.int64), (a / d).view(torch.int64))
 
 
 def test_nlms_kernel_wraps_diverged_estimates(cuda):
