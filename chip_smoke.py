@@ -33,11 +33,12 @@ print lines and raise on failure:
      and K3 (wiener), hq and turbo: uv bit-equal to the plain inverse of the
      kernel's own q8 and rowsc (the tensor-core pass K1 and K3 share), with
      the scratch bytes that differ from the plain version's printed;
-   - at the full stream counts and a shorter T for the plain loops: K6 and K7
-     (T = 4096), K8 (T = 2048, both update pairings, and T = 257 from a
-     nonzero state with coefficients holding -0.0, compared bit for bit),
-     K9 (8 blocks) and K6 at B = 3072, each bit-equal (else the differing
-     samples are printed and the phase fails);
+   - at the full stream counts and a shorter T for the plain loops: K6 in
+     f64 and in its f32 instance and K7 (T = 4096), K8 (T = 2048, both
+     update pairings, and T = 257 from a nonzero state with coefficients
+     holding -0.0, compared bit for bit), K9 (8 blocks) and K6 at B = 3072,
+     each bit-equal (else the differing samples are printed and the phase
+     fails);
    - at full size: K10 >= 90 dB over the finite features with equal NaN and
      infinity masks (a silent stretch gives NaN frames); K11 bit-equal at
      lo = 96 and lo = 0;
@@ -65,7 +66,10 @@ print lines and raise on failure:
      files against the script's own float64 numpy copies of the oracles
      (GEQ byte-identical with a full-scale wrap-stress section, a partial
      last block and an empty payload; NLMS and BNLMS int16-equal; the BNLMS
-     gate decisions that differ from the direct f64 sums printed), and the
+     gate decisions that differ from the direct f64 sums printed, and none
+     may), ``geq --fast`` from the CLI (K6 in f32) byte-identical to a numpy
+     float32 copy of the cascade, its SNR and differing samples against the
+     float64 reference printed, and the
      batched ops at full size, where two chained calls with state must
      equal one whole call (K6, K8, K9), sampled streams (for NLMS and
      BNLMS every block of an echo and a double-talk stream) must equal the
@@ -93,8 +97,9 @@ print lines and raise on failure:
      numpy copies of the oracles (f64 within one step; f32 at the floors of
      tests/test_engine_matrix.py; ``_enhance_fused`` >= 85 dB);
 5. timing (CUDA events around batches of back-to-back calls, see
-   ``median_ms``): ``enhance_blocks`` of each engine, the ops ``geq_apply``,
-   ``nlms_apply`` and ``bnlms_apply``, ``mfcc_blocks(mxu3)``,
+   ``median_ms``): ``enhance_blocks`` of each engine, the ops ``geq_apply``
+   (f64 and f32), ``nlms_apply`` and ``bnlms_apply`` (with the gate alone at
+   three FFT lengths, and K9's resident blocks per SM), ``mfcc_blocks(mxu3)``,
    ``pitch_frames(method=2, mxu)`` and ``speech_classify`` at full size, and
    each kernel alone against its plain version (K6-K9 at their shorter T)
    and one PyTorch call of its GEMM core where there is one (for K4 and K10
@@ -165,18 +170,25 @@ F64_OPS, F32_OPS = 34e12, 67e12
 #   ~ 67; the lane layout hands band k-1's output over a step ahead (skew 2), lane 0's
 #   load is made a step ahead and c_short's range compares are left out where the
 #   coefficients bound every acc, so none of them is on it; T + 12 steps (fill, drain);
-# - K7 per sample one band's s0 -> y -> c3*y -> two adds;
+# - K7 per step one band's s0 -> y (the add) -> c3*y -> the subtraction -> + s1: 4 x 4 = 16
+#   in f32; since the redesign it takes K6's lane layout (skew 2, T + 12 steps), so the
+#   shuffle and lane 0's load are off it as in K6;
 # - K8 per sample the estimate (a product and 7 adds: 64), the tree (5 shuffle-adds:
 #   175), c_short (two compares, the conversion, the sign extension: ~50), the error
 #   and its conversion (~24), then one tap's numerator, q0, four FMAs, its sign and
 #   its add (~61): ~375; d and 1/d come from the input alone, off the chain;
-# - K9 per block 128 sequential estimate adds and 1024 sequential gradient adds.
-CHAIN_CYCLES = {"K6": 67, "K7": 16, "K8": 375, "K9": 9300}
-CHAIN_STEPS = {"K6": GEQ_T + 12, "K7": GEQ_T, "K8": AEC_T, "K9": AEC_T // 1024}
-# the figures of the kernels before the lane-per-band K6 and the one-reciprocal K8:
-# chain cycles, and each kernel's time (NVIDIA H100 80GB HBM3, 700 W; PERF.md, section 6)
-OLD_CHAIN_CYCLES = {"K6": 60, "K8": 380}
+# - K9 per block the estimate's 128 sequential adds (~1024), the energy scan's five
+#   shuffle-adds and the warp totals behind a barrier (~300), four parts' staging of
+#   1/d behind barriers (~400) and the gradient's 1024 sequential adds (~8192): ~10,000;
+#   the quotients hang off that add chain, each independent of the others.
+CHAIN_CYCLES = {"K6": 67, "K7": 16, "K8": 375, "K9": 10000}
+CHAIN_STEPS = {"K6": GEQ_T + 12, "K7": GEQ_T + 12, "K8": AEC_T, "K9": AEC_T // 1024}
+# the figures of K6-K9 before their redesigns on the H100: chain cycles, and each
+# kernel's time (NVIDIA H100 80GB HBM3, 700 W; PERF.md, section 6)
+OLD_CHAIN_CYCLES = {"K6": 60, "K8": 380, "K9": 9300}
 PREVIOUS_MS = {"K6": 20.354, "K7": 6.951, "K8": 50.158, "K9": 15.567}
+# the ops' times before K7 and K9 were redesigned (the same card; PERF.md, section 5)
+PREVIOUS_OP_MS = {"geq_apply f64": 3.371, "nlms_apply": 26.120, "bnlms_apply": 51.165}
 
 
 def make_signal(n, rng):
@@ -277,6 +289,30 @@ def reference_geq(x, b, a):
             acc -= a1 * y1
             acc += b0 * v
             y = float(_c_short_int(acc))
+            x2, x1, y2, y1 = x1, v, y1, y
+            out.append(y)
+        cur = out
+    return np.array(cur, np.int16)
+
+
+def reference_geq_f32(x, b, a):
+    """reference_geq in float32, each product and sum one float32 numpy
+    operation, so each rounded once (``geq --fast``; jeicyboodsp_tpu/ops/geq.py:
+    geq_apply with dtype=float32 as written).  Not the reference's output."""
+    f32 = np.float32
+    cur = [f32(v) for v in _stale_blocks(x, 512).reshape(-1)]
+    bb, aa = np.asarray(b, f32), np.asarray(a, f32)
+    for k in range(7):
+        b0, b1, b2, a1, a2 = bb[k, 0], bb[k, 1], bb[k, 2], aa[k, 1], aa[k, 2]
+        x1 = x2 = y1 = y2 = f32(0)
+        out = []
+        for v in cur:
+            acc = b2 * x2
+            acc = acc - a2 * y2
+            acc = acc + b1 * x1
+            acc = acc - a1 * y1
+            acc = acc + b0 * v
+            y = f32(_c_short_int(float(acc)))
             x2, x1, y2, y1 = x1, v, y1, y
             out.append(y)
         cur = out
@@ -1098,6 +1134,11 @@ def check_recursions(P, geq, aec, sync):
     want = P.K6.geq_cascade_quant_plain(x, c64, P.K6.init_state(len(x), dev))
     sync()
     err["K6"] = _bit_equal("K6", f"B={len(x)} T={x.shape[1]} (y, state)", zip(got, want))
+    got = P.K6.geq_cascade_quant(x, c32)  # the f32 instance (geq_apply's default, geq --fast)
+    want = P.K6.geq_cascade_quant_plain(x, c32, P.K6.init_state(len(x), dev))
+    sync()
+    err["K6"] = max(err["K6"], _bit_equal("K6", f"f32 B={len(x)} T={x.shape[1]} (y, state)",
+                                          zip(got, want)))
     x3 = geq.repeat(-(-3072 // len(geq)), 1)[:3072, :512].contiguous()  # B = 3072
     got = P.K6.geq_cascade_quant(x3, c64)
     want = P.K6.geq_cascade_quant_plain(x3, c64, P.K6.init_state(len(x3), dev))
@@ -1193,6 +1234,7 @@ def drive_recursions(P, geq, aec, sync):
         np.concatenate([hdr, x]).tofile(os.path.join(work, f"aec_{c}_in.wav"))
         r.tofile(os.path.join(work, f"aec_{c}_ref.pcm"))
     refs = {("geq", c): reference_geq(x, b, a) for c, x in geq_cases.items()}
+    refs.update({("geq --fast", c): reference_geq_f32(x, b, a) for c, x in geq_cases.items()})
     for c, (x, r) in pairs.items():
         refs["nlms", c] = reference_nlms(x, r)
         refs["bnlms", c] = reference_nlms(x, r, bnlms=True)
@@ -1208,6 +1250,9 @@ def drive_recursions(P, geq, aec, sync):
         path = os.path.join(work, f"geq_{c}.pcm")
         P.registry.geq(os.path.join(work, f"geq_{c}.wav"), path, device=dev)
         out["geq", c] = np.fromfile(path, "<i2")
+        path = os.path.join(work, f"geq_fast_{c}.pcm")  # K6's f32 instance, from the CLI
+        P.cli.main(["geq", os.path.join(work, f"geq_{c}.wav"), path, "--fast", "--device", str(dev)])
+        out["geq --fast", c] = np.fromfile(path, "<i2")
     for prog in ("nlms", "bnlms"):
         for c in pairs:
             est, errp = (os.path.join(work, f"{prog}_{c}_{k}.pcm") for k in ("est", "err"))
@@ -1217,9 +1262,13 @@ def drive_recursions(P, geq, aec, sync):
     # the batched ops at full size: one whole call, and two chained with state;
     # the GEQ's fast engine, which callers run as the kernel wrapper
     yl = P.K7.geq_cascade(geq.float(), c32)
-    yw, sw = G.geq_apply(geq, b, a, zeros)
-    y1, s1 = G.geq_apply(geq[:, :half], b, a, zeros)
-    y2, s2 = G.geq_apply(geq[:, half:], b, a, s1)
+    f64 = torch.float64  # the reference's arithmetic: K6's record stays comparable
+    yw, sw = G.geq_apply(geq, b, a, zeros, dtype=f64)
+    y1, s1 = G.geq_apply(geq[:, :half], b, a, zeros, dtype=f64)
+    y2, s2 = G.geq_apply(geq[:, half:], b, a, s1, dtype=f64)
+    fw, fsw = G.geq_apply(geq, b, a, zeros)  # the op's default, f32: K6's f32 instance
+    f1, fs1 = G.geq_apply(geq[:, :half], b, a, zeros)
+    f2, fs2 = G.geq_apply(geq[:, half:], b, a, fs1)
     x, r = aec
     n0 = N.nlms_init_state()
     nz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in n0.items()}
@@ -1235,7 +1284,7 @@ def drive_recursions(P, geq, aec, sync):
     # B = 3072 (the JAX op raises there): the streams repeated
     g3 = geq.repeat(-(-3072 // len(geq)), 1)[:3072, :2048]
     z3 = {k: torch.zeros(3072, *v.shape[1:], dtype=v.dtype) for k, v in zeros.items()}
-    y3, _ = G.geq_apply(g3, b, a, z3)
+    y3, _ = G.geq_apply(g3, b, a, z3, dtype=f64)
     sync()
     launches = {k: fn.launches for k, fn in counted.items()}
     main_s = time.perf_counter() - t0
@@ -1248,6 +1297,15 @@ def drive_recursions(P, geq, aec, sync):
             raise RuntimeError(f"geq {c}: differs from the reference")
     from jeicyboodsp_tpu_torch.utils.metrics import snr_db
 
+    for c in geq_cases:  # f32: equal to its numpy copy, no floor against the reference
+        got, want, ref = out["geq --fast", c], refs["geq --fast", c], refs["geq", c]
+        ok = got.shape == want.shape and np.array_equal(got, want)
+        n_diff = int((got != ref).sum()) if got.shape == ref.shape else -1
+        snr = snr_db(ref, got) if len(ref) else float("nan")
+        print(f"[4 main-path] geq --fast {c}: {len(got)} samples, byte-identical to the float32 "
+              f"copy {ok}; against the float64 reference {snr:.2f} dB, {n_diff} samples differ")
+        if not ok:
+            raise RuntimeError(f"geq --fast {c}: differs from the float32 copy")
     for i in (0, GEQ_B - 1):  # a wrap-stress stream and a tone
         got = _c_short(yl[i].cpu().numpy())
         snr = snr_db(reference_geq_linear(geq[i].cpu().numpy(), b, a), got)
@@ -1264,7 +1322,7 @@ def drive_recursions(P, geq, aec, sync):
                   f"the reference {ok}")
             if not ok:
                 raise RuntimeError(f"{prog} {c}: differs from the reference")
-    # the gate: the port's float64 matmul DFT against the direct float64 sums
+    # the gate: the port's float64 FFT against the direct float64 sums
     gdiff, gn = 0, 0
     for c, (xp, rp) in pairs.items():
         nb = -(-min(len(xp), len(rp)) // 1024)
@@ -1287,12 +1345,16 @@ def drive_recursions(P, geq, aec, sync):
             want = not _double_talk(u[k * 1024:k * 1024 + 1151], v[k * 1024:k * 1024 + 1151])
             gdiff += int(bool(got8[i, k]) != want)
             gn += 1
-    print(f"[4 main-path] bnlms gate decisions differing from the direct float64 sums: {gdiff} "
-          f"of {gn} (probes, and all blocks of {S} full-size double-talk streams)")
+    print(f"[4 main-path] bnlms gate decisions (float64 FFT) differing from the direct float64 "
+          f"sums: {gdiff} of {gn} (probes, and all blocks of {S} full-size double-talk streams)")
+    if gdiff:
+        raise RuntimeError(f"{gdiff} gate decisions differ from the direct float64 sums")
 
     chained = {
         "K6 geq_apply": (torch.equal(torch.cat([y1, y2], 1), yw)
                          and all(torch.equal(s2[k], sw[k]) for k in sw)),
+        "K6 geq_apply f32 (the default)": (torch.equal(torch.cat([f1, f2], 1), fw)
+                                           and all(torch.equal(fs2[k], fsw[k]) for k in fsw)),
         "K8 nlms_apply": (torch.equal(torch.cat([e1, e2], 1), ew)
                           and torch.equal(torch.cat([r1, r2], 1), rw)
                           and all(torch.equal(ns[k], nw[k]) for k in nw)),
@@ -1310,6 +1372,8 @@ def drive_recursions(P, geq, aec, sync):
                                                   reference_geq(geq[0].cpu().numpy(), b, a)),
         f"full size, geq stream {GEQ_B - 1} (tone)": (yw[-1].cpu().numpy(),
                                           reference_geq(geq[-1].cpu().numpy(), b, a)),
+        "full size, geq f32 stream 0 (wrap stress)": (
+            fw[0].cpu().numpy(), reference_geq_f32(geq[0].cpu().numpy(), b, a)),
     }
     for i in (0, 2047, 2048, 3071):
         sampled[f"geq B=3072 T=2048 stream {i}"] = (y3[i].cpu().numpy(),
@@ -1373,9 +1437,11 @@ def time_recursions(P, geq, aec, card, sync):
         "K9": (lambda: P.K9.bnlms(x, r, gates),
                lambda: P.K9.bnlms_plain(cut(x, "K9"), cut(r, "K9"), cut(gates, "K9"), *st9),
                nbytes(x, r, gates, *st9, x, r, *st9),
-               # per block the dot (2 ops per tap and sample); per open gate the energies,
-               # the gradient (5 per tap and sample) and the update
-               2 * 128 * n_aec + n_open * (1024 * (2 * 128 + 1 + 5 * 128) + 2 * 128), F64_OPS),
+               # per block the dot (2 ops per tap and sample); per open gate the window
+               # energies as a running difference (3 per sample, + eps), um = u * 2MU (1151),
+               # the gradient (a = um * e, the division, the add: 3 per tap and sample) and
+               # the update (2 per tap)
+               2 * 128 * n_aec + n_open * (1024 * (3 * 128 + 4) + 1151 + 2 * 128), F64_OPS),
     }
     clock_hz = card_clock_hz()
     times = {}
@@ -1395,8 +1461,14 @@ def time_recursions(P, geq, aec, card, sync):
               f"({CHAIN_CYCLES[name]} cycles x {CHAIN_STEPS[name]} steps at "
               f"{clock_hz / 1e6:.0f} MHz{old_chain}); library call: none; "
               f"previously {PREVIOUS_MS[name]:.3f} ms")
-    print(f"[5 timing] bnlms gates {AEC_B}x{AEC_T} (float64 matmul DFT, torch.matmul) on {card}: "
-          f"{gate_ms:.3f} ms; {n_open} of {gates.numel()} open")
+    k6_f32 = median_ms(lambda: P.K6.geq_cascade_quant(geq, c32), sync)
+    print(f"[5 timing] K6 f32 instance {GEQ_B}x{GEQ_T} on {card}: kernel {k6_f32:.3f} ms = "
+          f"{n_geq / (k6_f32 * 1e-3):.4g} samples/s (f64 {times['K6']['ms']:.3f} ms)")
+    print(f"[5 timing] K9 resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, "
+          f"{P.K9.THREADS} threads a block): {P.K9.occupancy(dev)}")
+    print(f"[5 timing] bnlms gates {AEC_B}x{AEC_T} (float64 FFT, torch.fft, m = {P.K9.GATE_M}) "
+          f"on {card}: {gate_ms:.3f} ms; {n_open} of {gates.numel()} open; previously (float64 "
+          f"matmul DFT) about 33 ms")
     # the ops a user calls, state dicts in and out (through the host), as one call each
     G, N = P.G, P.N
     gz = {"xh": torch.zeros(GEQ_B, 2, dtype=torch.int32),
@@ -1405,15 +1477,18 @@ def time_recursions(P, geq, aec, card, sync):
     bz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in N.bnlms_init_state().items()}
     xb, rb = x.reshape(AEC_B, -1, 1024), r.reshape(AEC_B, -1, 1024)
     op_runs = {  # op, its shape, and the time of its device work alone (above)
-        "geq_apply": (lambda: G.geq_apply(geq, b, a, gz), (GEQ_B, GEQ_T), times["K6"]["ms"]),
+        "geq_apply f64": (lambda: G.geq_apply(geq, b, a, gz, dtype=torch.float64),
+                          (GEQ_B, GEQ_T), times["K6"]["ms"]),
+        "geq_apply f32": (lambda: G.geq_apply(geq, b, a, gz), (GEQ_B, GEQ_T), k6_f32),
         "nlms_apply": (lambda: N.nlms_apply(x, r, nz), (AEC_B, AEC_T), times["K8"]["ms"]),
         "bnlms_apply": (lambda: N.bnlms_apply(xb, rb, bz), (AEC_B, AEC_T),
                         times["K9"]["ms"] + gate_ms)}
     for op, (fn, (B, T), alone) in op_runs.items():
         ms = median_ms(fn, sync)
+        before = f"; previously {PREVIOUS_OP_MS[op]:.3f} ms" if op in PREVIOUS_OP_MS else ""
         print(f"[5 timing] op {op} {B}x{T} on {card}: {ms:.3f} ms = {B * T / (ms * 1e-3):.4g} "
               f"samples/s; its kernels (and gates) alone {alone:.3f} ms, the rest "
-              f"{ms - alone:.3f} ms")
+              f"{ms - alone:.3f} ms{before}")
     return times
 
 

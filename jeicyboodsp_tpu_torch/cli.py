@@ -6,7 +6,7 @@ Usage::
                                         [--fast [--engine xla|mxu|mxu3|mxu8|mxu8f|mxu8t]]
                                         [--device cuda]
     python -m jeicyboodsp_tpu_torch.cli specsub IN OUT [--fast [--engine ...]] [--device ...]
-    python -m jeicyboodsp_tpu_torch.cli geq IN OUT [--device ...]
+    python -m jeicyboodsp_tpu_torch.cli geq IN OUT [--fast] [--device ...]
     python -m jeicyboodsp_tpu_torch.cli nlms IN REF EST ERR [--device ...]
     python -m jeicyboodsp_tpu_torch.cli bnlms IN REF EST ERR [--device ...]
     python -m jeicyboodsp_tpu_torch.cli pitch2 IN [--fast [--engine xla|mxu|mxu3]] [--device ...]
@@ -25,18 +25,20 @@ Usage::
     fastconv IN OUT         RIR fast convolution       (Fast_Convolution...)
     fft IN OUT              radix-2 FFT roundtrip      (FFTAlgorithm_ver2)
 
-wiener, specsub, pitch, mfcc, fastconv and fft run in float64 with the
+wiener, specsub, geq, pitch, mfcc, fastconv and fft run in float64 with the
 reference's numbers (wiener, specsub, pitch, mfcc and fastconv through
-``torch.fft``, fft through the reference's radix-2 algorithm) unless
+``torch.fft``, geq through the cascade kernel K6, fft through the
+reference's radix-2 algorithm) unless
 ``--fast`` asks for float32 and an ``--engine``: wiener/specsub default to
 ``xla`` (``torch.fft``) and take ``mxu`` (matmul DFT), ``mxu3`` (the f32
 kernels K4/K5), ``mxu8`` (the int8 kernels K2/K3), ``mxu8f`` (the int8
 chain in one kernel, K1) and ``mxu8t`` (its turbo inverse); ``mxu`` runs pitch method 2 through the AMDF kernel and the other methods
 as matmul DFTs; ``mxu3``/``mxu8`` run the MFCC DFT as f32 matmuls; fastconv
 defaults to ``gemm8hq`` (the int8 Toeplitz GEMM), and its ``mxu``/``mxu3``
-run both 8192-point transforms through the four-step FFT kernel.  fft
-takes no ``--engine``: it runs the radix-2 algorithm in float32 with
-``--fast``, and ``--verbose`` prints the reference's operation counts.
+run both 8192-point transforms through the four-step FFT kernel.  fft and
+geq take no ``--engine``: with ``--fast`` fft runs the radix-2 algorithm
+and geq its cascade in float32 (as the JAX CLI's ``geq --fast``, not the
+reference's output), and ``--verbose`` prints fft's operation counts.
 
 The device defaults to the current CUDA card, and the command fails when
 there is none; ``--device cpu`` runs the kernels' plain PyTorch versions.
@@ -61,6 +63,7 @@ FAST = {  # pipeline: the engines of --fast, its default engine, the compat engi
     "mfcc": (("xla", "mxu", "mxu3", "mxu8"), "xla", "xla"),
     "fastconv": (FC.ENGINES, "auto", "xla"),
     "fft": ((), None, None),  # --fast is float32 only: no engine choice
+    "geq": ((), None, None),
 }
 
 

@@ -9,8 +9,9 @@ missing nvcc or a failed compile raises with the compiler's stderr.
 
 Flags: ``-fmad=false`` keeps every ``a*b + c`` as two roundings, in f32 (the
 enhancement epilogues, in the JAX package's operand order; the MFCC's |X|,
-mel and DCT; the FFT's twiddle products) and in f64 (the GEQ, NLMS and
-BNLMS recursions, in the reference's order): the kernels' exactness notes
+mel and DCT; the FFT's twiddle products; the GEQ cascade's f32 instance and
+its linear engine) and in f64 (the GEQ, NLMS and BNLMS recursions, in the
+reference's order): the kernels' exactness notes
 rely on it.  No fast math:
 ``sqrtf``, ``logf`` and divisions stay IEEE.
 """
@@ -47,16 +48,19 @@ ENTRIES = {
     "jb_enhance_fwd": [_P, _I] + [_P] * 10,
     # re, im, ren, ns, nsn, T, wiener, emit_all, 3 constants, hw, y512, out, stream
     "jb_enhance_back_ola3": [_P] * 5 + [_I] * 3 + [_P] * 7,
-    # x, coef, state in, y, state out, B, T, stream
+    # x, coef, state in, y, state out, B, T, stream (f64, and the f32 instance)
     "jb_geq_cascade_quant": [_P] * 5 + [_I] * 2 + [_P],
+    "jb_geq_cascade_quant_f32": [_P] * 5 + [_I] * 2 + [_P],
     # x, coef, y, B, T, stream
     "jb_geq_cascade": [_P] * 3 + [_I] * 2 + [_P],
     # x, ref, coef in, hist in, est, err, coef out, hist out, B, T, compat, stream
     "jb_nlms": [_P] * 8 + [_I] * 3 + [_P],
-    # K8's quotient alone, for the tests: a, d, q, want, n, stream
+    # K8's and K9's quotient alone, for the tests: a, d, q, want, n, stream
     "jb_test_quotient": [_P] * 4 + [_I, _P],
     # x, ref, gates, coef in, keep in, est, err, coef out, keep out, B, nb, stream
     "jb_bnlms": [_P] * 9 + [_I] * 2 + [_P],
+    # K9's resident blocks per SM: out int, stream (unused)
+    "jb_bnlms_occupancy": [_P, _P],
     # prev, cur, N, rfft, mel runs, mel weights, n weights, dct, out, stream
     "jb_mfcc_fused": [_P, _P, _I] + [_P] * 3 + [_I] + [_P] * 3,
     # frames, T, lo, out, stream

@@ -16,10 +16,14 @@ oracle bit for bit.  State is carried across calls:
 
 The gate depends on the inputs alone.  :func:`bnlms_gates` computes it for
 every block of every stream before the kernel runs, as the JAX package's
-``_bnlms_gates`` does: the cross-correlation of the 1151-sample processing
-buffers as a matmul DFT (``_gate_bases``), here in float64 and in chunks of
-rows.  Its sign then differs from the oracle's direct f64 sums only where
-the largest correlation lies within f64 rounding of zero.
+``_bnlms_gates`` does, but as JAX's own op computes the correlation
+(``jeicyboodsp_tpu/ops/nlms.py:125-141``): with a float64 FFT of the
+1151-sample processing buffers (``torch.fft`` on the tensors' device), in
+chunks of rows, where the TPU kernel's wrapper runs a matmul DFT for the
+MXU.  The correlations are sums of products of int16 samples, so the
+oracle's direct f64 sums are exact integers and the gate opens iff one of
+them is at least 1; the FFT's error is far below 0.5 (about 1e-3 at full
+scale), so the gate tests ``> 0.5`` and equals the oracle's decision.
 
 - :func:`bnlms` is the wrapper: on a CUDA tensor it launches the hand-written
   kernel of ``csrc/nlms.cu`` (counted in ``bnlms.launches``); on a CPU
@@ -31,9 +35,8 @@ the largest correlation lies within f64 rounding of zero.
 
 from __future__ import annotations
 
-import functools
+import ctypes
 
-import numpy as np
 import torch
 
 from jeicyboodsp_tpu_torch.kernels import _build
@@ -42,36 +45,20 @@ from jeicyboodsp_tpu_torch.utils.cnum import c_short
 
 TAPS = 128  # BNLMS.cpp BNLMS_TAPS
 KEEP = TAPS - 1
+THREADS = TAPS // 2  # the kernel's block: two adjacent taps a thread
 BLOCK = 1024
 MU = 0.01
 EPS = 0.00001
-GATE_M = 2176  # DFT length: any m >= 1151 + 1023 gives the linear correlation
-GATE_ROWS = 4096  # (stream, block) rows per chunk of the gate's GEMMs
+# FFT length: any m >= 1151 + 1023 gives the linear correlation; 2176 = 2^7 * 17
+# timed faster than 2304 and 4096 on an H100 (PERF.md, section 6)
+GATE_M = 2176
+GATE_ROWS = 8192  # (stream, block) rows per chunk of the gate's transforms
 
 
 def init_state(B: int, device=None):
     """Fresh streams: zero coefficients, zero keep."""
     return (torch.zeros(B, TAPS, dtype=torch.float64, device=device),
             torch.zeros(B, KEEP, dtype=torch.int16, device=device))
-
-
-@functools.lru_cache(maxsize=4)
-def _gate_bases(device_str):
-    """Matmul-DFT bases of the gate's correlation (``nlms_pallas.py:
-    _gate_bases``, in float64): forward cos/sin planes over the 1151 rows of
-    a processing buffer, (1151, 1089); inverse planes with the irfft weights
-    folded in, (1089, 1024)."""
-    m = GATE_M
-    nbin = m // 2 + 1
-    i = np.arange(BLOCK + KEEP)[:, None] * np.arange(nbin)[None, :]
-    ang = -2.0 * np.pi * i / m
-    wk = np.full(nbin, 2.0)
-    wk[0] = wk[-1] = 1.0
-    kl = np.arange(nbin)[:, None] * np.arange(BLOCK)[None, :]
-    ang2 = 2.0 * np.pi * kl / m
-    planes = (np.cos(ang), np.sin(ang), wk[:, None] * np.cos(ang2) / m,
-              wk[:, None] * np.sin(ang2) / m)
-    return tuple(torch.from_numpy(p).to(device_str) for p in planes)
 
 
 def _with_keep(blocks, keep):
@@ -87,24 +74,35 @@ def bnlms_gates(x, ref, keep_in, keep_ref):
 
     corr[k] = sum_i u[i] r[i+k] / (2048 - k) over k < 1024 and the 1151-sample
     buffers (reads past them are zero, as the oracle defines them); update
-    iff max_k corr[k] > 0.  float64 GEMMs, GATE_ROWS rows at a time."""
+    iff max_k corr[k] > 0.  The scale is positive, so that is the sign of the
+    largest unscaled sum, an integer: it is computed as irfft(conj(rfft(u)) *
+    rfft(r)) over GATE_M points in float64, GATE_ROWS rows at a time, and
+    tested against 0.5."""
     B, T = check_2d(x, "x")
     if T % BLOCK:
         raise ValueError(f"T={T} must be a multiple of {BLOCK}")
     nb = T // BLOCK
     if B * nb == 0:
         return torch.zeros(B, nb, dtype=torch.bool, device=x.device)
-    u = _with_keep(x.to(torch.float64).reshape(B, nb, BLOCK), keep_in.to(torch.float64))
-    r = _with_keep(ref.to(torch.float64).reshape(B, nb, BLOCK), keep_ref.to(torch.float64))
-    u, r = u.reshape(B * nb, -1), r.reshape(B * nb, -1)
-    Fc, Fs, Ic, Is = _gate_bases(str(x.device))
-    scale = 2.0 * BLOCK - torch.arange(BLOCK, dtype=torch.float64, device=x.device)
+    m, win = GATE_M, BLOCK + KEEP
+    u = _with_keep(x.reshape(B, nb, BLOCK), keep_in).reshape(B * nb, -1)
+    r = _with_keep(ref.reshape(B, nb, BLOCK), keep_ref).reshape(B * nb, -1)
+    uf = u.flip(1)  # uf[:, j] = u[:, 1150 - j]
+    rows = min(GATE_ROWS, B * nb)
+    buf = torch.zeros(2 * rows, m, dtype=torch.float64, device=x.device)  # zero-padded
     out = torch.empty(B * nb, dtype=torch.bool, device=x.device)
-    for s in range(0, B * nb, GATE_ROWS):
-        uc, rc = u[s:s + GATE_ROWS], r[s:s + GATE_ROWS]
-        Ur, Ui, Rr, Ri = uc @ Fc, uc @ Fs, rc @ Fc, rc @ Fs
-        corr = (Ur * Rr + Ui * Ri) @ Ic - (Ur * Ri - Ui * Rr) @ Is  # conj(U) R
-        out[s:s + GATE_ROWS] = (corr / scale).amax(1) > 0.0
+    for s in range(0, B * nb, rows):
+        n = min(rows, B * nb - s)
+        # u reversed in time, circularly (u[i] at column -i mod m), so its spectrum is
+        # conj(U) and the product needs no conjugate; r as it is
+        buf[:n, 0] = u[s:s + n, 0]
+        buf[:n, m - win + 1:] = uf[s:s + n, :-1]
+        buf[rows:rows + n, :win] = r[s:s + n]
+        F = torch.fft.rfft(buf)
+        P = torch.mul(F[:n], F[rows:rows + n], out=F[:n])
+        # norm="forward": the inverse is not scaled, so corr is m times the sums
+        corr = torch.fft.irfft(P, n=m, norm="forward")[:, :BLOCK]
+        out[s:s + n] = corr.amax(1) > 0.5 * m
     return out.reshape(B, nb)
 
 
@@ -169,3 +167,11 @@ def bnlms(x, ref, gates, state=None):
 
 
 bnlms.launches = 0
+
+
+def occupancy(device="cuda") -> int:
+    """K9's resident blocks of THREADS threads per SM on ``device``'s card, as
+    the CUDA runtime computes them from its registers and shared memory."""
+    blocks = ctypes.c_int(0)
+    _build.launch("jb_bnlms_occupancy", torch.device(device), ctypes.addressof(blocks))
+    return blocks.value

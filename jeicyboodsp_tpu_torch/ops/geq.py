@@ -7,10 +7,14 @@ seven biquads; the direct-form-I output is stored into a ``short`` inside
 the recursion (``:284``), so the feedback runs on int16 values and every
 band's input is the previous band's int16 output.
 
-- The reference's semantics, bit-exact: :func:`geq_apply` (streaming, the
-  JAX state dict) and :func:`run_quant` (a whole signal; the pipeline's
-  route) go through K6 (``kernels.geq_cascade_quant``) in f64.  Only f64
-  is ported: the ops take no dtype.
+- The reference's semantics: :func:`geq_apply` (streaming, the JAX state
+  dict) and :func:`run_quant` (a whole signal; the pipeline's route) go
+  through K6 (``kernels.geq_cascade_quant``) in the ``dtype`` they are
+  given, with JAX's defaults: ``geq_apply`` float32, ``run_quant`` (JAX's
+  ``stream_blocks``) float64.  float64 is bit-exact against the reference;
+  float32 (``geq --fast``) rounds every op as JAX's f32 ``geq_apply`` does
+  and equals it bit for bit, but it is not the reference's output: the
+  int16 feedback wraps differently under f32 rounding.
 - The fast engine: the cascade without the in-loop quantization, by design
   not the reference's output.  Batches of streams go through K7
   (``kernels.geq_cascade.geq_cascade``, in f32), which callers use directly,
@@ -169,30 +173,42 @@ def state_to_jax(state: torch.Tensor):
             "yh": torch.stack([s[..., 3], s[..., 2]], -1)}
 
 
-def geq_apply(x, b, a, state):
-    """Compat-mode cascade in float64 (the JAX op with ``dtype=float64``).
+def _coef(b, a, dtype, device):
+    """(7, 5) K6 coefficients in ``dtype`` (float64 or float32; cast as
+    ``jnp.asarray(b, dtype)`` casts them)."""
+    np_dtype = {torch.float64: np.float64, torch.float32: np.float32}.get(dtype)
+    if np_dtype is None:
+        raise ValueError(f"dtype must be torch.float64 or torch.float32, got {dtype}")
+    return torch.from_numpy(pack_coefficients(b, a, np_dtype)).to(device)
+
+
+def geq_apply(x, b, a, state, dtype=torch.float32):
+    """Compat-mode cascade (the JAX op, with its ``dtype`` and default).
     x: int16-valued (N,) or (B, N) tensor -> (y int16 of x's shape,
     new_state), state as :func:`init_state` (with a leading B for a (B, N)
-    x).  Runs on x's device through K6."""
-    coef = torch.from_numpy(pack_coefficients(b, a, np.float64)).to(x.device)
+    x).  Runs on x's device through K6 in ``dtype``: float64 is the
+    reference's arithmetic, float32 JAX's default."""
+    coef = _coef(b, a, dtype, x.device)
     s = state_to_port(state).to(x.device)
     xs = x.to(torch.int16).reshape(-1, x.shape[-1]).contiguous()
     y, new = geq_cascade_quant(xs, coef, s.reshape(-1, TOTAL_BANDS, 4).contiguous())
     return y.reshape(x.shape), state_to_jax(new.reshape(s.shape))
 
 
-def run_quant(x, gains_db=GAINS_DB, compat=True, device="cuda"):
+def run_quant(x, gains_db=GAINS_DB, compat=True, device="cuda", dtype=torch.float64):
     """Whole-signal compat GEQ through K6 (counterpart of
-    ``run_pallas_quant`` and ``stream_blocks``): equals ``oracle.geq.run()``
-    byte for byte.  The output length is rounded up to a 512 multiple with
-    the reference's stale-tail semantics; an empty payload gives 0 samples.
-    The kernel carries each band's keep buffers along the signal, so one
-    call is the block-by-block stream."""
+    ``run_pallas_quant`` and ``stream_blocks``, with the latter's ``dtype``
+    and default): in float64 it equals ``oracle.geq.run()`` byte for byte,
+    in float32 (``geq --fast``) JAX's ``stream_blocks(dtype=float32)``.
+    The output length is rounded up to a 512 multiple with the reference's
+    stale-tail semantics; an empty payload gives 0 samples.  The kernel
+    carries each band's keep buffers along the signal, so one call is the
+    block-by-block stream."""
     dev = entry_device(device)
     if len(x) == 0:  # the reference emits nothing on an empty payload
         return np.zeros(0, np.int16)
     b, a = geq_coefficients(gains_db=gains_db, compat=compat)
-    coef = torch.from_numpy(pack_coefficients(b, a, np.float64)).to(dev)
+    coef = _coef(b, a, dtype, dev)
     xx = torch.from_numpy(stale_blocks(x, BLOCK_LEN).reshape(1, -1)).to(dev)
     y, _ = geq_cascade_quant(xx, coef)
     return y[0].cpu().numpy()

@@ -118,8 +118,8 @@ def bnlms_apply_block(x, ref, state):
 def bnlms_apply(x_blocks, ref_blocks, state):
     """BNLMS over (nb, 1024) or (B, nb, 1024) blocks -> (est, err of the
     blocks' shape, new_state).  The gates of all blocks come first, from
-    :func:`~jeicyboodsp_tpu_torch.kernels.bnlms.bnlms_gates` (float64
-    matmul DFT); then one K9 call runs every block on x's device."""
+    :func:`~jeicyboodsp_tpu_torch.kernels.bnlms.bnlms_gates` (a float64
+    FFT); then one K9 call runs every block on x's device."""
     xb, rb = torch.as_tensor(x_blocks), torch.as_tensor(ref_blocks)
     if xb.shape != rb.shape:
         raise ValueError(f"x and ref shapes differ: {tuple(xb.shape)} vs {tuple(rb.shape)}")

@@ -15,8 +15,8 @@ program does:
 
 ``kw`` is passed on to the op: ``device`` (a CUDA card by default; "cpu"
 runs the plain versions) for all, ``fft_engine`` for the enhancement chain,
-pitch, MFCC and fastconv, ``dtype`` for the enhancement chain, pitch, MFCC,
-fastconv and fft, ``use_assoc_scan`` for the enhancement chain, ``verbose``
+pitch, MFCC and fastconv, ``dtype`` for the enhancement chain, the GEQ,
+pitch, MFCC, fastconv and fft, ``use_assoc_scan`` for the enhancement chain, ``verbose``
 for fft.
 """
 
@@ -32,7 +32,8 @@ def _read(path: str, skip_header: bool):
 
 
 def geq(inp: str, out: str, **kw):
-    """7Band_GEQ: header skipped.  kw: device, gains_db, compat."""
+    """7Band_GEQ: header skipped.  kw: device, gains_db, compat, dtype
+    (float64 by default, the reference's numbers; float32 is ``--fast``)."""
     from jeicyboodsp_tpu_torch.ops import geq as G
 
     y = G.run_quant(_read(inp, True), **kw)

@@ -1,11 +1,12 @@
-"""Card time of the recursion kernels K6-K9 and of the ops around K6 and K8.
+"""Card time of the recursion kernels K6-K9 and of the ops around them.
 
     python jeicyboodsp_tpu_torch/profile_recursions.py [--reps 7] [--tag NAME]
         [--geq-streams 2048] [--aec-streams 1024]
 
-At chip_smoke.py's sizes and from its seed: K6 and K7 over 2048 streams x
-49,152 samples, K8 with compat on and off and K9 over 1024 streams x 65,536
-samples, and the ops ``geq_apply`` and ``nlms_apply``.  Fewer streams show
+At chip_smoke.py's sizes and from its seed: K6 (f64 and its f32 instance)
+and K7 over 2048 streams x 49,152 samples, K8 with compat on and off, K9 and
+the BNLMS gate (a float64 FFT) over 1024 streams x 65,536 samples, and the
+ops ``geq_apply`` (f64 and f32), ``nlms_apply`` and ``bnlms_apply``.  Fewer streams show
 what one warp's chain costs alone: a recursion kernel whose time does not
 grow with the streams is bound by its chain, not by the card's throughput.
 Each time is the median of ``--reps`` calls between CUDA events after a
@@ -117,26 +118,32 @@ def main(argv=None) -> int:
     c64 = torch.from_numpy(K7.pack_coefficients(b, a, np.float64)).to(dev)
     c32 = torch.from_numpy(K7.pack_coefficients(b, a)).to(dev)
     gf = geq.float()
+    xb, rb = x.reshape(ab, -1, 1024), r.reshape(ab, -1, 1024)
     keep = torch.zeros(ab, 127, dtype=torch.int16, device=dev)
     gates = K9.bnlms_gates(x, r, keep, keep)
     gz = {"xh": torch.zeros(gb, 2, dtype=torch.int32),
           "yh": torch.zeros(gb, 7, 2, dtype=torch.int32)}
     nz = {k: v.expand(ab, *v.shape).contiguous() for k, v in N.nlms_init_state().items()}
+    bz = {k: v.expand(ab, *v.shape).contiguous() for k, v in N.bnlms_init_state().items()}
     runs = {
         "K6": (lambda: K6.geq_cascade_quant(geq, c64), GEQ_T),
+        "K6 f32": (lambda: K6.geq_cascade_quant(geq, c32), GEQ_T),
         "K7": (lambda: K7.geq_cascade(gf, c32), GEQ_T),
         "K8 compat": (lambda: K8.nlms(x, r), AEC_T),
         "K8 compat=False": (lambda: K8.nlms(x, r, compat=False), AEC_T),
         "K9": (lambda: K9.bnlms(x, r, gates), AEC_T // 1024),
-        "geq_apply": (lambda: G.geq_apply(geq, b, a, gz), GEQ_T),
+        "bnlms gates": (lambda: K9.bnlms_gates(x, r, keep, keep), AEC_T // 1024),
+        "geq_apply": (lambda: G.geq_apply(geq, b, a, gz, dtype=torch.float64), GEQ_T),
+        "geq_apply f32": (lambda: G.geq_apply(geq, b, a, gz), GEQ_T),
         "nlms_apply": (lambda: N.nlms_apply(x, r, nz), AEC_T),
+        "bnlms_apply": (lambda: N.bnlms_apply(xb, rb, bz), AEC_T // 1024),
     }
     out = {}
     for name, (fn, steps) in runs.items():
         ms, clock = time_ms(fn, args.reps)
         mhz = float(clock.split()[0])
         out[name] = ms
-        B = gb if name in ("K6", "K7", "geq_apply") else ab
+        B = gb if name.startswith(("K6", "K7", "geq_apply")) else ab
         print(f"[{args.tag}] {name} B={B}: {ms:.3f} ms; SM clock under load {clock}; "
               f"{ms * 1e-3 * mhz * 1e6 / steps:.1f} cycles per step ({steps} steps)")
     print(json.dumps({"tag": args.tag, "card": card, "streams": [gb, ab], "ms": out}))

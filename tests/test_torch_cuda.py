@@ -507,17 +507,19 @@ def _echo_pair(B, T, seed):
 
 
 GEQ_CASES = [(B, T) for B in (1, 3, 4, 5, 2049, 3072) for T in (1, 5, 6, 7, 255, 256, 257)]
+GEQ_F32_CASES = [(B, T) for B in (1, 5, 2049, 3072) for T in (1, 13, 257)]
 
 
-@pytest.mark.parametrize("B,T", GEQ_CASES + [(37, 1000), (3072, 300)])
-def test_geq_quant_kernel_matches_plain(cuda, B, T):
-    """K6 bit-equal to its plain version for odd B and T (T = 1 .. 7 shorter
-    than the skew's 12-step lag, ragged groups of 4 streams a warp), wrapping
-    input, and B = 3072, where the JAX op raises; from a nonzero state and
-    threaded across two calls."""
+@pytest.mark.parametrize("B,T,dtype", [(B, T, "f64") for B, T in GEQ_CASES + [(37, 1000), (3072, 300)]]
+                         + [(B, T, "f32") for B, T in GEQ_F32_CASES])
+def test_geq_quant_kernel_matches_plain(cuda, B, T, dtype):
+    """K6 bit-equal to its plain version, in f64 and in its f32 instance, for
+    odd B and T (T = 1 .. 13 shorter than or at the skew's 12-step lag,
+    ragged groups of 4 streams a warp), wrapping input, and B = 3072, where
+    the JAX op raises; from a nonzero state and threaded across two calls."""
     x = _int16((B, T), B + T).to(cuda)
     st = (_int16((B, K6.BANDS, 4), B) // 64).to(cuda)
-    coef = _geq_coef().to(cuda)
+    coef = _geq_coef(np.float64 if dtype == "f64" else np.float32).to(cuda)
     before = K6.geq_cascade_quant.launches
     y1, s1 = K6.geq_cascade_quant(x[:, : T // 2].contiguous(), coef, st)
     y2, s2 = K6.geq_cascade_quant(x[:, T // 2:].contiguous(), coef, s1)
@@ -542,17 +544,30 @@ def test_geq_quant_kernel_unbounded_coefficients(cuda):
     assert 0.1 < want.eq(0).float().mean() < 0.9  # sums in and beyond int32 both
 
 
-@pytest.mark.parametrize("B,T", [(5, 777), (64, 2048)])
+GEQ_LINEAR_CASES = [(B, T) for B in (1, 5, 64, 2049) for T in (1, 5, 12, 13, 255, 256, 257, 2048)]
+
+
+@pytest.mark.parametrize("B,T", GEQ_LINEAR_CASES + [(5, 777)])
 def test_geq_linear_kernel_matches_plain(cuda, B, T):
     """K7 bit-equal to its plain version: the same f32 ops in the same order,
-    no FMA contraction (-fmad=false)."""
+    no FMA contraction (-fmad=false), for ragged B and T up to and past the
+    skew's 12-step lag.  Stream 0 holds an infinity and a value whose
+    products overflow f32 past its middle: inf and NaN must propagate as in
+    the plain version (equal NaN masks, the rest bit-equal)."""
     x = (_int16((B, T), T).float() * 0.5).to(cuda)
+    x[0, T // 2] = float("inf")
+    if T > 2:
+        x[0, T // 2 + 1] = 3e38
     coef = _geq_coef(np.float32).to(cuda)
     before = K7.geq_cascade.launches
     got = K7.geq_cascade(x, coef)
     torch.cuda.synchronize()
     assert K7.geq_cascade.launches == before + 1
-    assert torch.equal(got, K7.geq_cascade_plain(x, coef))
+    want = K7.geq_cascade_plain(x, coef)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+    if B > 1:
+        assert got[1:].isfinite().all()
 
 
 NLMS_CASES = [(B, T) for B in (1, 5, 1025) for T in (1, 31, 32, 33, 255, 256, 257)]
@@ -597,27 +612,35 @@ def test_nlms_kernel_matches_plain(cuda, B, T, compat):
     assert wc[0].view(torch.int64).lt(0).any()  # -0.0 kept where IEEE keeps it
 
 
-def test_nlms_quotient_matches_ieee_division(cuda):
-    """K8's quotient from one reciprocal equals __ddiv_rn bit for bit on 2^26
-    pairs from the kernel's ranges (int16 w, e in +-65535, integer norms in
-    [0, 2^38] over every binade) and on the edges: d = EPS, norms at powers
-    of two and 2^38, a = +-0, the largest |a|."""
+# each kernel's mu, eps and largest window energy: K8 256 taps, K9 128
+QUOTIENT_RANGES = {"K8": (K8.MU, K8.EPS, 38), "K9": (K9.MU, K9.EPS, 37)}
+
+
+@pytest.mark.parametrize("kernel", sorted(QUOTIENT_RANGES))
+def test_nlms_quotient_matches_ieee_division(cuda, kernel):
+    """The quotient from one reciprocal that K8 and K9 share equals __ddiv_rn
+    bit for bit on 2^26 pairs from each kernel's ranges (int16 w, e in
+    +-65535, integer window energies in [0, 2^38] for K8 and [0, 2^37] for
+    K9, over every binade) and on the edges: d = EPS, energies at powers of
+    two and at the top, a = +-0, the largest and the smallest nonzero |a|."""
+    mu, eps, kmax = QUOTIENT_RANGES[kernel]
     g = torch.Generator(device=cuda).manual_seed(20261017)
     n = 1 << 26
     f64 = dict(dtype=torch.float64, device=cuda)
     w = torch.randint(-32768, 32768, (n,), generator=g, device=cuda).double()
     e = torch.randint(-65535, 65536, (n,), generator=g, device=cuda).double()
-    norm = torch.floor(2.0 ** (38.0 * torch.rand(n, generator=g, **f64)))
-    a = (w * (2.0 * K8.MU)) * e
-    a[::4] = (2.0 * K8.MU) * e[::4]
-    norms = [0.0, 1.0, 2.0 ** 38, 2.0 ** 38 - 1] + [2.0 ** k + j for k in range(1, 38)
-                                                  for j in (-1, 0, 1)]
-    nums = [(wv * 2.0 * K8.MU) * ev for wv in (-32768, -1, 0, 1, 32767)
+    norm = torch.floor(2.0 ** (kmax * torch.rand(n, generator=g, **f64)))
+    a = (w * (2.0 * mu)) * e
+    if kernel == "K8":
+        a[::4] = (2.0 * mu) * e[::4]
+    norms = [0.0, 1.0, 2.0 ** kmax, 2.0 ** kmax - 1] + [2.0 ** k + j for k in range(1, kmax)
+                                                      for j in (-1, 0, 1)]
+    nums = [(wv * 2.0 * mu) * ev for wv in (-32768, -1, 0, 1, 32767)
             for ev in (-65535, -1, 0, 1, 65535)] + [-0.0, 0.0]
     edge_a = torch.tensor(nums, **f64).repeat_interleave(len(norms))
     edge_d = torch.tensor(norms, **f64).repeat(len(nums))
     a = torch.cat([a, edge_a])
-    d = torch.cat([norm + K8.EPS, edge_d + K8.EPS])
+    d = torch.cat([norm + eps, edge_d + eps])
     q, want = torch.empty_like(a), torch.empty_like(a)
     _build.launch("jb_test_quotient", a.device, a.data_ptr(), d.data_ptr(), q.data_ptr(),
                   want.data_ptr(), a.numel())
@@ -640,22 +663,48 @@ def test_nlms_kernel_wraps_diverged_estimates(cuda):
     assert got[0].eq(0).any()
 
 
-@pytest.mark.parametrize("B,nb", [(1, 2), (7, 3)])
+def _bnlms_state(B, seed):
+    """Small nonzero coefficients, every fifth one -0.0, and a random keep."""
+    rng = np.random.default_rng(seed)
+    coef = torch.from_numpy(rng.normal(0, 1e-3, (B, K9.TAPS)))
+    coef[:, ::5] = -0.0
+    return coef, _int16((B, K9.KEEP), seed)
+
+
+@pytest.mark.parametrize("B,nb", [(B, nb) for B in (1, 7, 1025) for nb in (1, 2, 3)])
 def test_bnlms_kernel_matches_plain(cuda, B, nb):
-    """K9 bit-equal to its plain version with open and shut gates, also when
-    the stream is cut into two calls."""
-    x, r = (v.to(cuda) for v in _echo_pair(B, nb * 1024, 10 + B))
-    gates = torch.from_numpy(np.random.default_rng(B).random((B, nb)) < 0.7).to(cuda)
+    """K9 bit-equal to its plain version (est, err, coefficients bit for bit
+    with the sign of zero, keep) with open and shut gates, from a nonzero
+    state, also when the stream is cut into two calls (one block, then the
+    rest); stream 0 is silent on its far end, so its windows are zero and
+    its quotients +-0 / EPS."""
+    x, r = _echo_pair(B, nb * 1024, 10 + B)
+    x[0] = 0
+    x, r = x.to(cuda), r.to(cuda)
+    gates = torch.from_numpy(np.random.default_rng(B + nb).random((B, nb)) < 0.7).to(cuda)
+    gates[0] = True
+    state = tuple(v.to(cuda) for v in _bnlms_state(B, nb))
+    state[1][0] = 0
     before = K9.bnlms.launches
     e1, r1, s = K9.bnlms(x[:, :1024].contiguous(), r[:, :1024].contiguous(),
-                         gates[:, :1].contiguous())
-    e2, r2, s = K9.bnlms(x[:, 1024:].contiguous(), r[:, 1024:].contiguous(),
-                         gates[:, 1:].contiguous(), s)
+                         gates[:, :1].contiguous(), state)
+    if nb > 1:
+        e2, r2, s = K9.bnlms(x[:, 1024:].contiguous(), r[:, 1024:].contiguous(),
+                             gates[:, 1:].contiguous(), s)
+        e1, r1 = torch.cat([e1, e2], 1), torch.cat([r1, r2], 1)
     torch.cuda.synchronize()
-    assert K9.bnlms.launches == before + 2
-    we, wr, (wc, wk) = K9.bnlms_plain(x, r, gates, *K9.init_state(B, cuda))
-    assert torch.equal(torch.cat([e1, e2], 1), we) and torch.equal(torch.cat([r1, r2], 1), wr)
-    assert torch.equal(s[0], wc) and torch.equal(s[1], wk)
+    assert K9.bnlms.launches == before + 1 + (nb > 1)
+    we, wr, (wc, wk) = K9.bnlms_plain(x, r, gates, *state)
+    assert torch.equal(e1, we) and torch.equal(r1, wr)
+    assert torch.equal(s[0].view(torch.int64), wc.view(torch.int64)) and torch.equal(s[1], wk)
+    if B > 1:  # the open gates moved the other streams' coefficients
+        assert not torch.equal(wc[1:], state[0][1:])
+
+
+def test_bnlms_kernel_occupancy(cuda):
+    """K9's shared memory and registers leave room for 8 blocks of 64
+    threads on an SM, so 1024 streams run in one wave."""
+    assert K9.occupancy(cuda) >= 8
 
 
 def test_bnlms_gates_on_card_match_cpu(cuda):
@@ -697,8 +746,8 @@ def test_recursion_wrappers_reject(name, bad):
         state = {"K6": K6.init_state(3), "K8": K8.init_state(3), "K9": K9.init_state(3)}.get(name)
         if name == "K7":
             coef = coef[:6]
-    elif bad == "coef":
-        coef = coef.float() if name != "K7" else coef.double()
+    elif bad == "coef":  # K6 takes f64 and f32 coefficients, K7 f32
+        coef = {"K6": coef.half(), "K7": coef.double()}.get(name, coef.float())
         if name == "K8":
             state = (state[0].float(), state[1])
         elif name == "K9":

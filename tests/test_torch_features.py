@@ -468,7 +468,7 @@ def test_cli_features_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["geq", "a", "b", "--fast"],                      # --fast is for pitch*/mfcc only
+    ["geq", "a", "b", "--fast", "--engine", "xla"],   # geq's --fast takes no engine
     ["pitch1", "a", "--engine", "mxu"],               # an engine needs --fast
     ["pitch2", "a", "--fast", "--engine", "mxu8"],    # not an engine of pitch
     ["mfcc", "a", "--fast", "--engine", "mxu8f"],     # an enhancement engine

@@ -8,6 +8,8 @@ side runs its Pallas kernels in interpret mode, as its own tests do.
 """
 
 import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -189,16 +191,16 @@ def test_geq_apply_chunked_equals_whole_and_state_round_trips():
     st = TG.init_state()
     outs = []
     for s in range(0, len(x), 500):
-        y, st = TG.geq_apply(torch.from_numpy(x[s:s + 500]), b, a, st)
+        y, st = TG.geq_apply(torch.from_numpy(x[s:s + 500]), b, a, st, dtype=torch.float64)
         outs.append(y.numpy())
-    whole, st_w = TG.geq_apply(torch.from_numpy(x), b, a, TG.init_state())
+    whole, st_w = TG.geq_apply(torch.from_numpy(x), b, a, TG.init_state(), dtype=torch.float64)
     np.testing.assert_array_equal(np.concatenate(outs), whole.numpy())
     np.testing.assert_array_equal(whole.numpy(), ogeq.run(x)[: len(x)])
     for k in ("xh", "yh"):
         assert torch.equal(st[k], st_w[k])
     # the port's state dict after 700 samples holds the oracle's keep buffers
     # in the JAX op's layout (oldest first), and a JAX state round-trips
-    _, sp = TG.geq_apply(torch.from_numpy(x[:700]), b, a, TG.init_state())
+    _, sp = TG.geq_apply(torch.from_numpy(x[:700]), b, a, TG.init_state(), dtype=torch.float64)
     so = ogeq.GEQState()
     ogeq.process_block(so, x[:700], b, a)
     np.testing.assert_array_equal(sp["xh"].numpy(), so.keep_in[0])
@@ -213,9 +215,9 @@ def test_geq_apply_batched_state():
     x = _stress(2 * 300, seed=4).reshape(2, 300) // 2
     b, a = TG.geq_coefficients()
     st = {"xh": torch.zeros(2, 2, dtype=torch.int32), "yh": torch.zeros(2, 7, 2, dtype=torch.int32)}
-    y, st = TG.geq_apply(torch.from_numpy(x), b, a, st)
+    y, st = TG.geq_apply(torch.from_numpy(x), b, a, st, dtype=torch.float64)
     for i in range(2):
-        yi, sti = TG.geq_apply(torch.from_numpy(x[i]), b, a, TG.init_state())
+        yi, sti = TG.geq_apply(torch.from_numpy(x[i]), b, a, TG.init_state(), dtype=torch.float64)
         assert torch.equal(y[i], yi)
         assert torch.equal(st["yh"][i], sti["yh"]) and torch.equal(st["xh"][i], sti["xh"])
 
@@ -225,9 +227,9 @@ def test_geq_apply_rejects_mismatched_state():
     b, a = TG.geq_coefficients()
     st3 = {"xh": torch.zeros(3, 2, dtype=torch.int32), "yh": torch.zeros(3, 7, 2, dtype=torch.int32)}
     with pytest.raises(ValueError):
-        TG.geq_apply(torch.zeros(2, 8, dtype=torch.int16), b, a, st3)
+        TG.geq_apply(torch.zeros(2, 8, dtype=torch.int16), b, a, st3, dtype=torch.float64)
     with pytest.raises(ValueError):
-        TG.geq_apply(torch.zeros(8, dtype=torch.int16), b, a, st3)
+        TG.geq_apply(torch.zeros(8, dtype=torch.int16), b, a, st3, dtype=torch.float64)
 
 
 def test_wrappers_reject_bad_inputs():
@@ -237,7 +239,7 @@ def test_wrappers_reject_bad_inputs():
         with pytest.raises(ValueError):
             K6.geq_cascade_quant(bad, coef)
     with pytest.raises(ValueError):
-        K6.geq_cascade_quant(x, coef.float())
+        K6.geq_cascade_quant(x, coef.half())  # K6 takes f64 or f32 coefficients
     with pytest.raises(ValueError):
         K6.geq_cascade_quant(x, coef, K6.init_state(3))
     with pytest.raises(ValueError):
@@ -269,8 +271,9 @@ def test_pipeline_geq_file_end_to_end(tmp_path):
 def test_chip_smoke_geq_references_match_oracle():
     """chip_smoke.py carries its own float64 GEQ reference (it may not import
     the JAX package); it must equal the oracle byte for byte, including the
-    wrap stress, partial blocks and an empty payload, and its linear form
-    must agree with the JAX f64 scan."""
+    wrap stress, partial blocks and an empty payload, its float32 copy must
+    equal the port's f32 route, and its linear form must agree with the JAX
+    f64 scan."""
     import sys
 
     sys.path.insert(0, ROOT)
@@ -280,8 +283,137 @@ def test_chip_smoke_geq_references_match_oracle():
     x = np.concatenate([_tone(1024, seed=4), _stress(512, seed=4)])
     for n in (0, 100, 512, 1100, len(x)):
         np.testing.assert_array_equal(chip_smoke.reference_geq(x[:n], b, a), ogeq.run(x[:n]))
+        # its float32 copy (geq --fast) against the port's f32 route, itself held to JAX's
+        np.testing.assert_array_equal(chip_smoke.reference_geq_f32(x[:n], b, a),
+                                      TG.run_quant(x[:n], device="cpu", dtype=torch.float32))
     tone = _tone(1024, seed=5)
     lin = np.asarray(jgeq.geq_apply_fast(jnp.asarray(tone.astype(np.float64)), b, a,
                                          dtype=jnp.float64))
     got = chip_smoke.reference_geq_linear(tone, b, a)
     assert np.abs(got.astype(np.float64) - np.trunc(lin)).max() <= 1
+
+
+# ---- the f32 compat route: geq_apply(dtype=float32), run_quant, geq --fast ----
+
+# JAX's f32 geq_apply and stream_blocks, run in a process of their own whose
+# XLA:CPU may not use FMA instructions.  The op pins every product with
+# optimization_barrier so that each is rounded on its own (jeicyboodsp_tpu/
+# ops/geq.py:57-80), but the barriers are gone by the time LLVM compiles the
+# fused loop, which on a host with FMA contracts products into the adds
+# (ROADMAP R11).  With the ISA held below FMA, XLA computes what the op writes.
+_JAX_F32 = """
+import sys
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+
+from jeicyboodsp_tpu.ops import geq as jgeq
+
+d = dict(np.load(sys.argv[1]))
+b, a = jgeq.geq_coefficients()
+out = {}
+
+
+def apply(name, x, st):
+    y, st = jgeq.geq_apply(jnp.asarray(x), b, a, st, dtype=jnp.float32)
+    out[name] = np.asarray(y)
+    out[name + "_xh"], out[name + "_yh"] = np.asarray(st["xh"]), np.asarray(st["yh"])
+    return st
+
+
+for name in ("tone", "stress"):
+    apply(name, d[name], jgeq.init_state())
+apply("chained", d["stress"][700:], apply("chained_first", d["stress"][:700], jgeq.init_state()))
+out["stream"] = jgeq.stream_blocks(d["probe"], dtype=jnp.float32)
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_f32(tmp_path_factory):
+    work = tmp_path_factory.mktemp("geq_f32")
+    probe = np.concatenate([_tone(1024, seed=6), _stress(512, seed=6)])[: 1024 + 300]
+    inputs = {"tone": _tone(2048), "stress": _stress(2048), "probe": probe}
+    np.savez(work / "in.npz", **inputs)
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "XLA_FLAGS": "--xla_cpu_max_isa=AVX"}
+    subprocess.run([sys.executable, "-c", _JAX_F32, str(work / "in.npz"), str(work / "out.npz")],
+                   cwd=ROOT, env=env, check=True, capture_output=True, timeout=600)
+    return work, inputs, dict(np.load(work / "out.npz"))
+
+
+def _port_f32(x, st=None):
+    b, a = TG.geq_coefficients()
+    return TG.geq_apply(torch.from_numpy(x), b, a, TG.init_state() if st is None else st)
+
+
+@pytest.mark.parametrize("case", ["tone", "stress", "chained"])
+def test_geq_apply_f32_bit_equal_to_jax(jax_f32, case):
+    """The port's f32 geq_apply on the CPU (K6's f32 plain version, every op
+    rounded as written) equals JAX's f32 geq_apply bit for bit, output and
+    state: a tone, full-scale random int16 through the +12 dB bands (wrap
+    stress), and two chained calls with state.  Its distance from the
+    reference is printed, with no floor: f32 rounding changes where the
+    int16 feedback wraps."""
+    _, inputs, want = jax_f32
+    x = inputs["stress" if case == "chained" else case]
+    if case == "chained":
+        y1, st = _port_f32(x[:700])
+        y2, st = _port_f32(x[700:], st)
+        y = np.concatenate([y1.numpy(), y2.numpy()])
+        want_y = np.concatenate([want["chained_first"], want["chained"]])
+    else:
+        y, st = _port_f32(x)
+        y, want_y = y.numpy(), want[case]
+    assert y.dtype == np.int16
+    np.testing.assert_array_equal(y, want_y)
+    for k in ("xh", "yh"):
+        np.testing.assert_array_equal(st[k].numpy(), want[f"{case}_{k}"])
+    ref = ogeq.run(x)[: len(x)]
+    print(f"f32 geq_apply {case} vs the reference: {snr_db(ref, y):.2f} dB, "
+          f"{int((y != ref).sum())} of {len(x)} samples differ")
+    if case == "tone":  # this process's XLA:CPU, FMA allowed (ROADMAP R11)
+        b, a = TG.geq_coefficients()
+        yj, _ = jgeq.geq_apply(jnp.asarray(x), b, a, jgeq.init_state(), dtype=jnp.float32)
+        print(f"JAX f32 geq_apply with this host's ISA: {int((np.asarray(yj) != y).sum())} of "
+              f"{len(x)} samples differ from the port's")
+
+
+def test_run_quant_f32_and_cli_fast_equal_jax_stream_blocks(jax_f32, tmp_path):
+    """run_quant(dtype=float32) and ``geq --fast`` from the port's CLI equal
+    JAX's stream_blocks(dtype=float32) on a probe with a partial last block
+    (one K6 call over the stale-tail signal is the block-by-block stream)."""
+    from jeicyboodsp_tpu_torch.cli import main
+
+    _, inputs, want = jax_f32
+    probe = inputs["probe"]
+    got = TG.run_quant(probe, device="cpu", dtype=torch.float32)
+    assert len(got) == 3 * 512 and got.dtype == np.int16
+    np.testing.assert_array_equal(got, want["stream"])
+    inp, out = tmp_path / "in.wav", tmp_path / "out.pcm"
+    np.concatenate([np.arange(22, dtype=np.int16), probe]).tofile(inp)
+    assert main(["geq", str(inp), str(out), "--fast", "--device", "cpu"]) == 0
+    np.testing.assert_array_equal(np.fromfile(out, "<i2"), want["stream"])
+    ref = ogeq.run(probe)
+    print(f"geq --fast vs the reference: {snr_db(ref, got):.2f} dB, "
+          f"{int((got != ref).sum())} of {len(got)} samples differ")
+
+
+def test_geq_apply_default_is_f32_and_dtype_is_checked():
+    """geq_apply's default dtype is float32, as JAX's; float64 is the
+    reference's arithmetic; any other dtype raises."""
+    x = _stress(600, seed=8)
+    b, a = TG.geq_coefficients()
+    y, _ = TG.geq_apply(torch.from_numpy(x), b, a, TG.init_state())
+    y32, _ = TG.geq_apply(torch.from_numpy(x), b, a, TG.init_state(), dtype=torch.float32)
+    y64, _ = TG.geq_apply(torch.from_numpy(x), b, a, TG.init_state(), dtype=torch.float64)
+    assert torch.equal(y, y32) and not torch.equal(y, y64)
+    np.testing.assert_array_equal(y64.numpy(), ogeq.run(x)[: len(x)])
+    for bad in (torch.float16, torch.int16):
+        with pytest.raises(ValueError):
+            TG.geq_apply(torch.from_numpy(x), b, a, TG.init_state(), dtype=bad)
+        with pytest.raises(ValueError):
+            TG.run_quant(x, device="cpu", dtype=bad)

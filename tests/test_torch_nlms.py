@@ -203,24 +203,55 @@ def test_k9_plain_state_is_the_oracles():
     np.testing.assert_array_equal(new["keep_ref"].numpy(), st.keep_ref)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_bnlms_gates_match_oracle(seed):
-    """The f64 matmul-DFT gate against the oracle's direct f64 sums, block
-    by block, on echoes of either sign and pure noise."""
-    rng = np.random.default_rng(seed)
-    x = rng.integers(-3000, 3000, (3, 4 * 1024)).astype(np.int16)
-    r = np.stack([x[0] // 2, -(x[1] // 2), rng.integers(-3000, 3000, 4 * 1024)]).astype(np.int16)
-    keep = torch.from_numpy(rng.integers(-3000, 3000, (3, 127)).astype(np.int16))
-    keep_r = torch.from_numpy(rng.integers(-3000, 3000, (3, 127)).astype(np.int16))
-    got = K9.bnlms_gates(torch.from_numpy(x), torch.from_numpy(r), keep, keep_r).numpy()
+def _gate_case(case):
+    """(x, r, keep, keep_r) of three streams of 4 blocks.  Cases 0-2: echoes
+    of either sign and pure noise, from the seed.  "small": the largest
+    correlation of every block is small and positive among negative ones
+    (an impulse far end, so corr[k] = r[k], against a near end of -1000
+    with one +1 or +2), or exactly zero (a far end that meets only zeros of
+    the near end), which rounding could lift above zero."""
+    if case != "small":
+        rng = np.random.default_rng(case)
+        x = rng.integers(-3000, 3000, (3, 4 * 1024)).astype(np.int16)
+        r = np.stack([x[0] // 2, -(x[1] // 2), rng.integers(-3000, 3000, 4 * 1024)])
+        keep = rng.integers(-3000, 3000, (3, 127))
+        keep_r = rng.integers(-3000, 3000, (3, 127))
+        return x, r.astype(np.int16), keep.astype(np.int16), keep_r.astype(np.int16)
+    x = np.zeros((3, 4 * 1024), np.int16)
+    r = np.full((3, 4 * 1024), -1000, np.int16)
+    keep = np.zeros((3, 127), np.int16)
+    keep_r = np.full((3, 127), -1000, np.int16)
+    for k in range(4):
+        s = k * 1024
+        x[0, s] = x[1, s] = 1  # buffer index 127: corr[j] = r's buffer value at 127 + j
+        r[0, s + 500 + 37 * k] = 1 + (k % 2)
+        r[1, s: s + 1024] = np.where(np.arange(1024) % 3 == 0, 0, -1000)
+        x[2, s + 1] = 5  # meets the near end's zeros only: every correlation 0 or < 0
+        r[2, s:s + 1024:2] = 0
+    keep_r[1] = 0
+    return x, r, keep, keep_r
+
+
+@pytest.mark.parametrize("case", [0, 1, 2, "small"])
+def test_bnlms_gates_match_oracle(case):
+    """The f64 FFT gate against the oracle's direct f64 sums, block by
+    block, on echoes of either sign and pure noise, and on blocks whose
+    largest correlation is +1, +2 or 0."""
+    x, r, keep, keep_r = _gate_case(case)
+    got = K9.bnlms_gates(torch.from_numpy(x), torch.from_numpy(r), torch.from_numpy(keep),
+                         torch.from_numpy(keep_r)).numpy()
+    wants = []
     for i in range(3):
-        u = np.concatenate([keep[i].numpy(), x[i]])
-        v = np.concatenate([keep_r[i].numpy(), r[i]])
+        u = np.concatenate([keep[i], x[i]])
+        v = np.concatenate([keep_r[i], r[i]])
         for k in range(4):
             s = k * 1024
             want = not onl.double_talk_state(u[s:s + 1151].astype(np.float64),
                                              v[s:s + 1151].astype(np.float64))
             assert bool(got[i, k]) == want, (i, k)
+            wants.append(want)
+    if case == "small":
+        assert wants == [True] * 4 + [False] * 8
 
 
 def test_bnlms_apply_chunked_equals_whole_and_vs_jax():
