@@ -41,7 +41,8 @@ print lines and raise on failure:
      fails);
    - at full size: K10 >= 90 dB over the finite features with equal NaN and
      infinity masks (a silent stretch gives NaN frames); K11 bit-equal at
-     lo = 96 and lo = 0;
+     lo = 96 and lo = 0, and at lo = 96 on frames of random full-scale
+     extremes (sums past 2^24);
    - K12 at (2041, 8192), forward on real segments and inverse on their
      filtered spectra, and at (16384, 512), within 1e-5 of max |X| (it sums
      in another order than the four-step plain version: not bit-equal); K13 on
@@ -114,7 +115,8 @@ print lines and raise on failure:
    blocks, ``_enhance_fused``, engines mxu8f / mxu8t with the torch VAD and
    with K14 in turns, and K12 at (2041, 8192) and (16384, 512) (with
    ``torch.fft.fft`` on the same complex64 batch), K13 (with its f32 matmul
-   core) and K14 alone; K5 and K13 once more in turns with that core, Wiener
+   core) and K14 alone, K14 also over 50 calls under ``torch.profiler`` (its
+   device busy time and host share a call); K5 and K13 once more in turns with that core, Wiener
    and spectral subtraction.  The bounds of K5 and K13 count their GEMMs as
    the 3xTF32 they run, with the bf16x3 figure beside; those of K4 and K10
    count their functions through a real FFT, with the dense-DFT GEMM figure
@@ -186,9 +188,10 @@ CHAIN_STEPS = {"K6": GEQ_T + 12, "K7": GEQ_T + 12, "K8": AEC_T, "K9": AEC_T // 1
 # the figures of K6-K9 before their redesigns on the H100: chain cycles, and each
 # kernel's time (NVIDIA H100 80GB HBM3, 700 W; PERF.md, section 6)
 OLD_CHAIN_CYCLES = {"K6": 60, "K8": 380, "K9": 9300}
-PREVIOUS_MS = {"K6": 20.354, "K7": 6.951, "K8": 50.158, "K9": 15.567}
-# the ops' times before K7 and K9 were redesigned (the same card; PERF.md, section 5)
-PREVIOUS_OP_MS = {"geq_apply f64": 3.371, "nlms_apply": 26.120, "bnlms_apply": 51.165}
+PREVIOUS_MS = {"K6": 20.354, "K7": 6.951, "K8": 50.158, "K9": 15.567, "K11": 1.354, "K14": 0.035}
+# the ops' times before K7, K9 and K11 were redesigned (the same card; PERF.md, section 5)
+PREVIOUS_OP_MS = {"geq_apply f64": 3.371, "nlms_apply": 26.120, "bnlms_apply": 51.165,
+                  "pitch_frames(method=2, mxu, f32)": 1.421}
 
 
 def make_signal(n, rng):
@@ -1504,11 +1507,17 @@ SCORE_RTOL = 1e-4     # speech_classify's scores (f32 features) vs the f64 refer
 PITCH_SAMPLED = 256   # full-size frames held against the reference
 AMDF_LO = 96          # K11's first lag on the pitch path
 REF_PI = 3.141592
-# integer instructions an H100 SM dispatches per clock: one warp instruction per clock on each
-# of its 4 partitions, on the ALU pipe (IADD3, IABS: 16 lanes) and the FMA pipe (IMAD: 16
-# lanes) together (NVIDIA's Hopper white paper)
-INT_OPS_PER_CLOCK = 128
-AMDF_PAIR_OPS = 2     # what an AMDF pair needs: |u_i - u_{i+k}| and its add into the sum
+# lanes an H100 SM dispatches per clock: one warp instruction per clock on each of its 4
+# partitions, which is also its f32 rate (32 FP32 lanes a partition); its INT32 pipe has
+# 16 lanes a partition, 64 a clock per SM (NVIDIA's Hopper white paper)
+SM_LANES_PER_CLOCK = 128
+# the instructions of an AMDF pair on K11's route (csrc/amdf.cu): a packed int16 min
+# (VIMNMX.S16x2, the ALU pipe) and a dot (IDP2A, the FMA pipe) each take two pairs, so one
+# a pair (f32 would need two: d = a - b, then s += |d|; int32 three)
+AMDF_PAIR_OPS = 1
+# K11's chunk: 64 pairs (8 lags x 8 samples) from two 16-byte shared loads (a's 4 words,
+# b's 4 new ones), a warp's four 128-byte wavefronts each
+AMDF_CHUNK_PAIRS, AMDF_CHUNK_WAVEFRONTS = 64, 2 * 4 / 32
 # a real 1024-point FFT (2.5 n log2 n flops), then per frame pre-emphasis and window (3 per
 # sample), |X| (4 per bin), the mel runs (<= 2 weights per bin, 4 flops), the DCT (38 x 12)
 MFCC_FRAME_FLOPS = 2.5 * 1024 * 10 + 3 * 1024 + 4 * 512 + 4 * 512 + 2 * 38 * 12
@@ -1713,9 +1722,16 @@ def check_features(P, feat, sync):
     for lo in (AMDF_LO, 0):
         pairs.append((P.K11.amdf(frames, lo), P.K11.amdf_plain(frames, lo)))
         sync()
+    # random full-scale extremes: sums past 2^24, where an f32 sum would round
+    rng = np.random.default_rng(SEED + 6)
+    extremes = torch.from_numpy(np.where(rng.random((PITCH_T, 1024)) < 0.5, -32768, 32767)
+                                .astype(np.int16)).to(frames.device)
+    pairs.append((P.K11.amdf(extremes, AMDF_LO), P.K11.amdf_plain(extremes, AMDF_LO)))
+    sync()
     if any(g.dtype != torch.float64 for g, _ in pairs):
         raise RuntimeError("K11 must return float64")
-    err11 = _bit_equal("K11", f"T={PITCH_T} lo={AMDF_LO} and lo=0 (f64)", pairs)
+    err11 = _bit_equal("K11", f"T={PITCH_T} lo={AMDF_LO} and lo=0, and on random full-scale "
+                       f"extremes at lo={AMDF_LO} (f64)", pairs)
     return {"K10": err10, "K11": err11}
 
 
@@ -1873,8 +1889,9 @@ def time_features(P, feat, classify, card, sync):
             frames, method=2, dtype=torch.float32, fft_engine="mxu"), sync),
     }
     for op, ms in ops_ms.items():
+        before = f"; previously {PREVIOUS_OP_MS[op]:.3f} ms" if op in PREVIOUS_OP_MS else ""
         print(f"[5 timing] {op} {MFCC_T * 1024 if 'mfcc' in op else PITCH_T * 512} samples on "
-              f"{card}: {ms:.3f} ms = {(MFCC_T * 1024 if 'mfcc' in op else PITCH_T * 512) / (ms * 1e-3):.4g} samples/s")
+              f"{card}: {ms:.3f} ms = {(MFCC_T * 1024 if 'mfcc' in op else PITCH_T * 512) / (ms * 1e-3):.4g} samples/s{before}")
     ublocks, tmodel = classify
     per_utt = median_ms(lambda: [P.S.speech_classify(b, *tmodel, dtype=torch.float32,
                                                       fft_engine="mxu3") for b in ublocks],
@@ -1901,7 +1918,7 @@ def time_features(P, feat, classify, card, sync):
                 lambda: frames_f32 @ cs),
         "K11": (lambda: P.K11.amdf(frames, AMDF_LO), lambda: P.K11.amdf_plain(frames, AMDF_LO),
                 nbytes(frames) + PITCH_T * (512 - AMDF_LO) * 8,
-                (AMDF_PAIR_OPS * pairs, sms * INT_OPS_PER_CLOCK * clock_hz), None),
+                (AMDF_PAIR_OPS * pairs, sms * SM_LANES_PER_CLOCK * clock_hz), None),
     }
     times = {}
     for name, (kern, plain, nb, (ops, peak), lib) in runs.items():
@@ -1911,14 +1928,22 @@ def time_features(P, feat, classify, card, sync):
         b_ms, b_by = bound(nb, ops, peak)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         n_samples = MFCC_T * 1024 if name == "K10" else PITCH_T * 512
-        print(f"[5 timing] {name} at full size on {card}: kernel {ms:.3f} ms = "
+        before = f" (previously {PREVIOUS_MS[name]:.3f} ms)" if name in PREVIOUS_MS else ""
+        print(f"[5 timing] {name} at full size on {card}: kernel {ms:.3f} ms{before} = "
               f"{n_samples / (ms * 1e-3):.4g} samples/s; plain {plain_ms:.3f} ms; "
               f"{'f32 matmul core %.3f ms' % lib_ms if lib_ms else 'library call: none'}; bound "
               f"{b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops)")
     gemm_ms = 3 * 2 * N * 1024 * 1024 / BF16_OPS * 1e3
-    lds_ms = 2 * pairs / (sms * 32 * clock_hz) * 1e3
-    print(f"[5 timing] the kernels' own formulations: K11's two shared-memory loads per pair "
-          f"{lds_ms:.3f} ms at 32 lanes per SM per cycle, {clock_hz / 1e6:.0f} MHz")
+    # the chunks K11 runs: every group's, its last one whole (PROC - k0 = 8 * chunks)
+    chunks = PITCH_T * sum((1024 - k0) // 8 for k0 in range(AMDF_LO, 512, 8))
+    waves = chunks * AMDF_CHUNK_WAVEFRONTS
+    print(f"[5 timing] the kernels' own formulations: K11 runs {chunks * AMDF_CHUNK_PAIRS:.4g} "
+          f"pairs ({chunks * AMDF_CHUNK_PAIRS / pairs - 1:.2%} past the function's, the "
+          f"triangles' pads), {AMDF_PAIR_OPS * AMDF_CHUNK_PAIRS} VIMNMX.S16x2 and IDP2A a chunk = "
+          f"{AMDF_PAIR_OPS * chunks * AMDF_CHUNK_PAIRS / (sms * SM_LANES_PER_CLOCK * clock_hz) * 1e3:.3f}"
+          f" ms at {SM_LANES_PER_CLOCK} lanes per SM per cycle; its shared loads two 16-byte "
+          f"loads a chunk ({8 / AMDF_CHUNK_PAIRS:.4f} words a pair), {waves:.4g} wavefronts = "
+          f"{waves / (sms * clock_hz) * 1e3:.3f} ms at one a cycle per SM; {clock_hz / 1e6:.0f} MHz")
     win = torch.from_numpy(P.K4.rfft_constants()[P.K4.WINDOW:]).to(frames.device)
     pre = torch.cat([torch.zeros_like(frames_f32[:, :1]),
                      frames_f32[:, 1:] - P.F.PRE_EMPHASIS * frames_f32[:, :-1]], 1) * win
@@ -2274,10 +2299,13 @@ def time_transforms(P, xc, xf, blocks, C, back_ins, card, sync):
         print(f"[5 timing] K5 / K13 {mode} T={T_FULL} on {card}: K5 {t[0]:.4f} / {t[4]:.4f} ms, "
               f"K13 {t[1]:.4f} / {t[3]:.4f} ms, f32 matmul core {t[2]:.4f} ms; faster than the "
               f"core: K5 {k5 < t[2]}, K13 {k13 < t[2]}")
-    wall, busy, kernels, _ = profile_call(runs["K14"][0], sync, top=1)
-    print(f"[5 profile] K14 alone under torch.profiler on {card}: wall {wall:.4f} ms, device busy "
-          f"{busy:.4f} ms; the rest of the wall time is the wrapper's host path (checks, "
-          f"allocation, ctypes launch)")
+    calls = 50  # back to back: one call under the profiler would time the profiler's start
+    wall, busy, kernels, _ = profile_call(lambda: [runs["K14"][0]() for _ in range(calls)], sync,
+                                          top=1)
+    print(f"[5 profile] K14 alone under torch.profiler on {card}, {calls} calls: wall "
+          f"{wall / calls:.4f} ms a call, device busy {busy / calls:.4f} ms a call; host share "
+          f"{1 - busy / wall:.1%} (the wrapper's checks, the allocation and the ctypes launch); "
+          f"a call in batches {times['K14']['ms']:.4f} ms (previously {PREVIOUS_MS['K14']:.3f})")
     print(f"[5 timing] K12 ({nseg}, {FC.FFT_SIZE}): the inverse above; the forward on real input "
           f"{fwd_ms:.3f} ms (bound {bound(nbytes(segs, Xr, Xi), fft_flops, F32_OPS)[0]:.4f} ms); "
           f"library = torch.fft.fft on complex64")

@@ -34,10 +34,12 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return (a > b || a != a) ? a : b;  // NaN in either operand wins
 }
 
-// c_short: trunc toward zero; NaN or |t| >= 2^31 -> INT32_MIN; low 16 bits
+// c_short: t = trunc toward zero; NaN or |t| >= 2^31 -> INT32_MIN; low 16 bits.
+// The tests read v itself: |v| < 2^31 iff |t| < 2^31 (an f32 of 2^24 or more is an
+// integer), and (int)v truncates, so no separate truncf (FRND) takes the conversion
+// pipe beside the F2I.
 __device__ __forceinline__ int16_t c_short(float v) {
-  float t = truncf(v);
-  int i = (isfinite(t) && fabsf(t) < 2147483648.0f) ? (int)t : INT_MIN;
+  int i = (isfinite(v) && fabsf(v) < 2147483648.0f) ? (int)v : INT_MIN;
   return (int16_t)(uint16_t)(i & 0xffff);
 }
 

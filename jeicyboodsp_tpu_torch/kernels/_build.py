@@ -75,6 +75,7 @@ ENTRIES = {
 
 _lock = threading.Lock()
 _lib = None
+_fns = {}  # entry name -> its ctypes function, once the library is loaded
 build_seconds = None  # wall time of the nvcc runs that built the loaded library
 
 
@@ -145,17 +146,31 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = argtypes
+                _fns[name] = fn
             _lib = lib
         return _lib
 
 
 def launch(entry: str, device, *args) -> None:
     """Call the C entry ``entry`` on ``device``'s current stream (appended as
-    the last argument); raise if it reports a CUDA error."""
+    the last argument); raise if it reports a CUDA error.
+
+    The host path is kept short, since the short kernels' calls are bound by
+    it: the entry's ctypes function is resolved once, when the library
+    loads; the card is switched only when ``device`` is not the current
+    one; the stream is read as a raw pointer."""
     import torch
 
-    lib = load_library()
-    with torch.cuda.device(device):  # launch on the tensors' card
-        rc = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    fn = _fns.get(entry)
+    if fn is None:
+        load_library()
+        fn = _fns[entry]
+    index = device.index
+    current = torch._C._cuda_getDevice()  # CUDA is initialised: the tensors are on a card
+    if index is None or index == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):  # launch on the tensors' card
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")

@@ -20,24 +20,36 @@ from __future__ import annotations
 import torch
 
 from jeicyboodsp_tpu_torch.kernels import _build
-from jeicyboodsp_tpu_torch.kernels._common import N, check, check_rows
+from jeicyboodsp_tpu_torch.kernels._common import N
 from jeicyboodsp_tpu_torch.kernels.enhance_fwd_int8 import vad_rows
 
 
 def vad_flags(cur, w2):
     """(T, 512) int16 blocks, w2 (512,) f32 -> (T,) bool speech flags.
 
-    CUDA tensors launch ``jb_vad_flags`` (16-byte loads when the blocks
-    start on a 16-byte boundary, 2-byte loads otherwise); CPU tensors run
-    :func:`vad_rows`.
+    CUDA tensors launch ``jb_vad_flags`` (16-byte loads when the blocks and
+    w2 start on a 16-byte boundary, scalar loads otherwise); CPU tensors run
+    :func:`vad_rows`.  The checks are ``_common.check``'s, written out: the
+    engines mxu8f and mxu8t call this wrapper once a call, and its host
+    time is most of its time.
     """
-    T = cur.shape[0] if cur.dim() == 2 else -1
-    dev = check({"cur": (cur, torch.int16, (T, N)), "w2": (w2, torch.float32, (N,))})
-    check_rows(T, 1)
-    if dev.type == "cpu":
+    shape = cur.shape
+    if cur.dtype != torch.int16 or len(shape) != 2 or shape[1] != N or not shape[0]:
+        raise ValueError(f"cur must be (T, {N}) torch.int16 with T >= 1, "
+                         f"got {tuple(shape)} {cur.dtype}")
+    if w2.dtype != torch.float32 or w2.shape != (N,):
+        raise ValueError(f"w2 must be ({N},) torch.float32, got {tuple(w2.shape)} {w2.dtype}")
+    if not (cur.is_contiguous() and w2.is_contiguous()):
+        raise ValueError("cur and w2 must be contiguous")
+    dev = cur.device
+    if w2.device != dev:
+        raise ValueError(f"w2 is on {w2.device}, cur on {dev}")
+    if not cur.is_cuda:
+        if dev.type != "cpu":
+            raise ValueError(f"no kernel for device {dev}")
         return vad_rows(cur, w2)
-    flags = torch.empty(T, dtype=torch.bool, device=dev)
-    _build.launch("jb_vad_flags", dev, cur.data_ptr(), w2.data_ptr(), T, flags.data_ptr())
+    flags = cur.new_empty(shape[0], dtype=torch.bool)
+    _build.launch("jb_vad_flags", dev, cur.data_ptr(), w2.data_ptr(), shape[0], flags.data_ptr())
     vad_flags.launches += 1
     return flags
 

@@ -831,8 +831,11 @@ def test_mfcc_kernel_frame_counts(cuda, N):
 
 
 @pytest.mark.parametrize("lo", [0, 8, 96, 504])
-@pytest.mark.parametrize("T", [1, 333])
+@pytest.mark.parametrize("T", [1, 2, 333, 16384 + 5])
 def test_amdf_kernel_bit_equal_to_plain(cuda, T, lo):
+    """K11 over T frames: 16 a block, so 2, 333 and 16389 leave the last block
+    ragged; each lo gives another count of lag groups (odd at lo = 8 and
+    504)."""
     frames = _frames(T, T + lo).to(cuda)
     frames[0] = 0  # a silent frame: every lag 0
     before = K11.amdf.launches
@@ -841,6 +844,31 @@ def test_amdf_kernel_bit_equal_to_plain(cuda, T, lo):
     assert K11.amdf.launches == before + 1
     assert got.dtype == torch.float64 and got.shape == (T, 512 - lo)
     assert torch.equal(got, K11.amdf_plain(frames, lo)) and got[0].eq(0).all()
+
+
+@pytest.mark.parametrize("lo", [0, 8, 96, 504])
+@pytest.mark.parametrize("odd", [False, True], ids=["aligned", "odd-offset"])
+def test_amdf_kernel_extremes_bit_equal(cuda, odd, lo):
+    """K11 bit-equal to its plain version on frames of full-scale extremes
+    (random and alternating: the sums pass 2^24, where an f32 sum would
+    round, and the packed int16 minima take both extremes), a silent frame,
+    aligned and as a contiguous view one sample past a 16-byte boundary (the
+    scalar-load variant)."""
+    rng = np.random.default_rng(lo)
+    u = np.where(rng.random((37, 1024)) < 0.5, -32768, 32767).astype(np.int16)
+    u[1] = np.tile(np.array([-32768, 32767], np.int16), 512)
+    u[2] = 0
+    frames = torch.from_numpy(u).to(cuda)
+    if odd:
+        buf = torch.zeros(frames.numel() + 1, dtype=torch.int16, device=cuda)
+        buf[1:] = frames.reshape(-1)
+        frames = buf[1:].view(frames.shape)
+        assert frames.data_ptr() % 16 and frames.is_contiguous()
+    got = K11.amdf(frames, lo)
+    want = K11.amdf_plain(frames, lo)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and got[2].eq(0).all()
+    assert float(want[1, 1]) == 65535  # lag lo + 1: (1023 - lo) * 65535 >= 2^25
 
 
 def test_feature_paths_launch_their_kernels(cuda):
@@ -1113,6 +1141,33 @@ def test_vad_kernel_bit_equal_to_plain(cuda):
     odd = buf[1:].view(cur.shape)
     assert odd.data_ptr() % 16
     assert torch.equal(K14.vad_flags(odd, w2), got)
+
+
+@pytest.mark.parametrize("T", [1, 7, 9, 2049, 16384 + 3])
+def test_vad_kernel_row_counts(cuda, T):
+    """K14 over T rows: 8 warps a block and a grid of at most 4 blocks an
+    SM, so 2049 and 16387 rows take more than one round of the grid-stride
+    loop and end in a part of one; the last rows are the threshold rows,
+    with both windows, aligned and one sample past a 16-byte boundary."""
+    C = E.enhance_constants(cuda)
+    for w2 in (E._vad_window(cuda), C["w2"]):
+        edge = vad_threshold_rows(w2.cpu().numpy())
+        rows = np.concatenate([_signal(T // 2 + 1, T).reshape(-1, 512),
+                               np.random.default_rng(T).integers(-32768, 32768, (T, 512))
+                               .astype(np.int16)])
+        rows = np.concatenate([rows[:max(T - len(edge), 0)], edge])[-T:]
+        cur = torch.from_numpy(rows).to(cuda)
+        buf = torch.zeros(cur.numel() + 1, dtype=torch.int16, device=cuda)
+        buf[1:] = cur.reshape(-1)
+        odd = buf[1:].view(cur.shape)
+        before = K14.vad_flags.launches
+        got, got_odd = K14.vad_flags(cur, w2), K14.vad_flags(odd, w2)
+        torch.cuda.synchronize()
+        assert K14.vad_flags.launches == before + 2
+        want = K2.vad_rows(cur, w2)
+        assert got.shape == (T,) and torch.equal(got, want) and torch.equal(got_odd, want)
+        if T >= len(edge):
+            assert got[-6:].tolist() == [False, False, True, True, False, False]
 
 
 def test_engines_mxu8f_mxu8t_launch_k14(cuda):
