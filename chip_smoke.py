@@ -15,8 +15,11 @@ with speech classification against 25 class models, and pitch method 2
 of 1024 (2041 segments of 8192; the shared-memory FFT K12 for engines mxu
 and mxu3), the FFT program over 16,384 blocks of 512 (K12 for ``fourstep``), the
 two-kernel f32 enhancement engine ``_enhance_fused`` (K4, K13) at T = 16384,
-and the VAD kernel K14 under engines mxu8f and mxu8t -- in phases that each
-print lines and raise on failure:
+the VAD kernel K14 under engines mxu8f and mxu8t; streaming with checkpoints
+(``EnhanceSession`` over the T = 16384 signal, K14 in f32; ``GEQSession``
+(K6), ``AECSession`` (K8, K9) over one stream each; the ``stream`` CLI killed
+and resumed) and the MVDR beamformer over 16,384 stereo blocks -- in phases
+that each print lines and raise on failure:
 
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA sources with nvcc and prints the seconds;
@@ -97,6 +100,24 @@ print lines and raise on failure:
      ``_enhance_fused`` at T = 16384, each against the script's float64
      numpy copies of the oracles (f64 within one step; f32 at the floors of
      tests/test_engine_matrix.py; ``_enhance_fused`` >= 85 dB);
+   - streaming (K6, K8, K9, K14 counted; their launches added to the
+     earlier phases'): ``EnhanceSession`` wiener at T = 16384 in f64 and
+     f32, in chunks of 4 blocks with a checkpoint at the middle restored
+     into a fresh session (the second halves bit-equal) and in ragged
+     chunks; f64 within one step on under 0.1% of ``reference_enhance`` and
+     of the one-shot ``run_stream``, f32 >= 95 dB of the one-shot f32
+     ``xla`` chain (the differing samples counted); the ``stream`` CLI in
+     subprocesses with ``--chunk-blocks 64``, killed twice by
+     ``--crash-after`` and finished, byte-identical to an uninterrupted
+     run; ``GEQSession`` over 49,152 samples and both ``AECSession`` s over
+     65,536, each with a mid-stream checkpoint, bit-equal to
+     ``reference_geq`` / ``reference_nlms_blocks`` / ``reference_bnlms_blocks``
+     and to one uninterrupted session;
+   - MVDR (no kernel): ``mvdr_blocks`` at T = 16384 against
+     ``reference_mvdr``, the script's f64 copy of the oracle: f64 ``xla``
+     and ``steering_delay(0.3)`` within one step on under 1%, f32 ``xla``
+     and ``mxu3`` with ``collapse=False`` >= 60 dB, the ``mxu3`` collapse
+     within one step on under 1% and >= 90 dB;
 5. timing (CUDA events around batches of back-to-back calls, see
    ``median_ms``): ``enhance_blocks`` of each engine, the ops ``geq_apply``
    (f64 and f32), ``nlms_apply`` and ``bnlms_apply`` (with the gate alone at
@@ -117,7 +138,10 @@ print lines and raise on failure:
    ``torch.fft.fft`` on the same complex64 batch), K13 (with its f32 matmul
    core) and K14 alone, K14 also over 50 calls under ``torch.profiler`` (its
    device busy time and host share a call); K5 and K13 once more in turns with that core, Wiener
-   and spectral subtraction.  The bounds of K5 and K13 count their GEMMs as
+   and spectral subtraction; ``mvdr_blocks`` per engine (ms, samples/s);
+   ``EnhanceSession`` ms a chunk, f64 and f32, at 4 and 64 blocks, and one
+   chunk of 4 under ``torch.profiler`` (device busy, idle share).  The
+   bounds of K5 and K13 count their GEMMs as
    the 3xTF32 they run, with the bf16x3 figure beside; those of K4 and K10
    count their functions through a real FFT, with the dense-DFT GEMM figure
    beside.
@@ -2329,6 +2353,392 @@ def time_transforms(P, xc, xf, blocks, C, back_ins, card, sync):
     return times
 
 
+# ---- streaming with checkpoints and MVDR ---------------------------------------
+
+STREAM_CHUNK = 4          # blocks per chunk: JAX's default (stream --chunk-blocks)
+STREAM_CHUNK_TIMED = (4, 64)
+STREAM_RAGGED = (1, 3, 5, 7, 4, 11)  # chunk sizes in turn
+STREAM_CLI_CHUNK, STREAM_CLI_EVERY, STREAM_CLI_CRASH = 64, 8, 50
+MVDR_FLIPS = 0.01         # f64 against the reference: one step, on under 1% (tests/test_mvdr.py)
+MVDR_F32_DB, MVDR_COLLAPSE_DB = 60.0, 90.0
+MV_BLOCK, MV_KEEP, MV_FFT = 512, 511, 1024  # BeamForming_MVDR_ver1.cpp
+MV_THRESHOLD, MV_FS, MV_SPEED, MV_DIST = 700.0, 16000.0, 34000.0, 800.0
+
+
+def make_stereo(n, rng):
+    """Two mics: the gated 400 Hz tone of tests/test_mvdr.py (0.8x on the
+    right) switching on and off as make_signal's, over N(0, 15) on each."""
+    t = np.arange(n) / FS
+    speech = 6000 * np.sin(2 * np.pi * 400 * t) * (np.sin(2 * np.pi * 0.5 * t) > 0.2)
+    xl = np.clip(speech + rng.normal(0, 15, n), -32768, 32767).astype(np.int16)
+    xr = np.clip(0.8 * speech + rng.normal(0, 15, n), -32768, 32767).astype(np.int16)
+    return xl, xr
+
+
+def reference_mvdr(xl, xr, d_time=0.0):
+    """float64 numpy reference of BeamForming_MVDR_ver1.cpp (a copy of
+    jeicyboodsp_tpu/oracle/mvdr.py): 512-sample stereo blocks of the shorter
+    channel (stale tails), the left channel's energy VAD on [zeros(511), x,
+    0], a never-reset 2x2 correlation R summed from the unwindowed FFTs of
+    [previous noise block, block] once two noise blocks follow each other,
+    frames [keep(511), x, 0] whose keep is the current block's first 511
+    samples, weights R^-1 c / (c^H R^-1 c), the overwrite-sequencing quirk,
+    samples 511..1022 of the IFFT to short, written from the second block."""
+    w = 0.54 - 0.46 * np.cos(2.0 * REF_PI * np.arange(MV_FFT) / (MV_FFT - 1))
+    xl, xr = np.asarray(xl, np.int16), np.asarray(xr, np.int16)
+    n = min(len(xl), len(xr))
+    noise_cnt, count = 0, 0
+    temp_l, temp_r = np.zeros(MV_BLOCK, np.int16), np.zeros(MV_BLOCK, np.int16)
+    R = np.zeros((2, 2))
+    keep_l, keep_r = np.zeros(MV_KEEP), np.zeros(MV_KEEP)
+    prev_l, prev_r = np.zeros(MV_BLOCK, np.int16), np.zeros(MV_BLOCK, np.int16)
+    i = np.arange(MV_FFT)
+    ang = 2.0 * REF_PI * i * (MV_FS / MV_FFT) * d_time
+    c = np.stack([np.ones(MV_FFT, np.complex128), np.cos(ang) + 1j * np.sin(ang)])
+    out = []
+    for s in range(0, n, MV_BLOCK):
+        bl, br = xl[s: s + MV_BLOCK], xr[s: s + MV_BLOCK]
+        if len(bl) < MV_BLOCK:
+            bl = np.concatenate([bl, prev_l[len(bl):]])
+        if len(br) < MV_BLOCK:
+            br = np.concatenate([br, prev_r[len(br):]])
+        prev_l, prev_r = bl, br
+        frame = np.zeros(MV_FFT, np.int64)
+        frame[MV_KEEP: MV_KEEP + MV_BLOCK] = bl
+        if not np.sum(_c_short(frame * w).astype(np.float64) ** 2) / MV_FFT > MV_THRESHOLD:
+            noise_cnt += 1
+            if noise_cnt > 1:
+                L = np.fft.fft(np.concatenate([temp_l, bl]).astype(np.float64), MV_FFT)
+                Rt = np.fft.fft(np.concatenate([temp_r, br]).astype(np.float64), MV_FFT)
+                R[0, 0] += np.sum(L.real ** 2 + L.imag ** 2) / MV_FFT
+                R[0, 1] += np.sum(-L.real * Rt.imag + L.imag * Rt.real) / MV_FFT
+                R[1, 0] += np.sum(-Rt.real * L.imag + Rt.imag * L.real) / MV_FFT
+                R[1, 1] += np.sum(Rt.real ** 2 + Rt.imag ** 2) / MV_FFT
+            temp_l, temp_r = bl.copy(), br.copy()
+        else:
+            noise_cnt = 0
+        count += 1
+        frame_l, frame_r = np.zeros(MV_FFT), np.zeros(MV_FFT)
+        frame_l[:MV_KEEP], frame_r[:MV_KEEP] = keep_l, keep_r
+        frame_l[MV_KEEP: MV_KEEP + MV_BLOCK], frame_r[MV_KEEP: MV_KEEP + MV_BLOCK] = bl, br
+        L, Rf = np.fft.fft(frame_l), np.fft.fft(frame_r)
+        Rc = R.astype(np.complex128)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            det = Rc[0, 0] * Rc[1, 1] - Rc[0, 1] * Rc[1, 0]
+            Rinv = np.array([[Rc[1, 1], -Rc[0, 1]], [-Rc[1, 0], Rc[0, 0]]],
+                            dtype=np.complex128) / det
+            wv = Rinv @ c
+            wv = wv / (np.conj(c) * wv).sum(axis=0)
+        wl_r, wl_i, wr_r, wr_i = wv[0].real, -wv[0].imag, wv[1].real, -wv[1].imag
+        L0 = L.real * wl_r - L.imag * wl_i
+        L1 = L0 * wl_i + L.imag * wl_r
+        R0 = Rf.real * wr_r - Rf.imag * wr_i
+        R1 = R0 * wr_i + Rf.imag * wr_r
+        y = np.fft.ifft((L0 + R0) + 1j * (L1 + R1)).real
+        if count > 1:
+            out.append(_c_short(y[MV_KEEP: MV_KEEP + MV_BLOCK]))
+        keep_l = frame_l[MV_KEEP: 2 * MV_KEEP].copy()
+        keep_r = frame_r[MV_KEEP: 2 * MV_KEEP].copy()
+    return np.concatenate(out) if out else np.zeros(0, np.int16)
+
+
+def _session_run(sess, blocks, sizes):
+    """Feed blocks to an EnhanceSession in chunks cycling through sizes."""
+    outs, s, i = [], 0, 0
+    while s < len(blocks):
+        k = sizes[i % len(sizes)]
+        outs.append(sess.process(blocks[s: s + k]))
+        s, i = s + k, i + 1
+    return np.concatenate(outs)
+
+
+def _resumed(make, blocks, chunk, work, tag):
+    """Chunks of ``chunk`` blocks through one session with a checkpoint at the
+    middle block, and the second half again through a fresh session restored
+    from it; returns (whole output, the restored session's second half, the
+    first session's second half)."""
+    half = len(blocks) // 2 // chunk * chunk
+    sess = make()
+    a = _session_run(sess, blocks[:half], [chunk])
+    ck = os.path.join(work, f"stream_{tag}.npz")
+    sess.checkpoint(ck)
+    b = _session_run(sess, blocks[half:], [chunk])
+    fresh = make()
+    fresh.restore(ck)
+    if fresh.sample_offset != half * 512:
+        raise RuntimeError(f"stream {tag}: restored offset {fresh.sample_offset} != {half * 512}")
+    return np.concatenate([a, b]), _session_run(fresh, blocks[half:], [chunk]), b
+
+
+def _flip_count(got, want, what, share, tag="[4 stream]"):
+    """int16 outputs at most one step apart on under ``share`` of the
+    samples; prints the count and raises otherwise."""
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64)) if got.shape == want.shape else None
+    flipped = int((d > 0).sum()) if d is not None else -1
+    worst = int(d.max(initial=0)) if d is not None else -1
+    print(f"{tag} {what}: {len(got)} samples, {flipped} differ, max |diff| {worst}")
+    if d is None or worst > 1 or flipped >= share * max(len(want), 1):
+        raise RuntimeError(f"{what}: {flipped} samples differ (max |diff| {worst}), shapes "
+                           f"{got.shape} / {want.shape}")
+    return flipped
+
+
+def _cli_stream(dev, *args):
+    """The port's ``stream`` command in a subprocess on the card; its exit code."""
+    cmd = [sys.executable, "-m", "jeicyboodsp_tpu_torch.cli", "stream", *args, "--device", str(dev)]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if res.returncode not in (0, 137):
+        print(res.stderr[-2000:], file=sys.stderr)
+    return res.returncode
+
+
+def _same(what, got, want):
+    same = got.shape == want.shape and np.array_equal(got, want)
+    differ = int((got != want).sum()) if got.shape == want.shape else -1
+    print(f"[4 stream] {what}: bit-equal {same} ({differ} samples differ)")
+    if not same:
+        raise RuntimeError(f"{what}: not bit-equal ({differ} samples differ)")
+
+
+def _vad_chunks_vs_plain(P, dev, blocks, sync):
+    """K14 at the row counts a stream gives it: for each chunk size of the
+    stream phase, the whole stream (``blocks``, (T, 512) int16 on the host)
+    cut into chunks of that many rows, each chunk's flags from the wrapper
+    bit-equal to K2.vad_rows on the same rows (the f32 window the stream's
+    VAD reads).  Made after the stream phase's counts are read, so these
+    launches are not counted."""
+    import torch
+
+    w = P.E._vad_window(dev)
+    blocks = torch.from_numpy(blocks).to(dev)
+    for n in sorted({STREAM_CHUNK, *STREAM_RAGGED}):
+        cuts = range(0, blocks.shape[0], n)
+        got = torch.cat([P.K14.vad_flags(blocks[s: s + n], w) for s in cuts])
+        want = torch.cat([P.K2.vad_rows(blocks[s: s + n], w) for s in cuts])
+        sync()
+        diff = (got != want).nonzero()[:, 0].tolist()
+        print(f"[4 stream] K14 in chunks of {n} rows ({len(cuts)} launches) vs vad_rows on the "
+              f"same rows: bit-equal {not diff}, differing rows {diff[:10]}; "
+              f"{int(got.sum())} speech rows")
+        if diff:
+            raise RuntimeError(f"K14 in chunks of {n} rows: {len(diff)} flags differ from "
+                               f"vad_rows")
+
+
+def drive_stream(P, dev, x_full, refs, geq, aec, sync):
+    """Phase 4 for streaming with checkpoints, the K6, K8, K9 and K14 counters
+    set to 0 just before and read just after: EnhanceSession at T_FULL in
+    f64 and f32 (chunks of 4 with a checkpoint at the middle restored into a
+    fresh session, and ragged chunks), the CLI's kill-and-resume in
+    subprocesses, GEQSession and both AECSessions over one stream each with
+    a mid-stream checkpoint.  Then K14 against its plain version at each
+    chunk size of the phase (:func:`_vad_chunks_vs_plain`).  Returns the
+    counts."""
+    import torch
+
+    from jeicyboodsp_tpu_torch.io import stream as ST
+    from jeicyboodsp_tpu_torch.utils.metrics import snr_db
+
+    counted = {"K6": P.K6.geq_cascade_quant, "K8": P.K8.nlms, "K9": P.K9.bnlms,
+               "K14": P.K14.vad_flags}
+    work = os.path.join(ROOT, "jeicyboodsp_tpu_torch", "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    blocks = x_full.reshape(T_FULL, 512)
+    b, a = P.G.geq_coefficients()
+    gx = np.concatenate([geq[GEQ_B // 8, : 3 * GEQ_T // 4].cpu().numpy(),
+                         geq[0, 3 * GEQ_T // 4:].cpu().numpy()])  # a tone, then wrap stress
+    ax, ar = aec[0][0].cpu().numpy(), aec[1][0].cpu().numpy()  # an echo
+    bx, br = aec[0][-1].cpu().numpy(), aec[1][-1].cpu().numpy()  # double talk
+    want_geq = reference_geq(gx, b, a)
+    want_nlms = reference_nlms_blocks(ax.reshape(-1, 1024), ar.reshape(-1, 1024))
+    want_bnlms = reference_bnlms_blocks(bx.reshape(-1, 1024), br.reshape(-1, 1024))
+    one_f64 = P.E.run_stream(x_full, "wiener", device=dev)
+    one_f32 = P.E.run_stream(x_full, "wiener", dtype=torch.float32, device=dev)
+    x_full.tofile(os.path.join(work, "stream_in.pcm"))
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    runs = {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        def make(dtype=dtype):
+            return ST.EnhanceSession("wiener", dtype=dtype, device=dev)
+
+        t1 = time.perf_counter()
+        runs[name, "resumed"] = _resumed(make, blocks, STREAM_CHUNK, work, name)
+        runs[name, "ragged"] = _session_run(make(), blocks, STREAM_RAGGED)
+        print(f"[4 stream] EnhanceSession wiener {name} at T={T_FULL}: chunks of {STREAM_CHUNK} "
+              f"with a checkpoint, then ragged chunks {STREAM_RAGGED}, "
+              f"{time.perf_counter() - t1:.1f} s")
+    whole = os.path.join(work, "stream_whole.pcm")
+    killed, ck = os.path.join(work, "stream_killed.pcm"), os.path.join(work, "stream_ck.npz")
+    for f in (killed, ck):
+        if os.path.exists(f):
+            os.remove(f)
+    cli = ("--chunk-blocks", str(STREAM_CLI_CHUNK))
+    rcs = [_cli_stream(dev, os.path.join(work, "stream_in.pcm"), whole, "wiener", *cli)]
+    common = (os.path.join(work, "stream_in.pcm"), killed, "wiener", *cli, "--ckpt", ck,
+              "--ckpt-every", str(STREAM_CLI_EVERY))
+    rcs += [_cli_stream(dev, *common, "--crash-after", str(STREAM_CLI_CRASH)) for _ in range(2)]
+    rcs.append(_cli_stream(dev, *common))
+    aec_runs = {}
+    g1 = ST.GEQSession(device=dev)
+    ya = np.concatenate([g1.process(gx[s: s + 512]) for s in range(0, GEQ_T // 2, 512)])
+    g1.checkpoint(os.path.join(work, "geq_session.npz"))
+    yb = np.concatenate([g1.process(gx[s: s + 512]) for s in range(GEQ_T // 2, GEQ_T, 512)])
+    g2 = ST.GEQSession(device=dev)
+    g2.restore(os.path.join(work, "geq_session.npz"))
+    geq_runs = [np.concatenate([ya, yb]), g2.process(gx[GEQ_T // 2:]), yb,
+                ST.GEQSession(device=dev).process(gx)]
+    for variant, (x, r) in (("nlms", (ax, ar)), ("bnlms", (bx, br))):
+        s1 = ST.AECSession(variant, device=dev)
+        half = AEC_T // 2
+        pa = [s1.process(x[s: s + 1024], r[s: s + 1024]) for s in range(0, half, 1024)]
+        s1.checkpoint(os.path.join(work, f"{variant}_session.npz"))
+        pb = [s1.process(x[s: s + 1024], r[s: s + 1024]) for s in range(half, AEC_T, 1024)]
+        s2 = ST.AECSession(variant, device=dev)
+        s2.restore(os.path.join(work, f"{variant}_session.npz"))
+        aec_runs[variant] = ([np.concatenate([p[i] for p in pa + pb]) for i in (0, 1)],
+                             s2.process(x[half:], r[half:]),
+                             [np.concatenate([p[i] for p in pb]) for i in (0, 1)],
+                             ST.AECSession(variant, device=dev).process(x, r))
+    sync()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    print(f"[4 stream] launches {json.dumps(launches)} in {time.perf_counter() - t0:.1f} s")
+    _vad_chunks_vs_plain(P, dev, blocks, sync)
+
+    for name in ("f64", "f32"):
+        out, again, cont = runs[name, "resumed"]
+        _same(f"{name} second half after restore vs the uninterrupted session", again, cont)
+        ragged = runs[name, "ragged"]
+        if name == "f64":
+            _flip_count(out, refs["full", "wiener"], "f64 chunks of 4 vs reference_enhance",
+                        COMPAT_FLIPPED)
+            _flip_count(ragged, refs["full", "wiener"], "f64 ragged chunks vs reference_enhance",
+                        COMPAT_FLIPPED)
+            _flip_count(out, one_f64, "f64 chunks of 4 vs the one-shot run_stream", COMPAT_FLIPPED)
+        else:
+            for what, got in (("chunks of 4", out), ("ragged chunks", ragged)):
+                d = int((got != one_f32).sum()) if got.shape == one_f32.shape else -1
+                snr = snr_db(one_f32, got) if got.shape == one_f32.shape else float("nan")
+                print(f"[4 stream] f32 {what} vs the one-shot f32 xla run_stream: {snr:.2f} dB, "
+                      f"{d} samples differ")
+                if d != 0:
+                    raise RuntimeError(f"stream f32 {what}: {d} samples differ from the one-shot "
+                                       f"run ({snr:.2f} dB)")
+            snr = snr_db(refs["full", "wiener"], out)
+            print(f"[4 stream] f32 chunks of 4 vs reference_enhance: {snr:.2f} dB")
+    print(f"[4 stream] CLI stream --chunk-blocks {STREAM_CLI_CHUNK}: exit codes {rcs} "
+          f"(uninterrupted, killed after {STREAM_CLI_CRASH} chunks twice, finished)")
+    if rcs != [0, 137, 137, 0]:
+        raise RuntimeError(f"CLI stream exit codes {rcs} != [0, 137, 137, 0]")
+    _same("CLI stream killed twice and resumed vs uninterrupted", np.fromfile(killed, "<i2"),
+          np.fromfile(whole, "<i2"))
+    _flip_count(np.fromfile(whole, "<i2"), refs["full", "wiener"],
+                "CLI stream vs reference_enhance", COMPAT_FLIPPED)
+    for what, got in zip(("GEQSession with a checkpoint", "GEQSession restored (2nd half)",
+                          "GEQSession uninterrupted"), (geq_runs[0], geq_runs[1], geq_runs[3])):
+        want = want_geq if got.shape == want_geq.shape else want_geq[GEQ_T // 2:]
+        _same(f"{what} over {len(got)} samples vs reference_geq", got, want)
+    _same("GEQSession restored vs the first session's second half", geq_runs[1], geq_runs[2])
+    for variant, want in (("nlms", want_nlms), ("bnlms", want_bnlms)):
+        whole_run, again, cont, uninterrupted = aec_runs[variant]
+        if variant == "bnlms":
+            print(f"[4 stream] BNLMS stream with a near-end talker: gates open on "
+                  f"{sum(want[2])} of {len(want[2])} blocks")
+        for i, sig in enumerate(("est", "err")):
+            ref = want[i].reshape(-1)
+            _same(f"AECSession {variant} {sig} with a checkpoint over {AEC_T} samples vs "
+                  f"reference", whole_run[i], ref)
+            _same(f"AECSession {variant} {sig} uninterrupted vs reference", uninterrupted[i], ref)
+            _same(f"AECSession {variant} {sig} restored vs the first session", again[i], cont[i])
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"the stream phase did not launch {missing}")
+    return launches
+
+
+def time_stream(P, dev, x_full, card, sync):
+    """Phase 5 for streaming: ms per chunk of EnhanceSession (median of REPS
+    batches, CUDA events), f64 and f32 at chunks of 4 and 64 blocks, and one
+    chunk of 4 under torch.profiler (device busy time, the idle share)."""
+    import torch
+
+    from jeicyboodsp_tpu_torch.io import stream as ST
+
+    blocks = x_full.reshape(T_FULL, 512)
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        for chunk in STREAM_CHUNK_TIMED:
+            sess = ST.EnhanceSession("wiener", dtype=dtype, device=dev)
+            pos = [0]
+
+            def step(sess=sess, chunk=chunk):
+                s = pos[0]
+                pos[0] = (s + chunk) % (T_FULL - chunk)
+                sess.process(blocks[s: s + chunk])
+
+            ms = median_ms(step, sync)
+            print(f"[5 timing] EnhanceSession wiener {name} chunk {chunk} on {card}: {ms:.3f} ms "
+                  f"a chunk, {chunk * 512 / ms * 1e3:.4g} samples/s")
+            if chunk == STREAM_CHUNK:
+                wall, busy, kernels, host = profile_call(step, sync, top=5)
+                print(f"[5 timing] EnhanceSession {name} chunk {chunk} under torch.profiler: "
+                      f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+                      f"{1 - busy / wall:.3f}; top kernels "
+                      f"{[(round(t, 4), c, k[:40]) for t, c, k in kernels]}; top host ops "
+                      f"{[(round(t, 3), c, k[:40]) for t, c, k in host]}")
+
+
+def drive_mvdr(P, dev, card, sync):
+    """Phase 4 and 5 for MVDR at T_FULL stereo blocks against reference_mvdr:
+    f64 xla one step on under 1% of the samples; f32 xla and f32 mxu3 with
+    collapse=False >= 60 dB; the mxu3 collapse one step on under 1% and >=
+    90 dB; steering_delay(0.3) in f64 one step on under 1%.  Then each engine
+    timed (median ms, samples/s).  No kernel runs on this path."""
+    import torch
+
+    from jeicyboodsp_tpu_torch.ops import mvdr as MV
+    from jeicyboodsp_tpu_torch.utils.metrics import snr_db
+
+    rng = np.random.default_rng(SEED + 3)
+    xl, xr = make_stereo(T_FULL * 512, rng)
+    t0 = time.perf_counter()
+    want = reference_mvdr(xl, xr)
+    dt = MV.steering_delay(0.3)
+    want_dt = reference_mvdr(xl, xr, d_time=dt)
+    print(f"[4 mvdr] reference_mvdr at T={T_FULL}, twice: {time.perf_counter() - t0:.1f} s")
+    bl, br = (torch.from_numpy(x.reshape(T_FULL, 512)).to(dev) for x in (xl, xr))
+    cases = {  # name: (dtype, engine, collapse, d_time)
+        "f64 xla": (torch.float64, "xla", True, 0.0),
+        "f32 xla": (torch.float32, "xla", True, 0.0),
+        "f32 mxu3 collapse=False": (torch.float32, "mxu3", False, 0.0),
+        "f32 mxu3 (collapse)": (torch.float32, "mxu3", True, 0.0),
+        "f64 xla steering 0.3": (torch.float64, "xla", True, dt),
+    }
+    for name, (dtype, eng, col, d) in cases.items():
+        out, mask = MV.mvdr_blocks(bl, br, d, dtype=dtype, fft_engine=eng, collapse=col)
+        got = out[mask].reshape(-1).cpu().numpy()
+        ref = want_dt if d else want
+        if np.isnan(snr := snr_db(ref, got)) or got.shape != ref.shape:
+            raise RuntimeError(f"mvdr {name}: {got.shape} samples, want {ref.shape}")
+        if dtype == torch.float64 or col and eng == "mxu3":
+            _flip_count(got, ref, f"{name} vs reference_mvdr ({snr:.2f} dB)", MVDR_FLIPS,
+                        tag="[4 mvdr]")
+        if dtype == torch.float32:
+            floor = MVDR_COLLAPSE_DB if col and eng == "mxu3" else MVDR_F32_DB
+            print(f"[4 mvdr] {name}: {snr:.2f} dB vs reference_mvdr (floor {floor})")
+            if not snr >= floor:
+                raise RuntimeError(f"mvdr {name}: {snr:.2f} dB < {floor}")
+        def call(dtype=dtype, eng=eng, col=col, d=d):
+            return MV.mvdr_blocks(bl, br, d, dtype=dtype, fft_engine=eng, collapse=col)
+
+        ms = median_ms(call, sync)
+        wall, busy, kernels, _ = profile_call(call, sync, top=4)
+        print(f"[5 timing] mvdr_blocks {name} T={T_FULL} on {card}: {ms:.3f} ms, "
+              f"{T_FULL * 512 / ms * 1e3:.4g} samples/s; under torch.profiler device busy "
+              f"{busy:.3f} of {wall:.3f} ms, top kernels "
+              f"{[(round(t, 3), c, k[:48]) for t, c, k in kernels]}")
+
+
 SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (file:line)
     "K1": ("enhance_full8", "enhance_full8.cu", "enhance_pallas.py:737"),
     "K2": ("enhance_fwd_int8", "enhance_mxu8.cu", "enhance_pallas.py:217"),
@@ -2402,11 +2812,15 @@ def main() -> int:
     feat_launches, classify = drive_features(P, feat, dev, sync)
     launches.update(feat_launches)
     launches.update(drive_transforms(P, xc, xf, x_full, blocks, dev, sync))
+    for k, n in drive_stream(P, dev, x_full, refs, geq, aec, sync).items():
+        launches[k] += n  # the stream phase's launches, added to the earlier phases'
+    drive_mvdr(P, dev, card, sync)
     time_chains(P, blocks, C, card, sync)
     times = time_kernels(P, blocks, C, rowpack, back_ins, card, sync)
     times.update(time_recursions(P, geq, aec, card, sync))
     times.update(time_features(P, feat, classify, card, sync))
     times.update(time_transforms(P, xc, xf, blocks, C, back_ins, card, sync))
+    time_stream(P, dev, x_full, card, sync)
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -8,15 +8,16 @@ found at the same path:
                 GEQ and the NLMS/BNLMS echo cancellers; MFCC and pitch;
                 the matmul DFTs; the RIR fast convolution; the FFT
                 roundtrip program).
-- ``models``    the GMM class scorer.
+- ``models``    the GMM class scorer; pytree checkpoints (the JAX
+                package's npz layout).
 - ``kernels``   wrappers of the hand-written Hopper kernels, each beside its
                 plain PyTorch version and a launch counter; ``_build``
                 compiles ``csrc/`` with nvcc at first use.
 - ``csrc``      CUDA C++ sources (sm_90a).
-- ``io``        PCM16 file I/O.
+- ``io``        PCM16 file I/O; streaming sessions with checkpoint/resume.
 - ``pipelines`` file-in/file-out pipelines (wiener, specsub, geq, nlms,
-                bnlms, pitch1-3, mfcc, fastconv, fft) and speech
-                classification.
+                bnlms, pitch1-3, mfcc, fastconv, fft, mvdr, stream) and
+                speech classification.
 - ``utils``     C-numeric emulation (``c_short``), SNR, the entry device.
 
 The package imports torch and numpy only: never jax, never
@@ -26,7 +27,9 @@ through engines ``mxu8f``, ``mxu8t`` (with the VAD kernel K14), ``mxu8`` and
 7-band GEQ (kernels K6, K7); the NLMS and BNLMS echo cancellers (K8, K9);
 MFCC (K10) with GMM classification, and pitch (K11 for the AMDF of method
 2); the RIR fast convolution and the FFT program, whose four-step engines
-run the four-step FFT K12.  Every TPU kernel of the JAX package has its
+run the four-step FFT K12; the 2-mic MVDR beamformer; streaming with
+checkpoint/resume (the enhancement, GEQ and echo-canceller sessions and the
+resumable ``stream`` pipeline).  Every TPU kernel of the JAX package has its
 counterpart here.
 """
 

@@ -14,6 +14,10 @@ Usage::
     python -m jeicyboodsp_tpu_torch.cli fastconv IN OUT
                                         [--fast [--engine xla|gemm|gemm8|gemm8hq|mxu|mxu3]]
     python -m jeicyboodsp_tpu_torch.cli fft IN OUT [--verbose] [--fast]
+    python -m jeicyboodsp_tpu_torch.cli mvdr LEFT RIGHT OUT [--fast [--engine xla|mxu|mxu3]]
+    python -m jeicyboodsp_tpu_torch.cli stream IN OUT [wiener|specsub] [--fast]
+                                        [--ckpt FILE] [--ckpt-every N] [--chunk-blocks N]
+                                        [--crash-after N]
 
     wiener IN OUT           Wiener noise suppression   (WienerFilter_final)
     specsub IN OUT          spectral subtraction       (SpectralSubtraction_final)
@@ -24,6 +28,9 @@ Usage::
     mfcc LISTFILE           corpus MFCC extraction     (MFCCFeatureExtraction...)
     fastconv IN OUT         RIR fast convolution       (Fast_Convolution...)
     fft IN OUT              radix-2 FFT roundtrip      (FFTAlgorithm_ver2)
+    mvdr LEFT RIGHT OUT     2-mic MVDR beamformer      (BeamForming_MVDR_ver1)
+    stream IN OUT [MODE]    resumable streaming enhancement with
+                            checkpoint and fault-injection flags
 
 wiener, specsub, geq, pitch, mfcc, fastconv and fft run in float64 with the
 reference's numbers (wiener, specsub, pitch, mfcc and fastconv through
@@ -39,6 +46,14 @@ run both 8192-point transforms through the four-step FFT kernel.  fft and
 geq take no ``--engine``: with ``--fast`` fft runs the radix-2 algorithm
 and geq its cascade in float32 (as the JAX CLI's ``geq --fast``, not the
 reference's output), and ``--verbose`` prints fft's operation counts.
+mvdr runs float64 ``xla`` (``torch.fft``) unless ``--fast``: float32 with
+``xla``, ``mxu`` or ``mxu3`` (matmul DFTs; at the reference's steering
+angle 0 both take the structural collapse, no transforms).  stream (mode
+``wiener`` by default) runs the chain in chunks of ``--chunk-blocks``
+blocks from a carried state, float64 unless ``--fast`` (float32, the VAD
+through K14), and takes no ``--engine``; with ``--ckpt`` it writes a
+checkpoint every ``--ckpt-every`` chunks and resumes from it, and
+``--crash-after N`` exits with 137 after N chunks (fault injection).
 
 The device defaults to the current CUDA card, and the command fails when
 there is none; ``--device cpu`` runs the kernels' plain PyTorch versions.
@@ -56,7 +71,7 @@ from jeicyboodsp_tpu_torch.ops.enhance import ALL_ENGINES
 
 FILES = {"wiener": 2, "specsub": 2, "geq": 2, "nlms": 4, "bnlms": 4,
          "pitch1": 1, "pitch2": 1, "pitch3": 1, "mfcc": 1,
-         "fastconv": 2, "fft": 2}  # file arguments
+         "fastconv": 2, "fft": 2, "mvdr": 3, "stream": (2, 3)}  # file arguments (stream: a mode)
 FAST = {  # pipeline: the engines of --fast, its default engine, the compat engine
     **{p: (ALL_ENGINES, "xla", "xla") for p in ("wiener", "specsub")},
     **{f"pitch{m}": (("xla", "mxu", "mxu3"), "xla", "xla") for m in (1, 2, 3)},
@@ -64,7 +79,11 @@ FAST = {  # pipeline: the engines of --fast, its default engine, the compat engi
     "fastconv": (FC.ENGINES, "auto", "xla"),
     "fft": ((), None, None),  # --fast is float32 only: no engine choice
     "geq": ((), None, None),
+    "mvdr": (("xla", "mxu", "mxu3"), "xla", "xla"),
+    "stream": ((), None, None),  # --fast is float32 only, as for geq
 }
+STREAM_ARGS = ("ckpt", "ckpt_every", "chunk_blocks", "crash_after")
+STREAM_MODES = ("wiener", "specsub")
 
 
 def main(argv=None):
@@ -87,7 +106,8 @@ def main(argv=None):
         "xla (torch.fft; the default), mxu (matmul DFT; AMDF kernel for pitch2), "
         "mxu3 and, for mfcc, mxu8 (both f32 matmul DFTs); fastconv xla (torch.fft), "
         "gemm (f32 Toeplitz GEMM), gemm8 (int8 Toeplitz GEMM, ~77 dB), gemm8hq "
-        "(its 3-term form, the default), mxu/mxu3 (four-step FFT kernel)",
+        "(its 3-term form, the default), mxu/mxu3 (four-step FFT kernel); mvdr xla "
+        "(torch.fft; the default), mxu/mxu3 (f32 matmul DFTs, the collapse at angle 0)",
     )
     parser.add_argument("--fast", action="store_true",
                         help=f"{'/'.join(sorted(FAST))} only: float32 (and --engine, but "
@@ -96,11 +116,27 @@ def main(argv=None):
                         help="fft only: the reference's operation-count lines "
                         "(FFTAlgorithm_ver2.cpp:148), twice per block, and its closing lines")
     parser.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    parser.add_argument("--ckpt", default=None, help="stream: checkpoint file (resumed if present)")
+    parser.add_argument("--ckpt-every", type=int, default=None,
+                        help="stream: chunks between checkpoints (4)")
+    parser.add_argument("--chunk-blocks", type=int, default=None,
+                        help="stream: blocks per chunk (4)")
+    parser.add_argument("--crash-after", type=int, default=None,
+                        help="stream: fault injector, exit with 137 after N chunks")
     ns = parser.parse_args(argv)
-    if len(ns.files) != FILES[ns.pipeline]:
-        parser.error(f"{ns.pipeline} takes {FILES[ns.pipeline]} file arguments, "
+    counts = FILES[ns.pipeline] if isinstance(FILES[ns.pipeline], tuple) else (FILES[ns.pipeline],)
+    if len(ns.files) not in counts:
+        parser.error(f"{ns.pipeline} takes {' or '.join(map(str, counts))} file arguments, "
                      f"got {len(ns.files)}")
     kw = {"device": ns.device}
+    stream_kw = {k: getattr(ns, k) for k in STREAM_ARGS if getattr(ns, k) is not None}
+    if ns.pipeline == "stream":
+        if len(ns.files) == 3 and ns.files[2] not in STREAM_MODES:
+            parser.error(f"stream MODE must be one of {'/'.join(STREAM_MODES)}, got {ns.files[2]!r}")
+        kw.update({"crash_after_chunks" if k == "crash_after" else k: v
+                   for k, v in stream_kw.items()})
+    elif stream_kw:
+        parser.error("--ckpt, --ckpt-every, --chunk-blocks and --crash-after apply to stream only")
     if ns.fast and ns.pipeline not in FAST:
         parser.error(f"--fast applies to {'/'.join(sorted(FAST))} only")
     if ns.verbose:

@@ -10,7 +10,7 @@ likelihood.  Models come in the JAX package's test layout: per class alpha
 (4, 12, 12) with the eigenvalues on the diagonal of its top-left 4 x 4
 block, eigvec (4, 12, 4).
 
-Training (k-means, EM, PCA export) waits (ROADMAP queue 1, item 8); models
+Training (k-means, EM, PCA export) waits (ROADMAP queue 1, item 4); models
 trained by the JAX package cross over through :func:`model_to_port`.
 """
 

@@ -47,6 +47,30 @@ def _rdft_mats(n: int):
 
 
 @functools.lru_cache(maxsize=None)
+def _irdft_mats(n: int):
+    """Inverse matrices (n//2+1, n) from the non-redundant half-spectrum:
+    y_t = re @ IC - im @ IS, assuming Hermitian symmetry (wk doubling)."""
+    k = np.arange(n // 2 + 1)[:, None] * np.arange(n)[None, :]
+    ang = 2.0 * np.pi * k / n
+    wk = np.full((n // 2 + 1, 1), 2.0)
+    wk[0] = wk[-1] = 1.0
+    ic = (wk * np.cos(ang) / n).astype(np.float32)
+    is_ = (wk * np.sin(ang) / n).astype(np.float32)
+    return ic, is_
+
+
+@functools.lru_cache(maxsize=None)
+def _icdft_real_mats(n: int):
+    """Full-bin inverse, real part only: y = re @ IC - im @ IS, (n, n).
+
+    For spectra that are NOT Hermitian (e.g. MVDR's quirk-merged spectrum)
+    this reproduces ``ifft(X).real`` exactly."""
+    k = np.arange(n)[:, None] * np.arange(n)[None, :]
+    ang = 2.0 * np.pi * k / n
+    return (np.cos(ang) / n).astype(np.float32), (np.sin(ang) / n).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
 def _autocorr_mats(n: int, keep: int):
     """(n//2+1, keep): ac_t = (1/n) sum_k wk P_k cos(2 pi k t / n) for a
     real symmetric power spectrum given as half bins (Wiener-Khinchin)."""
@@ -66,6 +90,29 @@ def rdft(x):
     """Real (..., n) -> half-spectrum (re, im) each (..., n//2+1)."""
     C, S = _rdft_mats(x.shape[-1])
     return x @ const(C, x), x @ const(S, x)
+
+
+def irdft(re, im, n: int):
+    """Half-spectrum (re, im) (..., n//2+1) -> real (..., n) (irfft)."""
+    IC, IS = _irdft_mats(n)
+    return re @ const(IC, re) - im @ const(IS, re)
+
+
+def full_from_half(re, im):
+    """Mirror the non-redundant half-spectrum of a REAL signal to all n bins."""
+    mirror = torch.arange(re.shape[-1] - 2, 0, -1, device=re.device)
+    return (torch.cat([re, re[..., mirror]], -1), torch.cat([im, -im[..., mirror]], -1))
+
+
+def cdft_of_real_full(x):
+    """Real (..., n) -> full n-bin spectrum (re, im): fft(x) for real x."""
+    return full_from_half(*rdft(x))
+
+
+def icdft_real(re, im):
+    """Full-bin (re, im) (..., n) -> ifft(..).real (..., n), no symmetry assumed."""
+    IC, IS = _icdft_real_mats(re.shape[-1])
+    return re @ const(IC, re) - im @ const(IS, re)
 
 
 def autocorr_from_half_power(p_half, n: int, keep: int):

@@ -95,38 +95,63 @@ def _noise_scan(speech, mags):
 
     The flags, and so the run counts and the latch rows, come from the VAD
     alone: they are (T,) vectors worked out first.  Only the rows inside
-    noise runs then touch the (T, nb) planes, one small update each, up to
-    the last latch row.  Returns the latched estimate of every row (T, nb).
+    noise runs then touch the (T, nb) planes, one small update each.  The
+    scan starts from zeros and stops at the last latch row, the rows after
+    it changing nothing it returns.  Returns the latched estimate of every
+    row (T, nb).
     """
+    avg = torch.zeros(mags.shape[1], dtype=mags.dtype, device=mags.device)
+    return _noise_rows(speech, mags, 0, avg, None, to_end=False)[0]
+
+
+def _noise_scan_carry(speech, mags, carry):
+    """:func:`_noise_scan` from a carried state ``(cnt, avg, latched)``, the
+    scan's state before the first row (a streaming chunk starts partway
+    through a run): the counts go on from ``cnt``, the sums from ``avg``,
+    and rows before the chunk's first latch hold ``latched``.  Every noise
+    row is summed.  Returns ``(ns, (cnt, avg, latched))``, the state after
+    the last row."""
+    ns, cnt, avg = _noise_rows(speech, mags, int(carry[0]), carry[1].clone(), carry[2],
+                               to_end=True)
+    return ns, (cnt[-1].to(torch.int32), avg, ns[-1].clone())
+
+
+def _noise_rows(speech, mags, cnt0: int, avg, held, to_end: bool):
+    """The row loop of both scans: sums the noise rows into ``avg`` in
+    place (through the last row if ``to_end``, else through the last latch
+    row) and returns ``(ns, cnt, avg)``; rows before the first latch hold
+    ``held`` (zeros where it is None)."""
     T, nb = mags.shape
-    cnt, run = _run_counts(speech)
+    cnt, run = _run_counts(speech, cnt0)
     latch = run & (cnt == NOISE_FRAMES)
-    ns = torch.zeros_like(mags)
     lrows = torch.nonzero(latch).flatten().tolist()
-    if not lrows:
-        return ns
-    rows = torch.nonzero(run[: lrows[-1] + 1]).flatten().tolist()
+    end = T if to_end else (lrows[-1] + 1 if lrows else 0)
+    rows = torch.nonzero(run[:end]).flatten().tolist()
     halve = (cnt >= 3).tolist()
     snap = torch.empty(len(lrows), nb, dtype=mags.dtype, device=mags.device)
-    avg = torch.zeros(nb, dtype=mags.dtype, device=mags.device)
     li = 0
     for t in rows:
         avg.add_(mags[t])
         if halve[t]:
             avg.div_(2.0)  # (avg + m) / 2.0, two roundings as the scan's
-        if t == lrows[li]:
+        if li < len(lrows) and t == lrows[li]:
             snap[li] = avg
             li += 1
-    # row t holds the snapshot of the latest latch row <= t, zeros before the first
+    # row t holds the snapshot of the latest latch row <= t, the carried
+    # estimate (zeros) before the first
+    before = torch.zeros_like(mags) if held is None else held.expand(T, nb)
     k = torch.cumsum(latch.to(torch.int64), 0) - 1
-    return torch.where((k >= 0)[:, None], snap[k.clamp(min=0)], ns)
+    ns = torch.where((k >= 0)[:, None], snap[k.clamp(min=0)], before) if lrows else before.clone()
+    return ns, cnt, avg
 
 
-def _run_counts(speech):
+def _run_counts(speech, cnt0: int = 0):
     """(cnt, run): the length of the noise run ending at each row (0 on
-    speech) and whether the row updates the running average (cnt >= 2)."""
+    speech), the run going on from ``cnt0`` rows before the first, and
+    whether the row updates the running average (cnt >= 2)."""
     idx = torch.arange(speech.shape[0], device=speech.device)
-    last_speech = torch.cummax(torch.where(speech, idx, torch.full_like(idx, -1)), 0).values
+    last_speech = torch.cummax(torch.where(speech, idx, torch.full_like(idx, -1 - cnt0)),
+                               0).values
     cnt = torch.where(speech, 0, idx - last_speech)
     return cnt, ~speech & (cnt >= 2)
 
@@ -634,3 +659,75 @@ def run_stream(x, mode: str = "wiener", dtype=torch.float64, use_assoc_scan: boo
         fft_engine=fft_engine,
     )
     return out[mask].reshape(-1).cpu().numpy()
+
+
+# ---------------------------------------------------------------- streaming
+
+
+def stream_init_state(dtype=torch.float64, device="cuda"):
+    """Streaming carry for chunked processing / checkpoint-resume, with the
+    JAX package's keys, shapes and dtypes: the noise counter ``cnt``, the
+    running average ``avg`` and the latched spectrum ``latched``
+    (EstimateNoiseSpectrum), the previous block ``prev_block`` (the shared
+    keep buffer), the previous synthesis tail ``prev_tail`` (the overlap
+    buffer), and the global block index ``t`` (the write warm-up gate).
+    Tensors on ``device``, a CUDA card unless the caller asks for the CPU."""
+    dev = entry_device(device)
+    return {
+        "cnt": torch.zeros((), dtype=torch.int32, device=dev),
+        "avg": torch.zeros(FFT_SIZE, dtype=dtype, device=dev),
+        "latched": torch.zeros(FFT_SIZE, dtype=dtype, device=dev),
+        "prev_block": torch.zeros(BLOCK_LEN, dtype=torch.int16, device=dev),
+        "prev_tail": torch.zeros(BLOCK_LEN, dtype=dtype, device=dev),
+        "t": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def state_to_port(state, device="cuda"):
+    """A streaming state in the JAX layout (arrays of any kind, their dtypes
+    kept) -> tensors on ``device``."""
+    dev = entry_device(device)
+    return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in state.items()}
+
+
+def state_to_jax(state):
+    """The streaming state -> the JAX layout as numpy arrays (what
+    ``jnp.asarray`` and ``save_pytree`` take)."""
+    return {k: v.cpu().numpy() for k, v in state.items()}
+
+
+def enhance_chunk(state, blocks, mode: str = "wiener", dtype=torch.float64):
+    """Process a chunk of (Tc, 512) int16 blocks (Tc >= 1, on the state's
+    device) from an explicit carried state.
+
+    Returns (out (Tc, 512) int16, write_mask (Tc,), new_state).  The chain
+    is the generic path's (the framed windowed FFT, the VAD -- K14 in f32 --
+    the sequential noise scan from the carry, trig resynthesis), so chunked
+    processing with carried state equals one-shot processing exactly; the
+    state dict is what checkpoints persist.
+    """
+    if blocks.dim() != 2 or blocks.shape[1] != BLOCK_LEN or not blocks.shape[0]:
+        raise ValueError(f"blocks must be (Tc, {BLOCK_LEN}) with Tc >= 1, got {tuple(blocks.shape)}")
+    blocks = blocks.contiguous()
+    Tc = blocks.shape[0]
+    prev = torch.cat([state["prev_block"][None], blocks[:-1]])
+    X = frame_transform(torch.cat([prev, blocks], 1), dtype)
+    speech = vad_flags(blocks, dtype)
+    ns, (cnt, avg, latched) = _noise_scan_carry(speech, X.abs(),
+                                                (state["cnt"], state["avg"], state["latched"]))
+    y = gain_and_resynth(X, ns, mode)
+    gidx = int(state["t"]) + torch.arange(Tc, device=blocks.device)
+    tails = torch.cat([state["prev_tail"][None], y[:-1, BLOCK_LEN:]])
+    valid, use_tail = (gidx >= 1)[:, None], gidx >= 2
+    zero = torch.zeros((), dtype=y.dtype, device=y.device)
+    ola = torch.where(valid, y[:, :BLOCK_LEN] + torch.where(use_tail[:, None], tails, zero), zero)
+    out = torch.where(use_tail[:, None], c_short(ola), 0)
+    new_state = {
+        "cnt": cnt,
+        "avg": avg,
+        "latched": latched,
+        "prev_block": blocks[-1].clone(),
+        "prev_tail": y[-1, BLOCK_LEN:].clone(),
+        "t": state["t"] + Tc,
+    }
+    return out, use_tail, new_state

@@ -17,7 +17,7 @@ frame goes through one batched pass:
   or the AMDF (method 2); method 2 on an ``mxu*`` engine goes through K11
   (:mod:`~jeicyboodsp_tpu_torch.kernels.amdf`).
 
-LPC waits (ROADMAP queue 1, item 8).  The whole-signal entry points
+LPC waits (ROADMAP queue 1, item 6).  The whole-signal entry points
 (:func:`mfcc_run`, :func:`pitch_run`) run on a CUDA card unless the caller
 passes ``device="cpu"``, which runs the kernels' plain versions.
 """

@@ -1,23 +1,26 @@
 """File-in/file-out pipelines of the port (counterpart of
 ``jeicyboodsp_tpu/pipelines/registry.py``).  Ported so far: the enhancement
-chain (``wiener``, ``specsub``), the 7-band EQ (``geq``), the echo
-cancellers (``nlms``, ``bnlms``), pitch (``pitch1``-``pitch3``), corpus
-MFCC (``mfcc``), the RIR fast convolution (``fastconv``) and the FFT
-roundtrip program (``fft``).  Each reads its inputs as the reference
+chain (``wiener``, ``specsub``) and its resumable streaming form
+(``stream``), the 7-band EQ (``geq``), the echo cancellers (``nlms``,
+``bnlms``), pitch (``pitch1``-``pitch3``), corpus MFCC (``mfcc``), the RIR
+fast convolution (``fastconv``), the FFT roundtrip program (``fft``) and the
+2-mic MVDR beamformer (``mvdr``).  Each reads its inputs as the reference
 program does:
 
-- ``wiener``/``specsub`` read from byte 0: the reference never skips the
-  44-byte header (WienerFilter_final.cpp:81 is commented out);
+- ``wiener``/``specsub``/``stream`` read from byte 0: the reference never
+  skips the 44-byte header (WienerFilter_final.cpp:81 is commented out);
 - ``geq`` skips the header (7Band_GEQ.cpp:116);
 - ``nlms``/``bnlms`` skip the input's header but not the reference
   signal's (NormalLMS.cpp:65-66);
-- ``pitch*``, ``mfcc``, ``fastconv`` and ``fft`` skip the header.
+- ``pitch*``, ``mfcc``, ``fastconv``, ``fft`` and both ``mvdr`` inputs skip
+  the header.
 
 ``kw`` is passed on to the op: ``device`` (a CUDA card by default; "cpu"
 runs the plain versions) for all, ``fft_engine`` for the enhancement chain,
-pitch, MFCC and fastconv, ``dtype`` for the enhancement chain, the GEQ,
-pitch, MFCC, fastconv and fft, ``use_assoc_scan`` for the enhancement chain, ``verbose``
-for fft.
+pitch, MFCC, fastconv and MVDR, ``dtype`` for the enhancement chain and its
+stream, the GEQ, pitch, MFCC, fastconv, fft and MVDR, ``use_assoc_scan`` for
+the enhancement chain, ``verbose`` for fft, ``d_time`` and ``collapse`` for
+MVDR; ``stream`` takes its checkpoint arguments by name.
 """
 
 from __future__ import annotations
@@ -141,6 +144,75 @@ def fft_roundtrip(inp: str, out: str, verbose: bool = False, **kw):
     return y
 
 
+def mvdr(left: str, right: str, out: str, **kw):
+    """MVDR beamformer: both headers skipped (BeamForming_MVDR_ver1.cpp:
+    81-82).  kw: d_time, dtype, fft_engine, collapse, device (float64
+    ``xla`` by default, the compat contract)."""
+    from jeicyboodsp_tpu_torch.ops import mvdr as M
+
+    y = M.run_stream(_read(left, True), _read(right, True), **kw)
+    write_pcm16(out, y)
+    return y
+
+
+def stream_enhance(inp: str, out: str, mode: str = "wiener", ckpt: str | None = None,
+                   ckpt_every: int = 4, chunk_blocks: int = 4,
+                   crash_after_chunks: int | None = None, dtype=None, device="cuda"):
+    """Resumable block-streaming enhancement at the file surface: a killed
+    run resumes from its last checkpoint and its output is byte-identical to
+    an uninterrupted run.
+
+    The checkpoint is one atomically replaced npz holding the session state's
+    leaves (``leaf_{i}``, as ``save_pytree`` orders them), the next ``block``
+    and the output's byte count ``out_bytes``, the JAX package's layout, so
+    either package finishes the other's run.  The output is fsync'd before
+    the checkpoint is replaced, so a checkpoint never counts bytes that could
+    be lost; a kill between the two reprocesses deterministically from the
+    previous checkpoint.  An output shorter than the checkpoint says (deleted,
+    or a stale ``ckpt``) restarts from block 0.
+
+    The input is read from byte 0, as ``wiener`` reads it, and a partial
+    final block is dropped, as the JAX ``stream`` drops it (``wiener`` keeps
+    it with the previous block's stale tail; ROADMAP R12).
+    ``crash_after_chunks`` is the fault injector: ``os._exit(137)`` (no
+    flush, no atexit; a SIGKILL stand-in) after that many chunks.  kw:
+    ``dtype`` (float64 by default; float32 is ``--fast``), ``device``.
+    """
+    import os
+
+    from jeicyboodsp_tpu_torch.io.stream import EnhanceSession
+
+    x = read_pcm16(inp)
+    nblocks = len(x) // 512
+    blocks = x[: nblocks * 512].reshape(-1, 512)
+    sess = EnhanceSession(mode, dtype=dtype, device=device)
+
+    start_block, out_bytes = 0, 0
+    if ckpt and os.path.exists(ckpt):
+        data = np.load(ckpt)
+        block_ck, bytes_ck = int(data["block"]), int(data["out_bytes"])
+        if os.path.exists(out) and os.path.getsize(out) >= bytes_ck:
+            sess.restore(data)
+            start_block, out_bytes = block_ck, bytes_ck
+
+    with open(out, "r+b" if (out_bytes and os.path.exists(out)) else "wb") as f:
+        f.truncate(out_bytes)
+        f.seek(out_bytes)
+        chunks_done = 0
+        for s in range(start_block, nblocks, chunk_blocks):
+            f.write(np.asarray(sess.process(blocks[s: s + chunk_blocks]), "<i2").tobytes())
+            chunks_done += 1
+            if ckpt and chunks_done % ckpt_every == 0:
+                f.flush()
+                os.fsync(f.fileno())
+                tmp = ckpt + ".tmp.npz"
+                sess.checkpoint(tmp, block=s + chunk_blocks, out_bytes=f.tell())
+                os.replace(tmp, ckpt)
+            if crash_after_chunks is not None and chunks_done >= int(crash_after_chunks):
+                os._exit(137)  # fault injection: no flush, no atexit
+    return out
+
+
 PIPELINES = {
     "geq": geq,
     "wiener": wiener,
@@ -153,4 +225,6 @@ PIPELINES = {
     "mfcc": mfcc,
     "fastconv": fastconv,
     "fft": fft_roundtrip,
+    "mvdr": mvdr,
+    "stream": stream_enhance,
 }

@@ -7,7 +7,7 @@ out, with no feature file in between.
   f32 the MFCC runs through K10.
 
 Training (``speech_train``) and HMM decoding (``speech_decode``) wait
-(ROADMAP queue 1, item 8).  Runs on the utterance's device.
+(ROADMAP queue 1, items 4-5).  Runs on the utterance's device.
 """
 
 from __future__ import annotations

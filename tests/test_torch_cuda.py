@@ -1196,3 +1196,72 @@ def test_enhance_blocks_on_an_unaligned_view(cuda, eng):
                      for b in (odd, odd.clone()))
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _session_inputs(what):
+    rng = np.random.default_rng(9)
+    if what == "geq":
+        return (np.clip(rng.normal(0, 6000, 8 * 512), -32768, 32767).astype(np.int16),)
+    x = np.clip(rng.normal(0, 3000, 6 * 1024), -32768, 32767).astype(np.int16)
+    ref = np.clip(0.5 * x + np.roll(0.2 * x, 7) + rng.normal(0, 50, len(x)), -32768,
+                  32767).astype(np.int16)
+    return x, ref
+
+
+@pytest.mark.parametrize("what", ["geq", "nlms", "bnlms"])
+def test_recursion_sessions_on_the_card(cuda, what, tmp_path):
+    """GEQSession (K6 f64) and AECSession (K8, K9) at B = 1 on the card:
+    bit-equal to the same session on the CPU (the plain versions), across a
+    checkpoint the card writes and the CPU session restores; one launch a
+    call."""
+    from jeicyboodsp_tpu_torch.io import stream as ST
+    from jeicyboodsp_tpu_torch.kernels import bnlms as K9
+    from jeicyboodsp_tpu_torch.kernels import geq_cascade_quant as K6
+    from jeicyboodsp_tpu_torch.kernels import nlms as K8
+
+    kern = {"geq": K6.geq_cascade_quant, "nlms": K8.nlms, "bnlms": K9.bnlms}[what]
+    make = (lambda d: ST.GEQSession(device=d)) if what == "geq" else (
+        lambda d: ST.AECSession(what, device=d))
+    sig = _session_inputs(what)
+    cut = 2048 if what == "geq" else 3 * 1024
+    card, cpu = make(cuda), make("cpu")
+    before = kern.launches
+    first = card.process(*(s[:cut] for s in sig))
+    card.checkpoint(str(tmp_path / "ck.npz"))
+    rest = card.process(*(s[cut:] for s in sig))
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    rows = lambda out: np.atleast_2d(np.asarray(out))  # noqa: E731  (est, err) or y
+    np.testing.assert_array_equal(np.concatenate([rows(first), rows(rest)], 1),
+                                  rows(cpu.process(*sig)))
+    again = make("cpu")
+    again.restore(str(tmp_path / "ck.npz"))
+    np.testing.assert_array_equal(rows(again.process(*(s[cut:] for s in sig))), rows(rest))
+
+
+def test_enhance_session_f32_on_the_card(cuda, tmp_path):
+    """EnhanceSession in f32 on the card runs its VAD through K14, one launch
+    a chunk: chunked with a checkpoint restored on the CPU, >= 95 dB of the
+    CPU session (cuFFT and the CPU's FFT round apart), the VAD flags equal."""
+    from jeicyboodsp_tpu_torch.io import stream as ST
+    from jeicyboodsp_tpu_torch.kernels import vad_flags as K14
+
+    blocks = _signal(48, 5).reshape(-1, 512)
+    card = ST.EnhanceSession("wiener", dtype=torch.float32, device=cuda)
+    before = K14.vad_flags.launches
+    outs = [card.process(blocks[s: s + 4]) for s in range(0, 24, 4)]
+    card.checkpoint(str(tmp_path / "ck.npz"))
+    outs += [card.process(blocks[s: s + 4]) for s in range(24, 48, 4)]
+    torch.cuda.synchronize()
+    assert K14.vad_flags.launches == before + 12
+    cpu = ST.EnhanceSession("wiener", dtype=torch.float32, device="cpu")
+    want = np.concatenate([cpu.process(blocks[s: s + 4]) for s in range(0, 48, 4)])
+    got = np.concatenate(outs)
+    assert got.shape == want.shape and snr_db(want, got) >= 95.0
+    again = ST.EnhanceSession("wiener", dtype=torch.float32, device="cpu")
+    again.restore(str(tmp_path / "ck.npz"))
+    assert again.sample_offset == 24 * 512
+    rest = np.concatenate([again.process(blocks[s: s + 4]) for s in range(24, 48, 4)])
+    assert snr_db(np.concatenate(outs[6:]), rest) >= 95.0
+    sp = torch.from_numpy(blocks).to(cuda)
+    assert torch.equal(E.vad_flags(sp).cpu(), E.vad_flags(sp.cpu()))

@@ -148,6 +148,33 @@ def test_k10_plain_vs_jax_kernel_and_oracle(T):
     assert snr_db(oref, got) >= 100.0
 
 
+@pytest.mark.parametrize("threads", [1, 2, 4, 8])
+def test_k10_plain_steady_across_threads(threads):
+    """The plain version sums its DFT in f64, so the BLAS threading cannot
+    move it: under each torch thread count it reads >= 100 dB against the
+    f64 oracle and >= 80 dB against the JAX kernel (interpret), and it
+    equals its own result under one thread to f32 rounding."""
+    x = _speech(8 * 1024, seed=8)
+    rows = _rows(x)
+    prev, cur = torch.from_numpy(rows[:-1].copy()), torch.from_numpy(rows[1:].copy())
+    jk = np.asarray(jmk.mfcc_fused_pallas(jnp.asarray(rows[:-1]), jnp.asarray(rows[1:]), F=8,
+                                          interpret=True))
+    oref = omfcc.run(x, skip_first=False)
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        one = K10.mfcc_fused(prev, cur).numpy()
+        torch.set_num_threads(threads)
+        got = K10.mfcc_fused(prev, cur).numpy()
+    finally:
+        torch.set_num_threads(before)
+    print(f"threads={threads}: plain vs oracle {snr_db(oref, got):.2f} dB, plain vs JAX kernel "
+          f"{snr_db(jk, got):.2f} dB, vs one thread {snr_db(one, got):.2f} dB")
+    assert snr_db(oref, got) >= 100.0
+    assert snr_db(jk, got) >= 80.0
+    np.testing.assert_allclose(got, one, rtol=1e-6, atol=1e-5)
+
+
 @pytest.mark.parametrize("engine", ["mxu3", "mxu8"])
 def test_mfcc_blocks_mxu_vs_jax(engine):
     """mfcc_blocks(mxu3) runs K10's plain version on the CPU (JAX's takes
