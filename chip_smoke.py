@@ -18,8 +18,11 @@ two-kernel f32 enhancement engine ``_enhance_fused`` (K4, K13) at T = 16384,
 the VAD kernel K14 under engines mxu8f and mxu8t; streaming with checkpoints
 (``EnhanceSession`` over the T = 16384 signal, K14 in f32; ``GEQSession``
 (K6), ``AECSession`` (K8, K9) over one stream each; the ``stream`` CLI killed
-and resumed) and the MVDR beamformer over 16,384 stereo blocks -- in phases
-that each print lines and raise on failure:
+and resumed), the MVDR beamformer over 16,384 stereo blocks, speech
+recognition (GMM training over 25 classes x 512 frames, ``gmm-train`` and
+``gmm-test`` through the CLI, ``speech_train(mxu3)`` through K10, Viterbi at
+4096 frames and 512 utterances x 512) and the ``awgn`` CLI over 16,384
+blocks -- in phases that each print lines and raise on failure:
 
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA sources with nvcc and prints the seconds;
@@ -118,6 +121,24 @@ that each print lines and raise on failure:
      and ``steering_delay(0.3)`` within one step on under 1%, f32 ``xla``
      and ``mxu3`` with ``collapse=False`` >= 60 dB, the ``mxu3`` collapse
      within one step on under 1% and >= 90 dB;
+   - speech recognition (K10 counted, its launches added to the earlier
+     phases'; the rest torch ops, as the JAX modules are plain XLA), against
+     the script's float64 copies of ``oracle/gmm.py`` and
+     ``oracle/viterbi.py``: ``train_classes_batched`` in f64 over the
+     benchmark's 25 classes x 512 frames and the ``gmm-train`` CLI's model
+     file at tests/test_gmm.py's bounds (eigenvector signs aligned first);
+     ``gmm-test`` on that same file, misaligned (the CLI) and aligned, every
+     printed decision equal to ``reference_score_file``'s;
+     ``speech_train(mxu3)`` over 25 x 64 blocks and ``speech_classify`` of
+     an utterance a class, every decision that of the f64 reference's
+     scores; ``viterbi`` compat at T = 4096 on the benchmark's packed HMM
+     (its observation, all NaN, and state 0 held, finite) equal to
+     ``reference_hmm_decode`` and the ``viterbi --verbose`` CLI's lines
+     within ``%f``'s rounding of its values; the corrected decode against
+     ``viterbi_assoc`` in f64 and both in f32 against the f64 decode (paths
+     equal but for f32 ties); ``viterbi_batched`` over 512 x 512 against
+     single decodes; the ``awgn`` CLI's noise at tests/test_fft_awgn.py's
+     bounds;
 5. timing (CUDA events around batches of back-to-back calls, see
    ``median_ms``): ``enhance_blocks`` of each engine, the ops ``geq_apply``
    (f64 and f32), ``nlms_apply`` and ``bnlms_apply`` (with the gate alone at
@@ -140,7 +161,10 @@ that each print lines and raise on failure:
    device busy time and host share a call); K5 and K13 once more in turns with that core, Wiener
    and spectral subtraction; ``mvdr_blocks`` per engine (ms, samples/s);
    ``EnhanceSession`` ms a chunk, f64 and f32, at 4 and 64 blocks, and one
-   chunk of 4 under ``torch.profiler`` (device busy, idle share).  The
+   chunk of 4 under ``torch.profiler`` (device busy, idle share);
+   ``train_classes_batched`` f64 and f32, ``speech_train(mxu3)``, each
+   decode form (ms, frames/s, and under ``torch.profiler``), ``gmm-test``
+   per file and the ``awgn`` CLI (host clock).  The
    bounds of K5 and K13 count their GEMMs as
    the 3xTF32 they run, with the bf16x3 figure beside; those of K4 and K10
    count their functions through a real FFT, with the dense-DFT GEMM figure
@@ -154,6 +178,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -689,10 +714,13 @@ def _port():
     from jeicyboodsp_tpu_torch.ops import fastconv as FC
     from jeicyboodsp_tpu_torch.ops import fft as FT
 
+    from jeicyboodsp_tpu_torch.models import hmm as H
+    from jeicyboodsp_tpu_torch.ops import awgn as AW
+
     return SimpleNamespace(_build=_build, K1=K1, K2=K2, K3=K3, K4=K4, K5=K5, E=E,
                            registry=registry, K6=K6, K7=K7, K8=K8, K9=K9, G=G, N=N,
                            K10=K10, K11=K11, GM=GM, F=F, S=S, cli=cli,
-                           K12=K12, K13=K13, K14=K14, FC=FC, FT=FT)
+                           K12=K12, K13=K13, K14=K14, FC=FC, FT=FT, H=H, AW=AW)
 
 
 K1_ENGINES = {"mxu8f": True, "mxu8t": False}  # the engines of K1: hq
@@ -2739,6 +2767,649 @@ def drive_mvdr(P, dev, card, sync):
               f"{[(round(t, 3), c, k[:48]) for t, c, k in kernels]}")
 
 
+# ---- speech recognition: GMM training and classification, HMM decoding (no kernel but K10) ----
+
+GMM_FEATURE_LEN, GMM_MIXTURES, PCA_TRAIN, PCA_TEST = 12, 4, 8, 4
+KMEANS_THRESHOLD, EM_ITERATIONS, HMM_STATES = 1.0, 3, 6
+# bytes of a GMMParameter struct: alpha, mean, cov, eigvec (PCA_LEN 8 as trained, 4 as tested)
+TRAIN_STRUCT, TEST_STRUCT = 8 * (4 + 48 + 576 + 48 * PCA_TRAIN), 8 * (4 + 48 + 576 + 48 * PCA_TEST)
+
+
+class RefGMM:
+    """The C GMMParameter struct in the train layout (PCA_LEN 8)."""
+
+    def __init__(self):
+        self.alpha = np.zeros(GMM_MIXTURES)
+        self.mean = np.zeros((GMM_MIXTURES, GMM_FEATURE_LEN))
+        self.cov = np.zeros((GMM_MIXTURES, GMM_FEATURE_LEN, GMM_FEATURE_LEN))
+        self.eigvec = np.zeros((GMM_MIXTURES, GMM_FEATURE_LEN, PCA_TRAIN))
+
+
+def _ref_top_eigpairs(cov, k):
+    """Descending eigenpairs (a stable sort), NaN for a non-finite matrix."""
+    if not np.all(np.isfinite(cov)):
+        return np.full(k, np.nan), np.full((cov.shape[0], k), np.nan)
+    vals, vecs = np.linalg.eigh(cov)
+    order = np.argsort(-vals, kind="stable")
+    return vals[order[:k]], vecs[:, order[:k]]
+
+
+def reference_kmeans(frames, means):
+    """KmeansAlogorithm (GMMAlgorithm_Train_Auto_ver2.cpp:342-438): the
+    Selection matrix is never cleared, ties go to the last mixture, the loop
+    stops once the cost moves by less than 1.  Returns (means, covariances)."""
+    n = len(frames)
+    sel = np.zeros((n, GMM_MIXTURES), dtype=bool)
+    means = means.copy()
+    cost_before = 0.0
+    count = 0
+    while True:
+        count += 1
+        d = ((frames[:, None, :] - means[None, :, :]) ** 2).sum(axis=2)
+        arg = (GMM_MIXTURES - 1) - np.argmin(d[:, ::-1], axis=1)
+        sel[np.arange(n), arg] = True
+        cost = float((d * sel).sum())
+        if count == 1 or abs(cost - cost_before) >= KMEANS_THRESHOLD:
+            cost_before = cost
+        else:
+            covs = np.zeros((GMM_MIXTURES, GMM_FEATURE_LEN, GMM_FEATURE_LEN))
+            for j in range(GMM_MIXTURES):
+                idx = sel[:, j]
+                cnt = int(idx.sum())
+                diff = frames[idx] - means[j]
+                with np.errstate(invalid="ignore", divide="ignore"):
+                    covs[j] = (diff.T @ diff) / cnt
+            return means, covs
+        for j in range(GMM_MIXTURES):
+            cnt = int(sel[:, j].sum())
+            if cnt == 0:
+                means[j] = 0.0
+                continue
+            means[j] = frames[sel[:, j]].sum(axis=0) / cnt
+
+
+def reference_em_step(frames, p):
+    """One EM iteration (:263-337): top-8 PCA densities, responsibilities
+    divided by their unguarded sum, alpha and mean accumulated onto their
+    previous values."""
+    n = len(frames)
+    probs = np.zeros((n, GMM_MIXTURES))
+    for k in range(GMM_MIXTURES):
+        vals, vecs = _ref_top_eigpairs(p.cov[k], PCA_TRAIN)
+        xp = frames @ vecs
+        mp = p.mean[k] @ vecs
+        with np.errstate(invalid="ignore", divide="ignore"):
+            terms = (1.0 / np.sqrt(2.0 * REF_PI)) * (1.0 / np.sqrt(vals)) * np.exp(
+                -0.5 * (xp - mp) ** 2 / vals
+            )
+        probs[:, k] = np.prod(terms, axis=1)
+    w = probs * p.alpha[None, :]
+    with np.errstate(invalid="ignore"):
+        w = w / w.sum(axis=1, keepdims=True)
+    n_of_key = p.alpha + w.sum(axis=0)
+    p.alpha = n_of_key / n
+    p.mean = (p.mean + w.T @ frames) / n_of_key[:, None]
+    for k in range(GMM_MIXTURES):
+        diff = frames - p.mean[k]
+        p.cov[k] = (diff * w[:, k : k + 1]).T @ diff / n_of_key[k]
+
+
+def reference_pca_export(p):
+    """PCADiagonalizeCovarianceMatrix (:456-519), in place: the projected
+    mean in mean[:8], covariance rows 0-7 zeroed with the eigenvalues on the
+    diagonal, rows 8-11 stale."""
+    for k in range(GMM_MIXTURES):
+        vals, vecs = _ref_top_eigpairs(p.cov[k], PCA_TRAIN)
+        proj_mean = p.mean[k] @ vecs
+        p.mean[k] = 0.0
+        p.mean[k][:PCA_TRAIN] = proj_mean
+        for i in range(PCA_TRAIN):
+            p.cov[k][i] = 0.0
+            p.cov[k][i][i] = vals[i]
+        p.eigvec[k] = vecs
+
+
+def reference_train_class(files):
+    """One class over its feature arrays: means seeded from frames 0, 4, 8,
+    12, k-means, alpha 1/4, EM_ITERATIONS EM steps a file, the PCA export."""
+    p = RefGMM()
+    first = files[0]
+    for j in range(GMM_MIXTURES):
+        p.mean[j] = first[j * 4]
+    p.mean, p.cov = reference_kmeans(first, p.mean)
+    p.alpha[:] = 1.0 / GMM_MIXTURES
+    for frames in files:
+        for _ in range(EM_ITERATIONS):
+            reference_em_step(frames, p)
+    reference_pca_export(p)
+    return p
+
+
+def reference_score_file(frames, alpha, mean, cov_diag4, eigvec4):
+    """GMMAlgorithm_Test_Auto_ver2.cpp:151-236 frame by frame: the PCA-4
+    diagonal Gaussian of each mixture, weighted and summed, log (unguarded),
+    the mean over frames."""
+    total = 0.0
+    for x in frames:
+        s = 0.0
+        for k in range(GMM_MIXTURES):
+            xp = x @ eigvec4[k]
+            with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+                terms = (
+                    (1.0 / np.sqrt(2.0 * REF_PI))
+                    * (1.0 / np.sqrt(cov_diag4[k]))
+                    * np.exp(-0.5 * (xp - mean[k][:PCA_TEST]) ** 2 / cov_diag4[k])
+                )
+            s += alpha[k] * float(np.prod(terms))
+        with np.errstate(divide="ignore"):
+            total += np.log(s)
+    return total / len(frames)
+
+
+def reference_gmm_emission(x, alpha, mean, cov_diag4, eigvec4):
+    """Viterbi_version1.cpp:248-267: the mixtures' PCA-4 diagonal Gaussians,
+    weighted and summed."""
+    s = 0.0
+    for k in range(GMM_MIXTURES):
+        xp = x @ eigvec4[k]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            terms = (
+                (1.0 / np.sqrt(2.0 * REF_PI))
+                * (1.0 / np.sqrt(cov_diag4[k]))
+                * np.exp(-0.5 * (xp - mean[k][:PCA_TEST]) ** 2 / cov_diag4[k])
+            )
+        s += alpha[k] * float(np.prod(terms))
+    return s
+
+
+def reference_hmm_decode(frames, states, trans, bests=None):
+    """HMMRecognition (Viterbi_version1.cpp:157-246) with its quirks: the
+    log of the already-log accumulated value (NaN through C's comparisons),
+    the per-time argmax re-found instead of a backtrace, path[0] never
+    written, the score read at t = 1.  ``states``: 6 (alpha, mean,
+    cov_diag4, eigvec4).  Returns (path (T-1,), score); a list ``bests``
+    receives the value printed at each step t = T-1..1 (:222)."""
+    T = len(frames)
+    P = np.zeros((HMM_STATES, T))
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for m in range(HMM_STATES):
+            P[m, 0] = np.log(reference_gmm_emission(frames[0], *states[m])) + np.log(1.0 / HMM_STATES)
+        for t in range(1, T):
+            for m in range(HMM_STATES):
+                emis = reference_gmm_emission(frames[t], *states[m])
+                for u in range(HMM_STATES):
+                    cand = np.log(P[u, t - 1]) + np.log(trans[u, m]) + np.log(emis)
+                    if u == 0:
+                        P[m, t] = cand
+                    elif P[m, t] < cand:
+                        P[m, t] = cand
+    path = np.zeros(max(T - 1, 0), dtype=np.int64)
+    score = 0.0
+    for t in range(T - 1, 0, -1):
+        best, arg = P[0, t], 0
+        for m in range(1, HMM_STATES):
+            if P[m, t] > best:
+                best, arg = P[m, t], m
+        score = best
+        if bests is not None:
+            bests.append(best)
+        if t <= T - 2:
+            path[t] = arg
+    return path, score
+
+
+GMM_C, GMM_F = 25, 512    # classes x frames of the training corpus (bench/all_configs.py:938)
+GMM_TEST_FILES, GMM_TEST_FRAMES = 2, 128  # a class's test files (the benchmark's 4 x 128, :990)
+HMM_T = 4096              # frames of the decoded utterance (bench/all_configs.py:822)
+VIT_U, VIT_T = 512, 512   # the corpus decode: utterances x frames (:904)
+VIT_SAMPLED = 8           # batched utterances held against their single decodes
+ALPHA_RTOL, MEAN_TOL, COV_TOL, DOT_TOL = 1e-6, 1e-5, 1e-4, 1e-5  # tests/test_gmm.py:25-41
+VIT_RTOL = 1e-9           # compat scores (tests/test_gmm.py:136)
+ASSOC_RTOL, ASSOC_ATOL = 1e-5, 1e-2  # corrected against viterbi_assoc (tests/test_gmm.py:406)
+PRINTED_ATOL = 5e-7       # half a unit of %f's last digit
+F32_TIE_ULPS = 4          # an f32 decode may pick another state where two states' f64 values
+                          # differ by this few f32 spacings of the score (2^-8 at T = 4096): its
+                          # partial sums round there (seen: up to 1.42 on the CPU, three seeds)
+TRAIN_REPS = 3
+
+
+def synth_class(seed, n):
+    """bench/all_configs.py:940-947: four separated sub-clusters, frame i in
+    cluster (i // 4) % 4, so the k-means seeds land in distinct clusters."""
+    r = np.random.default_rng(seed)
+    center = r.normal(0, 10, 12)
+    sub = center + r.normal(0, 4.0, (4, 12))
+    ids = (np.arange(n) // 4) % 4
+    return sub[ids] + r.normal(0, 0.5, (n, 12))
+
+
+def reference_read_models(path, n, stride, pca):
+    """n GMM structs read at fixed ``stride`` bytes (zeros past the end, as
+    fread leaves them): alpha, mean, the 4 leading diagonal entries of cov,
+    eigvec[..., :4]."""
+    with open(path, "rb") as f:
+        data = f.read()
+    out = []
+    for i in range(n):
+        a = np.frombuffer(data[i * stride:(i + 1) * stride].ljust(stride, b"\0"), "<f8")
+        cov = a[52:628].reshape(4, 12, 12)
+        out.append((a[:4], a[4:52].reshape(4, 12), np.stack([np.diag(c)[:4] for c in cov]),
+                    a[628:628 + 48 * pca].reshape(4, 12, pca)[..., :4]))
+    return out
+
+
+def _c_argmax(scores):
+    """GMMAlgorithm_Test_Auto_ver2.cpp:117-124: strict <, first wins, a NaN
+    keeps the incumbent."""
+    pred, best = 0, scores[0]
+    for u in range(1, len(scores)):
+        if best < scores[u]:
+            best, pred = scores[u], u
+    return pred
+
+
+def _check_trained(what, got, refs):
+    """The port's PCA export (numpy, per class) against reference_train_class
+    at tests/test_gmm.py's bounds, the signs of the eigenvectors aligned
+    first (cuSOLVER's differ from LAPACK's)."""
+    worst = {"alpha": 0.0, "mean": 0.0, "cov": 0.0, "dots": 0.0}
+    for c, ref in enumerate(refs):
+        a, m, cv, e = (x[c] for x in got)
+        s = np.sign(np.sum(e * ref.eigvec, axis=1))
+        s[s == 0] = 1.0
+        m = m.copy()
+        m[:, :PCA_TRAIN] *= s
+        worst["alpha"] = max(worst["alpha"], float(np.max(np.abs(a - ref.alpha) / np.abs(ref.alpha))))
+        worst["mean"] = max(worst["mean"], float(np.max(np.abs(m - ref.mean) / (1 + np.abs(ref.mean)))))
+        worst["cov"] = max(worst["cov"], float(np.max(np.abs(cv - ref.cov) / (1 + np.abs(ref.cov)))))
+        dots = np.abs(np.sum(e * ref.eigvec, axis=1))[:, :4]
+        worst["dots"] = max(worst["dots"], float(np.max(np.abs(dots - 1))))
+    ok = (worst["alpha"] <= ALPHA_RTOL and worst["mean"] <= MEAN_TOL and worst["cov"] <= COV_TOL
+          and worst["dots"] <= DOT_TOL)
+    print(f"[4 speech] {what} against reference_train_class: worst alpha rel {worst['alpha']:.2e} "
+          f"(limit {ALPHA_RTOL}), mean {worst['mean']:.2e} ({MEAN_TOL}), cov {worst['cov']:.2e} "
+          f"({COV_TOL}), 1 - |top-4 eigenvector dots| {worst['dots']:.2e} ({DOT_TOL})")
+    if not ok:
+        raise RuntimeError(f"{what} differs from reference_train_class")
+
+
+def _same_value(got, want, rtol, atol=0.0):
+    return (np.isnan(got) and np.isnan(want)) or abs(got - want) <= atol + rtol * abs(want)
+
+
+def reference_forward(frames, alpha, mean, cov, eigvec, trans):
+    """float64 forward values (T, 6) of the corrected Viterbi: P[0] = log
+    emis[0] + log(1/6), P[t][m] = max_u (P[t-1][u] + log trans[u, m]) +
+    log emis[t][m], the emissions as reference_gmm_emission's, vectorized."""
+    var = np.diagonal(cov, axis1=-2, axis2=-1)[..., None, :4]
+    xp = np.einsum("ti,skij->sktj", frames, eigvec[..., :4])
+    with np.errstate(divide="ignore", under="ignore"):
+        terms = (1.0 / np.sqrt(2.0 * REF_PI)) * (1.0 / np.sqrt(var)) * np.exp(
+            -0.5 * (xp - mean[..., None, :4]) ** 2 / var)
+        le = np.log((alpha[..., None] * np.prod(terms, -1)).sum(1)).T  # (T, 6)
+        lt = np.log(trans)
+    P = np.zeros_like(le)
+    P[0] = le[0] + np.log(1.0 / HMM_STATES)
+    for t in range(1, len(le)):
+        P[t] = np.max(P[t - 1][:, None] + lt, 0) + le[t]
+    return P
+
+
+def bench_hmm(rng):
+    """bench/all_configs.py:822-866: the f32 decode model (alpha 1/4, means
+    N(0, 1), covariances 2 I, eigenvectors the identity's first 4 columns,
+    uniform transitions) with HMM_T N(0, 1) frames; and the packed f64 HMM
+    the reference binary decodes (projected means N(0, 2), variances 0.01,
+    QR eigenvectors, transitions near uniform) with its observation, each
+    frame near a random state's first mixture."""
+    f32 = (rng.normal(0, 1.0, (HMM_T, 12)).astype(np.float32), np.full((6, 4), 0.25, np.float32),
+           rng.normal(0, 1, (6, 4, 12)).astype(np.float32),
+           np.broadcast_to(np.eye(12, dtype=np.float32), (6, 4, 12, 12)) * np.float32(2.0),
+           np.ascontiguousarray(np.broadcast_to(np.eye(12, dtype=np.float32)[:, :4], (6, 4, 12, 4))),
+           np.full((6, 6), 1.0 / 6, np.float32))
+    states = []
+    for _ in range(6):
+        mn = np.zeros((4, 12))
+        mn[:, :4] = rng.normal(0, 2, (4, 4))
+        ev = np.zeros((4, 12, 4))
+        for k in range(4):
+            ev[k] = np.linalg.qr(rng.normal(0, 1, (12, 4)))[0]
+        states.append((np.full(4, 0.25), mn, np.stack([np.eye(12) * 0.01 for _ in range(4)]), ev))
+    transn = rng.dirichlet(np.ones(6), size=6) + 0.5
+    transn /= transn.sum(axis=1, keepdims=True)
+    seq = rng.integers(0, 6, HMM_T)
+    obs = np.stack([states[s][3][0] @ states[s][1][0][:4] + rng.normal(0, 0.02, 12) for s in seq])
+    # the same model's state 0 held throughout: state 0's value stays positive, so the
+    # log-of-log recursion stays finite (a state 0 below 0 makes every later value NaN)
+    obs0 = states[0][3][0] @ states[0][1][0][:4] + rng.normal(0, 0.02, (HMM_T, 12))
+    return f32, (states, transn, obs, obs0)
+
+
+def drive_speech(P, dev, sync):
+    """Phase 4 for speech recognition, every launch counter set to 0 just
+    before and read just after (K10 must launch):
+
+    - train_classes_batched in f64 over GMM_C classes x GMM_F frames of
+      synth_class against reference_train_class (tests/test_gmm.py's
+      bounds, eigenvector signs aligned), with the k-means iterations;
+    - the gmm-train CLI on those classes' feature files (its model file held
+      to the same bounds), then gmm-test on that same file through the CLI
+      (the reference's misaligned read) and the pipeline aligned, every
+      printed decision equal to reference_score_file's under the reference's
+      argmax;
+    - speech_train(mxu3, f32, K10) over CLASSES x TRAIN_BLOCKS blocks of
+      class_signal, then speech_classify(mxu3) of an utterance a class with
+      the trained models in f64: every decision equal to that of
+      reference_score_file on the f64 reference MFCC, the scores of the
+      finite models within SCORE_RTOL, NaN where the reference's are;
+    - viterbi(compat=True) on the packed HMM at HMM_T frames (its
+      observation, and state 0 held) against reference_hmm_decode (paths
+      equal, scores and per-time values within 1e-9, NaN equal), and the
+      viterbi --verbose CLI's lines within %f's rounding of its values; the
+      corrected viterbi against viterbi_assoc on the decode model in f64
+      (paths equal, scores within 1e-5 / 1e-2), both in f32 against the f64
+      decode (scores within HMM_T * 2^-24, paths equal but at f32 ties);
+      viterbi_batched over VIT_U x VIT_T against single decodes of
+      VIT_SAMPLED utterances;
+    - the awgn CLI at T_FULL blocks: the noise recovered through the wrap
+      has |mean| < 0.5 and 8.5 < std < 11.5, a 32760 stretch wraps
+      negative, whiteness_ratio below 0.25 after the first block (and
+      within 1e-9 of a numpy f64 autocorrelation).
+
+    Returns the launch counts and the timing inputs."""
+    import contextlib
+    import io
+
+    import torch
+
+    counted = {k: getattr(getattr(P, k), SOURCES[k][0]) for k in SOURCES}
+    work = os.path.join(ROOT, "jeicyboodsp_tpu_torch", "build", "smoke", "speech")
+    os.makedirs(work, exist_ok=True)
+    rng = np.random.default_rng(SEED + 7)
+    feats = np.stack([synth_class(1000 + c, GMM_F) for c in range(GMM_C)])
+    t0 = time.perf_counter()
+    refs = [reference_train_class([feats[c]]) for c in range(GMM_C)]
+    lists = []
+    for c in range(GMM_C):
+        p = os.path.join(work, f"c{c}.mfc")
+        feats[c].astype("<f8").tofile(p)
+        lists.append(os.path.join(work, f"c{c}.lst"))
+        with open(lists[-1], "w") as f:
+            f.write(p)  # no trailing whitespace: the reference's fscanf loop
+    train_list, model = os.path.join(work, "train.lst"), os.path.join(work, "model.bin")
+    with open(train_list, "w") as f:
+        f.write("\n".join(lists))
+    r2 = np.random.default_rng(555)
+    test_lists, test_files = [], []
+    for c in range(GMM_C):
+        paths = []
+        for j in range(GMM_TEST_FILES):
+            fr = feats[c][r2.integers(0, GMM_F, GMM_TEST_FRAMES)] + r2.normal(0, 0.3, (GMM_TEST_FRAMES, 12))
+            paths.append(os.path.join(work, f"t{c}_{j}.mfc"))
+            fr.astype("<f8").tofile(paths[-1])
+            test_files.append(fr)
+        test_lists.append(os.path.join(work, f"t{c}.lst"))
+        with open(test_lists[-1], "w") as f:
+            f.write("\n".join(paths))
+    test_list = os.path.join(work, "test.lst")
+    with open(test_list, "w") as f:
+        f.write("\n".join(test_lists))
+    train = [class_signal(c, TRAIN_BLOCKS * 1024, rng) for c in range(CLASSES)]
+    utts = [class_signal(c, UTT_BLOCKS * 1024, rng) for c in range(CLASSES)]
+    audio = torch.from_numpy(np.stack(train).reshape(CLASSES, TRAIN_BLOCKS, 1024)).to(dev)
+    ublocks = [torch.from_numpy(u.reshape(-1, 1024)).to(dev) for u in utts]
+    (vf, va, vm, vc, ve, vt), (hstates, htrans, hobs, hobs0) = bench_hmm(rng)
+    hmm_path, obs_path = os.path.join(work, "hmm.bin"), os.path.join(work, "obs.mfc")
+    with open(hmm_path, "wb") as f:
+        for a, m, cv, ev in hstates:
+            f.write(b"".join(np.asarray(x, "<f8").tobytes() for x in (a, m, cv, ev)))
+        f.write(np.asarray(htrans, "<f8").tobytes())
+    hobs.astype("<f8").tofile(obs_path)
+    obs_list = os.path.join(work, "obs.lst")
+    with open(obs_list, "w") as f:
+        f.write(obs_path)
+    dec32 = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (vf, va, vm, vc, ve, vt)]
+    hmm64 = P.H.hmm_to_port(*(np.stack([s[i] for s in hstates]) for i in range(4)), htrans, dev)
+    corpus = torch.from_numpy(rng.normal(0, 1.0, (VIT_U, VIT_T, 12)).astype(np.float32)).to(dev)
+    lengths = torch.full((VIT_U,), VIT_T, dtype=torch.int64, device=dev)
+    awgn_x = make_signal(T_FULL * 512, rng)
+    awgn_x[: 20 * 512] = 32760
+    awgn_in, awgn_out = _write_probe(work, "awgn_in", awgn_x), os.path.join(work, "awgn_out.pcm")
+    print(f"[4 speech] inputs and reference_train_class x {GMM_C}: {time.perf_counter() - t0:.1f} s")
+
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ft = torch.from_numpy(feats).to(dev)
+    masks = torch.ones(GMM_C, GMM_F, dtype=torch.bool, device=dev)
+    trained = P.GM.train_classes_batched(ft, masks)
+    counts = P.GM.kmeans_counted(ft, masks, ft[:, 0:16:4])[2]
+    with contextlib.redirect_stdout(io.StringIO()):
+        P.cli.main(["gmm-train", train_list, model])  # the card: the CLI's default device
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        P.cli.main(["gmm-test", test_list, model])
+    printed_mis = out.getvalue()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        P.registry.gmm_test(test_list, model, emulate_layout_mismatch=False)
+    printed_al = out.getvalue()
+    s_model = P.S.speech_train(audio, dtype=torch.float32, fft_engine="mxu3")
+    s_model64 = [x.double() for x in s_model[:3]] + [s_model[3][..., :4].double()]
+    s_scores = [P.S.speech_classify(b, *s_model64, dtype=torch.float32, fft_engine="mxu3")
+                for b in ublocks]  # the f32 features scored in f64, as against class_models
+    compat_runs = [P.H.viterbi(torch.from_numpy(o).to(dev), *hmm64, compat=True, full=True)
+                   for o in (hobs, hobs0)]
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        P.cli.main(["viterbi", obs_list, hmm_path, "--verbose"])
+    printed_vit = out.getvalue()
+    dec64 = [t.double() for t in dec32]
+    corrected = {dt: (P.H.viterbi(*d, compat=False), P.H.viterbi_assoc(*d))
+                 for dt, d in (("f64", dec64), ("f32", dec32))}
+    paths_b, scores_b = P.H.viterbi_batched(corpus, lengths, *dec32[1:], compat=False)
+    P.cli.main(["awgn", awgn_in, awgn_out])
+    sync()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    main_s = time.perf_counter() - t0
+
+    # training
+    got = [x.cpu().numpy() for x in trained]
+    _check_trained(f"train_classes_batched f64 {GMM_C}x{GMM_F} (k-means iterations "
+                   f"{sorted(set(counts.tolist()))})", got, refs)
+    with open(model, "rb") as f:
+        raw = np.frombuffer(f.read(), "<f8").reshape(GMM_C, -1)
+    as_export = [raw[:, :4], raw[:, 4:52].reshape(-1, 4, 12), raw[:, 52:628].reshape(-1, 4, 12, 12),
+                 raw[:, 628:].reshape(-1, 4, 12, 8)]
+    _check_trained("the gmm-train CLI's model file", as_export, refs)
+    # gmm-test on that same file
+    for what, printed, stride, pca in (("gmm-test CLI (misaligned PCA-4 read)", printed_mis,
+                                        TEST_STRUCT, PCA_TEST),
+                                       ("gmm_test aligned", printed_al, TRAIN_STRUCT, PCA_TRAIN)):
+        models = reference_read_models(model, GMM_C, stride, pca)
+        want = []
+        nan_files = 0
+        for i, fr in enumerate(test_files):
+            scores = [reference_score_file(fr, *m) for m in models]
+            nan_files += any(np.isnan(scores))
+            want.append(f"{i // GMM_TEST_FILES + 1} -th result {_c_argmax(scores) + 1}")
+        lines = printed.splitlines()
+        ok = lines == want
+        right = sum(int(w.split()[-1]) == i // GMM_TEST_FILES + 1 for i, w in enumerate(want))
+        print(f"[4 speech] {what}: {len(lines)} decisions equal to reference_score_file's {ok} "
+              f"({nan_files} files with NaN scores; {right} of {len(want)} decisions the class)")
+        if not ok:
+            raise RuntimeError(f"{what}: decisions differ from the reference")
+    # speech_train(mxu3) through K10 and speech_classify
+    model64 = [x.cpu().numpy() for x in s_model64]
+    ref_models = [(model64[0][c], model64[1][c], np.stack([np.diag(v)[:4] for v in model64[2][c]]),
+                   model64[3][c]) for c in range(CLASSES)]
+    finite = np.isfinite(model64[0]).all(1) & np.isfinite(model64[3]).all((1, 2, 3))
+    dec_ok, fin_ok, right, worst = True, True, 0, 0.0
+    for c, u in enumerate(utts):
+        f = reference_mfcc(u, skip_first=False)
+        want = np.array([reference_score_file(f, *m) for m in ref_models])
+        got_c = s_scores[c].cpu().numpy()
+        dec_ok &= _c_argmax(got_c.tolist()) == _c_argmax(want.tolist())
+        fin_ok &= bool(np.array_equal(np.isnan(got_c), np.isnan(want))
+                       and _c_argmax(got_c[finite].tolist()) == _c_argmax(want[finite].tolist()))
+        worst = max(worst, float(np.max(np.abs(got_c[finite] - want[finite]) / np.abs(want[finite]))))
+        right += int(np.flatnonzero(finite)[_c_argmax(got_c[finite].tolist())]) == c
+    print(f"[4 speech] speech_train(mxu3, K10) {CLASSES}x{TRAIN_BLOCKS} blocks -> "
+          f"{int(finite.sum())} finite class models (the others NaN, as the reference's k-means "
+          f"seeding leaves them on these tones); speech_classify(mxu3) of {CLASSES} utterances: "
+          f"every decision that of reference_score_file on the f64 MFCC {dec_ok}, NaN scores in "
+          f"the same places and the decision among the finite models equal {fin_ok} ({right} the "
+          f"class), largest relative score difference over the finite models {worst:.2e} (limit "
+          f"{SCORE_RTOL})")
+    if not (dec_ok and fin_ok and finite.any() and worst <= SCORE_RTOL):
+        raise RuntimeError("speech_train / speech_classify decisions differ from the reference")
+    # decodes
+    states4 = [(a, m, np.stack([np.diag(c)[:4] for c in cv]), e) for a, m, cv, e in hstates]
+    for what, o, (path_c, score_c, bests_c) in zip(("the benchmark's observation",
+                                                     "state 0 held"), (hobs, hobs0), compat_runs):
+        t1 = time.perf_counter()
+        bests = []
+        rpath, rscore = reference_hmm_decode(o, states4, htrans, bests)
+        ref_s = time.perf_counter() - t1
+        ok = np.array_equal(path_c.cpu().numpy(), rpath) and _same_value(float(score_c), rscore,
+                                                                          VIT_RTOL)
+        ok_b = all(_same_value(g, w, VIT_RTOL) for g, w in zip(bests_c.cpu().numpy()[1:][::-1], bests))
+        print(f"[4 speech] viterbi(compat) T={HMM_T} f64, {what}: path and score equal to "
+              f"reference_hmm_decode {ok} (score {float(score_c)!r}, reference {rscore!r}; NaN "
+              f"values {int(np.isnan(bests).sum())} of {len(bests)}), per-time values {ok_b}; the "
+              f"reference took {ref_s:.1f} s")
+        if not (ok and ok_b):
+            raise RuntimeError(f"viterbi compat ({what}) differs from reference_hmm_decode")
+        if o is hobs:
+            ref_bests, ref_path = bests, rpath
+    vals = [float(v) for v in re.findall(r"max accumulated prob (\S+)", printed_vit)]
+    ok_v = len(vals) == HMM_T - 1 and all(_same_value(g, w, VIT_RTOL, PRINTED_ATOL)
+                                           for g, w in zip(vals, ref_bests))
+    path_line = printed_vit.splitlines()[-1]
+    ok_p = path_line == "".join("%d ," % d for d in ref_path) and "decoding result ! " in printed_vit
+    print(f"[4 speech] viterbi --verbose CLI: {len(vals)} 'max accumulated prob' lines within "
+          f"%f's rounding of the reference's {ok_v}, the path line identical {ok_p}")
+    if not (ok_v and ok_p):
+        raise RuntimeError("the viterbi --verbose lines differ from reference_hmm_decode's")
+    (path_s, score_s), (path_a, score_a) = corrected["f64"]
+    ok = (torch.equal(path_s, path_a)
+          and abs(float(score_s) - float(score_a)) <= ASSOC_ATOL + ASSOC_RTOL * abs(float(score_a)))
+    print(f"[4 speech] viterbi(compat=False) against viterbi_assoc T={HMM_T} f64: paths equal and "
+          f"scores {float(score_s)!r} / {float(score_a)!r} within {ASSOC_RTOL} / {ASSOC_ATOL} {ok}")
+    f32_rtol = HMM_T * 2.0 ** -24  # a sum of HMM_T f32 terms, rounded at every step
+    P64 = reference_forward(*(t.cpu().numpy().astype(np.float64) for t in dec32))
+    p64 = path_s.cpu().numpy()
+    for form, (p32, s32) in zip(("viterbi(compat=False)", "viterbi_assoc"), corrected["f32"]):
+        diff = np.flatnonzero(p32.cpu().numpy() != p64)
+        a, b = p32.cpu().numpy()[diff], p64[diff]
+        ulps = np.abs(P64[diff, a] - P64[diff, b]) / np.spacing(np.float32(abs(float(score_s))))
+        ok32 = bool((ulps <= F32_TIE_ULPS).all()) and abs(float(s32) - float(score_s)) <= f32_rtol * abs(
+            float(score_s))
+        print(f"[4 speech] {form} T={HMM_T} f32 (the benchmark's dtype) against the f64 decode: "
+              f"score {float(s32)!r} within {f32_rtol:.2e} relative, {len(diff)} frames of the "
+              f"path differ, each an f32 tie (the two states' f64 values within "
+              f"{F32_TIE_ULPS} f32 spacings of the score, largest "
+              f"{ulps.max(initial=0):.2f}): {ok32}")
+        ok &= ok32
+    if not ok:
+        raise RuntimeError("the corrected Viterbi forms differ")
+    worst, ok = 0.0, True
+    for u in np.linspace(0, VIT_U - 1, VIT_SAMPLED).astype(int):
+        p1, s1 = P.H.viterbi(corpus[u], *dec32[1:], compat=False)
+        ok &= torch.equal(p1, paths_b[u])
+        worst = max(worst, abs(float(s1) - float(scores_b[u])) / abs(float(s1)))
+    print(f"[4 speech] viterbi_batched {VIT_U}x{VIT_T} f32: {VIT_SAMPLED} sampled paths equal to "
+          f"single decodes {ok}, largest relative score difference {worst:.2e} (limit {ASSOC_RTOL})")
+    if not (ok and worst <= ASSOC_RTOL):
+        raise RuntimeError("viterbi_batched differs from single decodes")
+    # awgn
+    got = np.fromfile(awgn_out, "<i2")
+    x = awgn_x[: len(got)]
+    noise = (got.astype(np.int32) - x).astype(np.int16)
+    n = noise.astype(np.float64)
+    wraps = bool(np.all(got[: 20 * 512][n[: 20 * 512] > 7] < 0))
+    nb = torch.from_numpy(noise.reshape(-1, 512)).to(dev)
+    ratios = P.AW.whiteness_ratio(nb).cpu().numpy()
+    u = noise.reshape(-1, 512).astype(np.float64)
+    frames = np.concatenate([np.concatenate([np.zeros((1, 512)), u[:-1]]), u], 1)
+    X = np.fft.fft(frames, axis=1)
+    ac = np.fft.ifft(X.real ** 2 + X.imag ** 2, axis=1).real[:, :512]
+    want_r = np.abs(ac[:, 1:]).max(1) / np.maximum(ac[:, 0], 1e-30)
+    ok = (len(got) == T_FULL * 512 and abs(n.mean()) < 0.5 and 8.5 < n.std() < 11.5 and wraps
+          and ratios[1:].max() < 0.25 and np.allclose(ratios, want_r, rtol=1e-9, atol=0))
+    print(f"[4 speech] awgn CLI {T_FULL} blocks: noise mean {n.mean():.4f}, std {n.std():.4f}, the "
+          f"32760 stretch wraps {wraps}, whiteness max {ratios[1:].max():.4f} (< 0.25), ratios "
+          f"within 1e-9 of numpy's {np.allclose(ratios, want_r, rtol=1e-9, atol=0)}: {ok}")
+    if not ok:
+        raise RuntimeError("awgn differs from its bounds")
+    print(f"[4 speech] launches {json.dumps({k: n for k, n in launches.items() if n})} in "
+          f"{main_s:.1f} s")
+    if launches["K10"] == 0:
+        raise RuntimeError("the speech phase did not launch K10")
+    return launches, dict(ft=ft, masks=masks, test_list=test_list, model=model, audio=audio,
+                          ublocks=ublocks, dec32=dec32, hmm64=hmm64, hobs=hobs, corpus=corpus,
+                          lengths=lengths, awgn=(awgn_in, awgn_out),
+                          n_test=len(test_files))
+
+
+def time_speech(P, dev, card, sync, inp):
+    """Phase 5 for speech recognition: train_classes_batched f64 and f32
+    (frames/s), gmm-test per file, speech_train(mxu3), each decode form (ms,
+    frames/s) and the awgn CLI, the decodes and training also under
+    torch.profiler (device busy, idle share)."""
+    import contextlib
+    import io
+
+    import torch
+
+    ft, masks = inp["ft"], inp["masks"]
+    ft32 = ft.float()
+    hobs = torch.from_numpy(inp["hobs"]).to(dev)
+    runs = {  # name: (call, frames a call)
+        f"train_classes_batched f64 {GMM_C}x{GMM_F}": (
+            lambda: P.GM.train_classes_batched(ft, masks), GMM_C * GMM_F),
+        f"train_classes_batched f32 {GMM_C}x{GMM_F}": (
+            lambda: P.GM.train_classes_batched(ft32, masks), GMM_C * GMM_F),
+        f"speech_train(mxu3) f32 {CLASSES}x{TRAIN_BLOCKS} blocks": (
+            lambda: P.S.speech_train(inp["audio"], dtype=torch.float32, fft_engine="mxu3"),
+            CLASSES * TRAIN_BLOCKS * 2),
+        f"viterbi(compat) f64 T={HMM_T}": (
+            lambda: P.H.viterbi(hobs, *inp["hmm64"], compat=True), HMM_T),
+        f"viterbi(compat=False) f32 T={HMM_T}": (
+            lambda: P.H.viterbi(*inp["dec32"], compat=False), HMM_T),
+        f"viterbi_assoc f32 T={HMM_T}": (lambda: P.H.viterbi_assoc(*inp["dec32"]), HMM_T),
+        f"viterbi_batched f32 {VIT_U}x{VIT_T}": (
+            lambda: P.H.viterbi_batched(inp["corpus"], inp["lengths"], *inp["dec32"][1:]),
+            VIT_U * VIT_T),
+    }
+    for name, (call, frames) in runs.items():
+        ms = median_ms(call, sync, reps=TRAIN_REPS)
+        wall, busy, kernels, host = profile_call(call, sync, top=3)
+        print(f"[5 timing] {name} on {card}: {ms:.3f} ms = {frames / ms * 1e3:.4g} frames/s; under "
+              f"torch.profiler wall {wall:.3f} ms, device busy {busy:.3f} ms (idle "
+              f"{100 * (1 - busy / wall):.1f}%), top kernels "
+              f"{[(round(t, 3), c, k[:40]) for t, c, k in kernels]}, host ops "
+              f"{[(round(t, 3), c, k[:30]) for t, c, k in host]}")
+
+    def gmm_test():
+        with contextlib.redirect_stdout(io.StringIO()):
+            P.cli.main(["gmm-test", inp["test_list"], inp["model"]])
+
+    def awgn():
+        P.cli.main(["awgn", *inp["awgn"]])
+
+    for name, call, n, unit in (("gmm-test CLI", gmm_test, inp["n_test"], "file"),
+                                (f"awgn CLI {T_FULL} blocks", awgn, 1, "call")):
+        call()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_REPS):
+            call()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_REPS / n
+        extra = f" = {T_FULL * 512 / ms * 1e3:.4g} samples/s" if n == 1 else ""
+        print(f"[5 timing] {name} on {card} (host clock, files included): {ms:.3f} ms a {unit}"
+              f"{extra}")
+
+
 SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (file:line)
     "K1": ("enhance_full8", "enhance_full8.cu", "enhance_pallas.py:737"),
     "K2": ("enhance_fwd_int8", "enhance_mxu8.cu", "enhance_pallas.py:217"),
@@ -2815,12 +3486,16 @@ def main() -> int:
     for k, n in drive_stream(P, dev, x_full, refs, geq, aec, sync).items():
         launches[k] += n  # the stream phase's launches, added to the earlier phases'
     drive_mvdr(P, dev, card, sync)
+    speech_launches, speech_inputs = drive_speech(P, dev, sync)
+    for k, n in speech_launches.items():
+        launches[k] += n  # the speech phase's launches (K10), added to the earlier phases'
     time_chains(P, blocks, C, card, sync)
     times = time_kernels(P, blocks, C, rowpack, back_ins, card, sync)
     times.update(time_recursions(P, geq, aec, card, sync))
     times.update(time_features(P, feat, classify, card, sync))
     times.update(time_transforms(P, xc, xf, blocks, C, back_ins, card, sync))
     time_stream(P, dev, x_full, card, sync)
+    time_speech(P, dev, card, sync, speech_inputs)
 
     print(card)
     print(json.dumps({"kernels": [{

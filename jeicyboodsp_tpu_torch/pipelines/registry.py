@@ -1,26 +1,32 @@
 """File-in/file-out pipelines of the port (counterpart of
-``jeicyboodsp_tpu/pipelines/registry.py``).  Ported so far: the enhancement
-chain (``wiener``, ``specsub``) and its resumable streaming form
-(``stream``), the 7-band EQ (``geq``), the echo cancellers (``nlms``,
+``jeicyboodsp_tpu/pipelines/registry.py``), all 17 of the JAX package's:
+the enhancement chain (``wiener``, ``specsub``) and its resumable streaming
+form (``stream``), the 7-band EQ (``geq``), the echo cancellers (``nlms``,
 ``bnlms``), pitch (``pitch1``-``pitch3``), corpus MFCC (``mfcc``), the RIR
-fast convolution (``fastconv``), the FFT roundtrip program (``fft``) and the
-2-mic MVDR beamformer (``mvdr``).  Each reads its inputs as the reference
-program does:
+fast convolution (``fastconv``), the FFT roundtrip program (``fft``), the
+2-mic MVDR beamformer (``mvdr``), the AWGN harness (``awgn``), and speech
+recognition: GMM training and classification over feature files
+(``gmm-train``, ``gmm-test``) and HMM decoding (``viterbi``).  Each reads
+its inputs as the reference program does:
 
 - ``wiener``/``specsub``/``stream`` read from byte 0: the reference never
   skips the 44-byte header (WienerFilter_final.cpp:81 is commented out);
 - ``geq`` skips the header (7Band_GEQ.cpp:116);
 - ``nlms``/``bnlms`` skip the input's header but not the reference
   signal's (NormalLMS.cpp:65-66);
-- ``pitch*``, ``mfcc``, ``fastconv``, ``fft`` and both ``mvdr`` inputs skip
-  the header.
+- ``pitch*``, ``mfcc``, ``fastconv``, ``fft``, ``awgn`` and both ``mvdr``
+  inputs skip the header;
+- ``gmm-train``, ``gmm-test`` and ``viterbi`` read list files naming
+  little-endian f64 feature files (12 values a frame) and write or read the
+  reference's struct model files (``models.serialization``).
 
 ``kw`` is passed on to the op: ``device`` (a CUDA card by default; "cpu"
 runs the plain versions) for all, ``fft_engine`` for the enhancement chain,
 pitch, MFCC, fastconv and MVDR, ``dtype`` for the enhancement chain and its
-stream, the GEQ, pitch, MFCC, fastconv, fft and MVDR, ``use_assoc_scan`` for
-the enhancement chain, ``verbose`` for fft, ``d_time`` and ``collapse`` for
-MVDR; ``stream`` takes its checkpoint arguments by name.
+stream, the GEQ, pitch, MFCC, fastconv, fft, MVDR, awgn and gmm-train,
+``use_assoc_scan`` for the enhancement chain, ``verbose`` for fft, gmm-train
+and viterbi, ``d_time`` and ``collapse`` for MVDR; ``stream`` takes its
+checkpoint arguments by name.
 """
 
 from __future__ import annotations
@@ -155,6 +161,133 @@ def mvdr(left: str, right: str, out: str, **kw):
     return y
 
 
+def awgn(inp: str, out: str, seed: int = 0, device="cuda", **kw):
+    """AWGN harness: header skipped, whole 512-sample blocks (a partial last
+    block is dropped, as JAX's pipeline drops it).  The reference seeds from
+    the clock; this draws from a generator on the device seeded with
+    ``seed``.  kw: sigma, dtype (float64 by default; float32 is ``--fast``)."""
+    import torch
+
+    from jeicyboodsp_tpu_torch.ops import awgn as A
+    from jeicyboodsp_tpu_torch.utils.device import entry_device
+
+    dev = entry_device(device)
+    x = _read(inp, True)
+    T = len(x) // A.BLOCK
+    blocks = torch.from_numpy(x[: T * A.BLOCK].reshape(T, A.BLOCK)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    noisy, _ = A.add_awgn(gen, blocks, **kw)
+    noisy = noisy.cpu().numpy()
+    write_pcm16(out, noisy.reshape(-1))
+    return noisy
+
+
+def _lines(path: str):
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def _features(path: str) -> np.ndarray:
+    return np.fromfile(path, dtype="<f8").reshape(-1, 12)
+
+
+def gmm_train(list_file: str, model_out: str, **kw):
+    """Train one class per line of ``list_file`` (each line a list file
+    naming the class's feature files) and write the PCA-8 train-layout model
+    file.  kw: dtype (float64 by default; float32 is ``--fast``), verbose
+    (the reference's EM likelihood lines), device."""
+    from jeicyboodsp_tpu_torch.models import gmm as G
+    from jeicyboodsp_tpu_torch.models import serialization as S
+
+    classes = []
+    for class_list in _lines(list_file):
+        params = G.train_class([_features(p) for p in _lines(class_list)], **kw)
+        classes.append(tuple(p.cpu().numpy() for p in params))
+    S.write_train_model(model_out, classes)
+    return classes
+
+
+def gmm_test(list_file: str, model_path: str, emulate_layout_mismatch: bool = True,
+             device="cuda"):
+    """Classify the feature files of each class list and print
+    ``"{class} -th result {decision}"`` a file, 1-based.  By default the
+    model file is read with the reference's misaligned PCA-4 layout (the
+    chained system's behavior); ``emulate_layout_mismatch=False`` reads it
+    aligned.  The decision is the reference's argmax
+    (GMMAlgorithm_Test_Auto_ver2.cpp:117-124): strict ``best < s``, first
+    wins, a NaN keeps the incumbent (``torch.argmax`` would take the first
+    NaN; the misaligned models make NaN scores the common case)."""
+    import torch
+
+    from jeicyboodsp_tpu_torch.models import gmm as G
+    from jeicyboodsp_tpu_torch.models import serialization as S
+    from jeicyboodsp_tpu_torch.utils.device import entry_device
+
+    dev = entry_device(device)
+    class_lists = _lines(list_file)
+    n = len(class_lists)
+    if emulate_layout_mismatch:
+        models = S.read_as_test_layout(model_path, n)
+    else:
+        models = [S.train_to_test_params(*p) for p in S.read_train_layout(model_path, n)]
+    stacked = [torch.from_numpy(np.stack([m[i] for m in models])).to(dev) for i in range(4)]
+    results = []
+    for ci, class_list in enumerate(class_lists):
+        for p in _lines(class_list):
+            frames = torch.from_numpy(_features(p)).to(dev)
+            scores = G.score_frames_all_classes(frames, *stacked).cpu().tolist()
+            pred, best = 0, scores[0]
+            for u in range(1, len(scores)):
+                if best < scores[u]:
+                    best, pred = scores[u], u
+            print(f"{ci + 1} -th result {pred + 1}")
+            results.append((ci, pred, scores))
+    return results
+
+
+def viterbi(list_file: str, model_path: str, compat: bool = True, verbose: bool = False,
+            device="cuda"):
+    """Decode the feature files named in ``list_file`` (whitespace-separated)
+    with a 6-state HMM model file (the Viterbi layout).  Prints
+    ``decoding result !`` and the path, comma-separated; with ``verbose``
+    (compat mode) the reference's print surface instead: one
+    ``max accumulated prob %f`` line per backtrace step t = T-1..1, then
+    ``decoding result ! `` and the ``%d ,``-formatted path
+    (Viterbi_version1.cpp:222, 227-231)."""
+    import sys
+
+    import torch
+
+    from jeicyboodsp_tpu_torch.models import hmm as H
+    from jeicyboodsp_tpu_torch.models import serialization as S
+    from jeicyboodsp_tpu_torch.utils.device import entry_device
+
+    dev = entry_device(device)
+    with open(model_path, "rb") as f:
+        states, trans = S.unpack_hmm(f.read())
+    model = H.hmm_to_port(*(np.stack([s[i] for s in states]) for i in range(4)), trans, dev)
+    out = []
+    with open(list_file) as f:
+        paths = f.read().split()
+    for p in paths:
+        frames = torch.from_numpy(_features(p)).to(dev)
+        if verbose and compat:
+            path, score, bests = H.viterbi(frames, *model, compat=True, full=True)
+            b = bests.cpu().numpy()
+            for t in range(len(frames) - 1, 0, -1):
+                sys.stdout.write("max accumulated prob %f \n" % b[t])
+            sys.stdout.write("decoding result ! \n")
+            sys.stdout.write("".join("%d ," % d for d in path.cpu().tolist()))
+            sys.stdout.write("\n")
+        else:
+            path, score = H.viterbi(frames, *model, compat=compat)
+            print("decoding result !")
+            print(",".join(str(d) for d in path.cpu().tolist()))
+        out.append((path.cpu().numpy(), float(score)))
+    return out
+
+
 def stream_enhance(inp: str, out: str, mode: str = "wiener", ckpt: str | None = None,
                    ckpt_every: int = 4, chunk_blocks: int = 4,
                    crash_after_chunks: int | None = None, dtype=None, device="cuda"):
@@ -226,5 +359,9 @@ PIPELINES = {
     "fastconv": fastconv,
     "fft": fft_roundtrip,
     "mvdr": mvdr,
+    "awgn": awgn,
+    "gmm-train": gmm_train,
+    "gmm-test": gmm_test,
+    "viterbi": viterbi,
     "stream": stream_enhance,
 }

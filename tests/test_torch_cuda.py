@@ -1265,3 +1265,80 @@ def test_enhance_session_f32_on_the_card(cuda, tmp_path):
     assert snr_db(np.concatenate(outs[6:]), rest) >= 95.0
     sp = torch.from_numpy(blocks).to(cuda)
     assert torch.equal(E.vad_flags(sp).cpu(), E.vad_flags(sp.cpu()))
+
+
+# ---- speech recognition: GMM training and HMM decoding on the card (torch ops) ----
+
+
+def test_bool_stable_argsort_on_the_card(cuda):
+    """train_hmm orders each state's frames first by a stable argsort of a
+    bool mask: on the card as on the CPU (ties keep their order)."""
+    mask = torch.from_numpy(np.random.default_rng(8).random((6, 4099)) < 0.3)
+    want = torch.argsort(~mask, dim=1, stable=True)
+    got = torch.argsort(~mask.to(cuda), dim=1, stable=True).cpu()
+    assert torch.equal(got, want)
+
+
+def test_train_classes_batched_on_the_card(cuda):
+    """train_classes_batched in f64 over 25 classes x 512 frames of the
+    benchmark's synth_class on the card against the CPU: the k-means
+    iteration counts equal; alpha within rtol 1e-6, the projected mean
+    (signs aligned: cuSOLVER's eigenvectors differ from LAPACK's) 1e-5, cov
+    1e-4, the top-4 |eigenvector dots| within 1e-5 of 1."""
+    from chip_smoke import synth_class
+    from jeicyboodsp_tpu_torch.models import gmm as G
+
+    feats = torch.from_numpy(np.stack([synth_class(1000 + c, 512) for c in range(25)]))
+    masks = torch.ones(25, 512, dtype=torch.bool)
+    masks[3, 400:] = False  # a ragged class
+    counts = [G.kmeans_counted(f, m, f[:, 0:16:4])[2]
+              for f, m in ((feats, masks), (feats.to(cuda), masks.to(cuda)))]
+    assert counts[1].cpu().tolist() == counts[0].tolist()
+    want = [t.numpy() for t in G.train_classes_batched(feats, masks)]
+    got = [t.cpu().numpy() for t in G.train_classes_batched(feats.to(cuda), masks.to(cuda))]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+    s = np.sign(np.sum(got[3] * want[3], axis=-2))
+    mean = got[1].copy()
+    mean[..., :8] *= s
+    np.testing.assert_allclose(mean, want[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.abs(np.sum(got[3] * want[3], axis=-2))[..., :4], 1.0, atol=1e-5)
+
+
+def _same_scores(got, want, rtol=1e-12):
+    got, want = np.atleast_1d(got), np.atleast_1d(want)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=rtol)
+
+
+@pytest.mark.parametrize("T", [1, 2, 300, 4096])
+def test_viterbi_forms_on_the_card(cuda, T):
+    """Every decode on the card against the CPU on the benchmark's models:
+    compat (f64 packed HMM, NaN and held-state observations), corrected and
+    viterbi_assoc (the f64 decode model), viterbi_batched (16 ragged
+    utterances): paths equal, scores within 1e-12 relative, NaN equal."""
+    from chip_smoke import bench_hmm
+    from jeicyboodsp_tpu_torch.models import hmm as H
+
+    (vf, va, vm, vc, ve, vt), (states, trans, obs, obs0) = bench_hmm(np.random.default_rng(T))
+    hmm = H.hmm_to_port(*(np.stack([s[i] for s in states]) for i in range(4)), trans, "cpu")
+    for o in (obs[:T], obs0[:T]):
+        want = H.viterbi(torch.from_numpy(o), *hmm, compat=True, full=True)
+        got = H.viterbi(torch.from_numpy(o).to(cuda), *(t.to(cuda) for t in hmm), compat=True,
+                        full=True)
+        assert torch.equal(got[0].cpu(), want[0])
+        _same_scores(got[1].cpu().numpy(), want[1].numpy())
+        _same_scores(got[2].cpu().numpy(), want[2].numpy())
+    dec = [torch.from_numpy(np.ascontiguousarray(x, np.float64)) for x in (vf[:T], va, vm, vc, ve, vt)]
+    dec_c = [t.to(cuda) for t in dec]
+    for fn in (lambda *a: H.viterbi(*a, compat=False), H.viterbi_assoc):
+        want, got = fn(*dec), fn(*dec_c)
+        assert torch.equal(got[0].cpu(), want[0])
+        _same_scores(got[1].cpu().numpy(), want[1].numpy())
+    rng = np.random.default_rng(5)
+    lengths = torch.from_numpy(rng.integers(1, T + 1, 16))
+    corpus = torch.from_numpy(rng.normal(0, 1, (16, T, 12)))
+    want = H.viterbi_batched(corpus, lengths, *dec[1:])
+    got = H.viterbi_batched(corpus.to(cuda), lengths.to(cuda), *dec_c[1:])
+    assert torch.equal(got[0].cpu(), want[0])
+    _same_scores(got[1].cpu().numpy(), want[1].numpy())
