@@ -22,7 +22,13 @@ and resumed), the MVDR beamformer over 16,384 stereo blocks, speech
 recognition (GMM training over 25 classes x 512 frames, ``gmm-train`` and
 ``gmm-test`` through the CLI, ``speech_train(mxu3)`` through K10, Viterbi at
 4096 frames and 512 utterances x 512) and the ``awgn`` CLI over 16,384
-blocks -- in phases that each print lines and raise on failure:
+blocks; the f32 echo cancellers (``nlms --fast``, ``bnlms --fast``: the f32
+instances of K8 and K9) at 1024 streams x 65,536 samples with NLMS
+``--verbose``, the time-parallel BNLMS over one session of 1024 blocks,
+LPC over 8192 frames of 512, the linear GEQ scan ``geq_apply_fast`` over
+2048 x 49,152, and every ``parallel/sharded.py`` path in a world of one
+NCCL rank (K8, K9, K14 under them) -- in phases that each print lines and
+raise on failure:
 
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA sources with nvcc and prints the seconds;
@@ -57,6 +63,9 @@ blocks -- in phases that each print lines and raise on failure:
      signal and on rows at its energy and ZCR thresholds, with the f32
      window and the f64-built w2; engines mxu8f and mxu8t through K14
      bit-equal to the same chain with the VAD as torch ops;
+   - the f32 instances of K8 (T = 2048, both pairings, and T = 257 from a
+     nonzero state with -0.0 coefficients) and K9 (8 blocks, some gates
+     shut) at 1024 streams, bit-equal to their plain f32 versions;
 4. main paths, every launch counter set to 0 just before each and read just
    after, each kernel launched at least once:
    - enhancement: the file-in/file-out pipelines of every engine on a
@@ -139,6 +148,28 @@ blocks -- in phases that each print lines and raise on failure:
      equal but for f32 ties); ``viterbi_batched`` over 512 x 512 against
      single decodes; the ``awgn`` CLI's noise at tests/test_fft_awgn.py's
      bounds;
+   - the f32 echo cancellers and the modules after them (``drive_aec_fast``,
+     ``drive_timeparallel``, ``drive_lpc``, ``drive_geq_fast``,
+     ``drive_parallel``; together ~15 s): nlms_apply and
+     bnlms_apply in f32 at 1024 x 65,536 (K8 and K9 f32 counted), every
+     block of an echo and a double-talk stream >= 60 dB est and >= 40 dB err
+     against the f64 references, ``nlms --fast`` / ``bnlms --fast`` from the
+     CLI likewise, ``nlms --verbose`` lines equal to the reference's
+     per-block coefficients under %f; ``bnlms_apply_timeparallel`` over 1024
+     blocks within 2 steps and >= 60 dB of the f64 sequential path (ms,
+     peak memory) -- its first 16 blocks, the drift over the session
+     printed (ROADMAP R20), the whole session within one step on under 1%
+     of the same op on the CPU; ``lpc_run`` over 8192 frames, ``solve``
+     f64 within 1e-9 of ``reference_lpc`` (a float64 copy of
+     ``oracle/lpc.py``) and
+     ``levinson`` f32 at a per-frame median bound, a few near-singular
+     frames allowed to lose their digits;
+     ``geq_apply_fast`` f64 at 2048 x 49,152 in one call against
+     ``reference_geq_linear`` on two streams; each ``parallel/sharded.py``
+     path in a world of one NCCL rank against its unsharded op (max |diff|
+     printed, tests/test_sharded.py's contracts; K14 counted under the f32
+     enhancement paths, its launches added to K14's), run after phase 5
+     so that the NCCL world's threads do not share the host with it;
 5. timing (CUDA events around batches of back-to-back calls, see
    ``median_ms``): ``enhance_blocks`` of each engine, the ops ``geq_apply``
    (f64 and f32), ``nlms_apply`` and ``bnlms_apply`` (with the gate alone at
@@ -164,7 +195,10 @@ blocks -- in phases that each print lines and raise on failure:
    chunk of 4 under ``torch.profiler`` (device busy, idle share);
    ``train_classes_batched`` f64 and f32, ``speech_train(mxu3)``, each
    decode form (ms, frames/s, and under ``torch.profiler``), ``gmm-test``
-   per file and the ``awgn`` CLI (host clock).  The
+   per file and the ``awgn`` CLI (host clock); the f32 instances of K8 and
+   K9 at 1024 x 65,536 beside the f64 instances, their plain versions, the
+   bounds in f32 operations and K9 f32's resident blocks, the f32 ops, and
+   ``lpc_frames`` per solver.  The
    bounds of K5 and K13 count their GEMMs as
    the 3xTF32 they run, with the bf16x3 figure beside; those of K4 and K10
    count their functions through a real FFT, with the dense-DFT GEMM figure
@@ -386,11 +420,13 @@ def reference_geq_linear(x, b, a):
     return _c_short(np.array(cur))
 
 
-def reference_nlms_blocks(xb, rb):
+def reference_nlms_blocks(xb, rb, trajectory=None):
     """float64 reference of NormalLMS.cpp over (nb, 1024) blocks, every
     block's est and err: 256 taps, mu 1e-4, the estimate against the reversed
     coefficients summed tap by tap (add.accumulate is sequential), the update
-    2.0*u*MU*e/(norm + eps) per tap against the direct ones."""
+    2.0*u*MU*e/(norm + eps) per tap against the direct ones.  ``trajectory``,
+    a list, gets the first three coefficients after each block (what
+    ``--verbose`` prints, NormalLMS.cpp:128)."""
     c = np.zeros(256)
     u = np.zeros(255 + 1024)
     est = np.zeros(xb.shape, np.int16)
@@ -404,6 +440,8 @@ def reference_nlms_blocks(xb, rb):
             c = c + 2.0 * w * 0.0001 * float(e) / (float(w @ w) + 0.0001)
             est[t, i], err[t, i] = y, _c_short_int(float(e))
         u[:255] = u[-255:]
+        if trajectory is not None:
+            trajectory.append(tuple(c[:3]))
     return est, err
 
 
@@ -459,6 +497,26 @@ def reference_nlms(x, ref, bnlms=False):
     xb, rb = _stale_blocks(x, 1024)[:nb], _stale_blocks(ref, 1024)[:nb]
     out = reference_bnlms_blocks(xb, rb) if bnlms else reference_nlms_blocks(xb, rb)
     return (out[0][1:].reshape(-1), out[1][1:].reshape(-1)) + tuple(out[2:])
+
+
+def reference_lpc(x):
+    """float64 copy of oracle/lpc.py:run (LPCEstimation.cpp): 256-sample
+    blocks with stale tails, each analysed with the block before it through
+    the Hamming window over 512 samples, the biased autocorrelation lags
+    0..12 as dot products over (512 - lag), the 12x12 Toeplitz system solved
+    by LU; the first block's row not written.  Returns (blocks - 1, 12)."""
+    n = 512
+    w = 0.54 - 0.46 * np.cos(2.0 * 3.141592 * np.arange(n) / (n - 1))
+    lags = np.abs(np.subtract.outer(np.arange(12), np.arange(12)))
+    prev = np.zeros(256, np.int16)
+    rows = []
+    for t, blk in enumerate(_stale_blocks(x, 256)):
+        win = np.concatenate([prev, blk]).astype(np.float64) * w
+        prev = blk
+        r = np.array([np.dot(win[:n - i], win[i:n]) / (n - i) for i in range(13)])
+        if t:
+            rows.append(np.linalg.solve(r[lags], -r[1:13]))
+    return np.stack(rows) if rows else np.zeros((0, 12))
 
 
 FFT_PI = 3.14159265358  # FFTAlgorithm_ver2.cpp:15
@@ -717,10 +775,14 @@ def _port():
     from jeicyboodsp_tpu_torch.models import hmm as H
     from jeicyboodsp_tpu_torch.ops import awgn as AW
 
+    from jeicyboodsp_tpu_torch.ops import mvdr as MV
+    from jeicyboodsp_tpu_torch.utils import cnum
+
     return SimpleNamespace(_build=_build, K1=K1, K2=K2, K3=K3, K4=K4, K5=K5, E=E,
                            registry=registry, K6=K6, K7=K7, K8=K8, K9=K9, G=G, N=N,
                            K10=K10, K11=K11, GM=GM, F=F, S=S, cli=cli,
-                           K12=K12, K13=K13, K14=K14, FC=FC, FT=FT, H=H, AW=AW)
+                           K12=K12, K13=K13, K14=K14, FC=FC, FT=FT, H=H, AW=AW,
+                           K8f32=K8, K9f32=K9, MV=MV, cnum=cnum)
 
 
 K1_ENGINES = {"mxu8f": True, "mxu8t": False}  # the engines of K1: hq
@@ -3410,6 +3472,495 @@ def time_speech(P, dev, card, sync, inp):
               f"{extra}")
 
 
+# ---- f32 echo cancellers (K8, K9 f32 instances), time-parallel BNLMS, LPC, the linear GEQ
+# ---- scan, and the sharded paths (parallel/) in a world of one NCCL rank
+
+AEC_SNR_FLOORS = (60.0, 40.0)  # est, err dB against the f64 references (tests/test_nlms.py:24-26)
+TP_T = 1024               # blocks of the time-parallel session (bench/all_configs.py:521-535)
+TP_LSB, TP_DB = 2, 60.0   # time-parallel against the f64 sequential path (tests/test_nlms.py:39-65)
+TP_HEAD = 16              # blocks held to those bounds: the linearized recursion drifts from the
+                          # sequential one over a long session, in JAX's op too (ROADMAP R20);
+                          # JAX's benchmark checks the first 16 (bench/all_configs.py:542-559)
+LPC_T = 8192              # LPC frames of 512 (bench/all_configs.py:794-800)
+LPC_F64_RTOL = 1e-9       # lpc solve f64 against reference_lpc, of the largest coefficient
+# levinson f32 against reference_lpc, of each frame's largest coefficient.  JAX's f32 op on these
+# LPC_T frames (jitted, CPU) reads a median frame error of 3.74e-7 and 1 frame above 1e-2 (a tone
+# frame whose 12x12 system is near singular; worst 0.058); the limits are 4x those readings, the
+# factor tests/test_torch_lpc.py allows the port's median frame against JAX's.  That file reads
+# JAX's numbers anew and holds these limits to them.
+LPC_F32_JAX = (3.74e-7, 1)  # JAX's f32 levinson here: median frame error, frames above 1e-2
+LPC_F32_MEDIAN, LPC_F32_LOST = 4 * LPC_F32_JAX[0], 4 * LPC_F32_JAX[1]
+GEQ_FAST_FLIPS = 1e-3     # c_short(geq_apply_fast f64) against reference_geq_linear: share of
+                          # samples one step off (the scan groups its f64 sums otherwise)
+AEC_SAMPLED = (0, AEC_B - 1)  # an echo stream and a double-talk stream
+
+
+def check_aec_f32(P, aec, sync):
+    """Phase 3 for the f32 instances of K8 and K9: each against its plain
+    version at the full stream count and the shorter T of PLAIN_T (K8 both
+    update pairings, and T = 257 from a nonzero state with -0.0
+    coefficients), bit for bit.  Returns the max |kernel - plain| of each."""
+    import torch
+
+    dev = aec[0].device
+    err = {"K8f32": 0.0}
+    xa, ra = (v[:, :PLAIN_T["K8"]].contiguous() for v in aec)
+    for compat in (True, False):
+        got = P.K8.nlms_f32(xa, ra, compat=compat)
+        want = P.K8.nlms_f32_plain(xa, ra, *P.K8.init_state(len(xa), dev, torch.float32),
+                                   compat=compat)
+        sync()
+        pairs = list(zip(got[:2], want[:2])) + [(got[2][0].view(torch.int32),
+                                                 want[2][0].view(torch.int32)),
+                                                (got[2][1], want[2][1])]
+        err["K8f32"] = max(err["K8f32"], _bit_equal(
+            "K8 f32", f"compat={compat} B={len(xa)} T={xa.shape[1]} (est, err, coef bits, hist)",
+            pairs))
+    t0 = PLAIN_T["K8"]
+    xa, ra = (v[:, t0:t0 + 257].contiguous() for v in aec)
+    hist = aec[0][:, t0 - 255:t0].contiguous()
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    coef = 1e-3 * torch.randn(len(xa), 256, generator=g, dtype=torch.float32, device=dev)
+    coef[:, ::5] = -0.0
+    got = P.K8.nlms_f32(xa, ra, (coef, hist))
+    want = P.K8.nlms_f32_plain(xa, ra, coef, hist)
+    sync()
+    pairs = list(zip(got[:2], want[:2])) + [(got[2][0].view(torch.int32),
+                                             want[2][0].view(torch.int32))]
+    err["K8f32"] = max(err["K8f32"], _bit_equal(
+        "K8 f32", f"B={len(xa)} T=257 from a nonzero state (est, err, coef bits)", pairs))
+    xa, ra = (v[:, :PLAIN_T["K9"]].contiguous() for v in aec)
+    keep = torch.zeros(len(xa), 127, dtype=torch.int16, device=dev)
+    gates = P.K9.bnlms_gates(xa, ra, keep, keep)
+    gates[::3, 1::2] = False
+    got = P.K9.bnlms_f32(xa, ra, gates)
+    want = P.K9.bnlms_f32_plain(xa, ra, gates, *P.K9.init_state(len(xa), dev, torch.float32))
+    sync()
+    pairs = list(zip(got[:2], want[:2])) + [(got[2][0].view(torch.int32),
+                                             want[2][0].view(torch.int32)),
+                                            (got[2][1], want[2][1])]
+    err["K9f32"] = _bit_equal("K9 f32", f"B={len(xa)} {xa.shape[1] // 1024} blocks, "
+                              f"{int(gates.sum())} of {gates.numel()} gates open "
+                              "(est, err, coef bits, keep)", pairs)
+    return err
+
+
+def _snr_db(ref, test):
+    ref = np.asarray(ref, np.float64)
+    e = ref - np.asarray(test, np.float64)
+    if not (e ** 2).sum():
+        return float("inf")
+    return float(10 * np.log10((ref ** 2).sum() / (e ** 2).sum()))
+
+
+def _aec_floors(what, pairs):
+    """Print the est and err SNRs of (f64 reference, f32 output) pairs; fail
+    below AEC_SNR_FLOORS."""
+    s = [_snr_db(w, g) for w, g in pairs]
+    print(f"[4 aec-fast] {what}: est {s[0]:.2f} dB, err {s[1]:.2f} dB against the f64 "
+          f"reference (floors {AEC_SNR_FLOORS[0]:.0f}/{AEC_SNR_FLOORS[1]:.0f} dB)")
+    if not (s[0] >= AEC_SNR_FLOORS[0] and s[1] >= AEC_SNR_FLOORS[1]):
+        raise RuntimeError(f"{what}: f32 below the SNR floors")
+
+
+def drive_aec_fast(P, dev, aec, sync):
+    """Phase 4 for ``nlms --fast`` and ``bnlms --fast``: the K8 and K9 f32
+    launch counters set to 0 just before and read just after: nlms_apply and
+    bnlms_apply in f32 over AEC_B x AEC_T, the nlms and bnlms CLI with
+    --fast on the echo probe, the nlms --verbose CLI.  Then every block of
+    the AEC_SAMPLED streams against the script's f64 references (SNR
+    floors), the CLI outputs likewise, and the verbose lines against the
+    reference's per-block coefficients under %f.  Returns the counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    N, f32 = P.N, torch.float32
+    counted = {"K8f32": P.K8.nlms_f32, "K9f32": P.K9.bnlms_f32}
+    work = os.path.join(ROOT, "jeicyboodsp_tpu_torch", "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    _, probes = _probe_signals()
+    px, pr = probes["echo"]
+    inp = _write_probe(work, "aec_in", px)
+    refp = os.path.join(work, "aec_ref.pcm")
+    pr.astype("<i2").tofile(refp)
+    outs = {k: os.path.join(work, f"aec_{k}.pcm") for k in ("n_est", "n_err", "b_est", "b_err",
+                                                            "v_est", "v_err")}
+    x, r = aec
+    nz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in N.nlms_init_state(f32).items()}
+    bz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in N.bnlms_init_state(f32).items()}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    e8, r8, s8 = N.nlms_apply(x, r, nz, dtype=f32)
+    e9, r9, s9 = N.bnlms_apply(x.reshape(AEC_B, -1, 1024), r.reshape(AEC_B, -1, 1024), bz,
+                               dtype=f32)
+    P.cli.main(["nlms", inp, refp, outs["n_est"], outs["n_err"], "--fast"])
+    P.cli.main(["bnlms", inp, refp, outs["b_est"], outs["b_err"], "--fast"])
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        P.cli.main(["nlms", inp, refp, outs["v_est"], outs["v_err"], "--verbose"])
+    sync()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    main_s = time.perf_counter() - t0
+    if s8["coeff"].dtype != f32 or s9["coeff"].dtype != f32:
+        raise RuntimeError("the f32 ops returned another state dtype")
+    t1 = time.perf_counter()
+    xs, rs = x[list(AEC_SAMPLED)].cpu().numpy(), r[list(AEC_SAMPLED)].cpu().numpy()
+    for i, s in enumerate(AEC_SAMPLED):
+        xb, rb = xs[i].reshape(-1, 1024), rs[i].reshape(-1, 1024)
+        kind = "echo" if s < 3 * AEC_B // 4 else "double-talk"
+        _aec_floors(f"nlms_apply f32 stream {s} ({kind}), {AEC_T // 1024} blocks",
+                    zip([v.reshape(-1) for v in reference_nlms_blocks(xb, rb)],
+                        (e8[s].cpu(), r8[s].cpu())))
+        _aec_floors(f"bnlms_apply f32 stream {s} ({kind}), {AEC_T // 1024} blocks",
+                    zip([v.reshape(-1) for v in reference_bnlms_blocks(xb, rb)[:2]],
+                        (e9[s].reshape(-1).cpu(), r9[s].reshape(-1).cpu())))
+    for kind, tag in (("nlms", "n"), ("bnlms", "b")):
+        want = reference_nlms(px, pr, bnlms=kind == "bnlms")[:2]
+        got = [np.fromfile(outs[f"{tag}_{k}"], "<i2") for k in ("est", "err")]
+        _aec_floors(f"{kind} --fast CLI on the echo probe", zip(want, got))
+    traj = []
+    nb = -(-len(px) // 1024)
+    ve, verr = reference_nlms_blocks(_stale_blocks(px, 1024)[:nb], _stale_blocks(pr, 1024)[:nb],
+                                     traj)
+    want = "".join("rgsdCoefficient[0] %f, rgsdCoefficient[1] %f, rgsdCoefficient[2] %f \n" % c
+                   for c in traj)
+    ok = out.getvalue() == want and np.array_equal(np.fromfile(outs["v_est"], "<i2"),
+                                                   ve[1:].reshape(-1))
+    print(f"[4 aec-fast] nlms --verbose CLI: {len(traj)} lines equal to the reference's "
+          f"coefficient trajectory under %f, est int16-equal: {ok}")
+    if not ok:
+        raise RuntimeError("nlms --verbose lines differ from the reference's trajectory")
+    print(f"[4 aec-fast] launches {json.dumps(launches)} in {main_s:.1f} s (checks "
+          f"{time.perf_counter() - t1:.1f} s)")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"the f32 AEC path did not launch {missing}")
+    return launches
+
+
+def time_aec_fast(P, aec, card, sync):
+    """Phase 5 for the f32 instances: each kernel at AEC_B x AEC_T (median of
+    REPS) against its plain version at PLAIN_TIME_T and the f64 instance, the
+    bounds, K9 f32's resident blocks, and the ops nlms_apply / bnlms_apply
+    in f32 (ms, samples/s)."""
+    import torch
+
+    N, f32 = P.N, torch.float32
+    x, r = aec
+    dev = x.device
+    keep = torch.zeros(AEC_B, 127, dtype=torch.int16, device=dev)
+    gates = P.K9.bnlms_gates(x, r, keep, keep)
+    n_open = int(gates.sum())
+    st8, st9 = P.K8.init_state(AEC_B, dev, f32), P.K9.init_state(AEC_B, dev, f32)
+    cut = lambda v, k: v[:, :PLAIN_TIME_T[k]].contiguous()  # noqa: E731
+    n_aec = AEC_B * AEC_T
+    runs = {
+        "K8f32": (lambda: P.K8.nlms_f32(x, r), lambda: P.K8.nlms(x, r),
+                  lambda: P.K8.nlms_f32_plain(cut(x, "K8"), cut(r, "K8"), *st8), "K8",
+                  nbytes(x, r, *st8, x, r, *st8),
+                  (511 + 5 + 2 * 256) * n_aec),  # the dot, d and g, the update
+        "K9f32": (lambda: P.K9.bnlms_f32(x, r, gates), lambda: P.K9.bnlms(x, r, gates),
+                  lambda: P.K9.bnlms_f32_plain(cut(x, "K9"), cut(r, "K9"), cut(gates, "K9"),
+                                               *st9), "K9",
+                  nbytes(x, r, gates, *st9, x, r, *st9),
+                  # the dot (2 per tap and sample); per open gate d and g (4 per sample),
+                  # the gradient (2 per tap and sample) and the update (2 per tap)
+                  2 * 128 * n_aec + n_open * (1024 * (2 * 128 + 4) + 2 * 128)),
+    }
+    times = {}
+    for name, (kern, f64_kern, plain, base, nb, ops) in runs.items():
+        ms = median_ms(kern, sync)
+        ms64 = median_ms(f64_kern, sync, reps=3)
+        plain_ms = median_ms(plain, sync, reps=PLAIN_REPS)
+        b_ms, b_by = bound(nb, ops, F32_OPS)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        print(f"[5 timing] {name} {AEC_B}x{AEC_T} on {card}: kernel {ms:.3f} ms = "
+              f"{n_aec / (ms * 1e-3):.4g} samples/s; the f64 instance {ms64:.3f} ms; plain "
+              f"{plain_ms:.3f} ms at T={PLAIN_TIME_T[base]}; bound {b_ms:.4f} ms by {b_by} "
+              f"({nb / 1e6:.1f} MB, {ops:.3g} f32 ops); library call: none")
+    print(f"[5 timing] K9 f32 resident blocks per SM ({P.K9.THREADS} threads a block): "
+          f"{P.K9.occupancy(dev, f32)} (f64 instance {P.K9.occupancy(dev)})")
+    nz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in N.nlms_init_state(f32).items()}
+    bz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in N.bnlms_init_state(f32).items()}
+    xb, rb = x.reshape(AEC_B, -1, 1024), r.reshape(AEC_B, -1, 1024)
+    for op, fn in (("nlms_apply f32", lambda: N.nlms_apply(x, r, nz, dtype=f32)),
+                   ("bnlms_apply f32", lambda: N.bnlms_apply(xb, rb, bz, dtype=f32))):
+        ms = median_ms(fn, sync, reps=3)
+        print(f"[5 timing] op {op} {AEC_B}x{AEC_T} on {card}: {ms:.3f} ms = "
+              f"{n_aec / (ms * 1e-3):.4g} samples/s")
+    return times
+
+
+def tp_inputs(dev):
+    """One session of TP_T blocks: the bench's mixed signal over 512 blocks
+    tiled, and its echo through a random 32-tap room (lead 0.5)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 11)
+    x = make_signal(512 * 1024, rng)
+    h = rng.normal(0, 0.1, 32)
+    h[0] = 0.5
+    r = np.clip(np.convolve(x.astype(np.float64), h)[:len(x)], -32768, 32767).astype(np.int16)
+    reps = -(-TP_T * 1024 // len(x))
+    xt = np.tile(x, reps)[:TP_T * 1024].reshape(TP_T, 1024)
+    rt = np.tile(r, reps)[:TP_T * 1024].reshape(TP_T, 1024)
+    return torch.from_numpy(xt).to(dev), torch.from_numpy(rt).to(dev)
+
+
+def drive_timeparallel(P, tp, card, sync):
+    """bnlms_apply_timeparallel (f32) over one session of TP_T blocks on the
+    card: its first TP_HEAD blocks against the f64 sequential path (the
+    gates and K9 f64, int16-equal to the reference) at TP_LSB steps and
+    TP_DB on the error signal, as JAX's benchmark checks it
+    (bench/all_configs.py:542-559); the whole session within one step on
+    under 1% of the samples of the same op on the CPU; the drift of the
+    linearized recursion from the sequential path over the session printed
+    (ROADMAP R20); its time (median of 3) and peak memory.  Returns (est,
+    err)."""
+    import torch
+
+    x, r = tp
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    est, err = P.N.bnlms_apply_timeparallel(x, r)
+    sync()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    e_seq, r_seq, _ = P.N.bnlms_apply(x, r, P.N.bnlms_init_state())
+    d_e = (e_seq.to(torch.int64) - est.to(torch.int64)).abs()
+    d_r = (r_seq.to(torch.int64) - err.to(torch.int64)).double()
+    a = r_seq.double()
+
+    def db(k):
+        return float(10 * torch.log10((a[:k] ** 2).sum().clamp_min(1e-30)
+                                      / (d_r[:k] ** 2).sum().clamp_min(1e-30)))
+
+    drift = ", ".join(f"{k} blocks {db(k):.2f} dB" for k in (16, 64, 256, TP_T) if k <= TP_T)
+    head = (int(d_e[:TP_HEAD].max()), int(d_r[:TP_HEAD].abs().max()), db(TP_HEAD))
+    t1 = time.perf_counter()
+    c_est, c_err = P.N.bnlms_apply_timeparallel(x.cpu(), r.cpu())
+    cpu_s = time.perf_counter() - t1
+    cpu = [_lsb_share(g.cpu(), w) for g, w in ((est, c_est), (err, c_err))]
+    ok = (head[0] <= TP_LSB and head[1] <= TP_LSB and head[2] >= TP_DB
+          and all(m <= 1 and sh < 0.01 for m, sh in cpu))
+    ms = median_ms(lambda: P.N.bnlms_apply_timeparallel(x, r), sync, reps=3)
+    print(f"[4 timeparallel] bnlms_apply_timeparallel f32 T={TP_T} blocks on {card}: the first "
+          f"{TP_HEAD} blocks against the f64 sequential path max |diff| est {head[0]}, err "
+          f"{head[1]} (limit {TP_LSB}), error signal {head[2]:.2f} dB (floor {TP_DB}); the whole "
+          f"session against the same op on the CPU max |diff| / share est {cpu[0][0]} / "
+          f"{cpu[0][1]:.2e}, err {cpu[1][0]} / {cpu[1][1]:.2e} (one step on under 1%; the CPU "
+          f"took {cpu_s:.1f} s); drift from the sequential path: {drift}; {ms:.3f} ms = "
+          f"{TP_T * 1024 / (ms * 1e-3):.4g} samples/s (first call {first_s:.2f} s), peak memory "
+          f"{peak / 2 ** 30:.3f} GiB above the inputs: {ok}")
+    if not ok:
+        raise RuntimeError("the time-parallel BNLMS is off the sequential path or the CPU run")
+    return est, err
+
+
+def drive_lpc(P, dev, card, sync):
+    """LPC over LPC_T frames of 512 of the bench's mixed signal: lpc_run in
+    f64 (solve) and f32 (levinson) on the card against reference_lpc, and
+    lpc_frames' time for both (median of REPS)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 9)
+    x = make_signal(LPC_T * 256, rng)
+    t0 = time.perf_counter()
+    want = reference_lpc(x)
+    ref_s = time.perf_counter() - t0
+    scale = np.abs(want).max(1)
+    got64 = P.F.lpc_run(x, dtype=torch.float64, solver="solve")
+    got32 = P.F.lpc_run(x, dtype=torch.float32, solver="levinson")
+    e64 = float(np.abs(got64 - want).max() / np.abs(want).max())
+    e32 = np.abs(got32 - want).max(1) / scale
+    lost = int((e32 > 1e-2).sum())
+    ok = (got64.shape == got32.shape == want.shape and e64 <= LPC_F64_RTOL
+          and np.isfinite(got32).all() and np.median(e32) <= LPC_F32_MEDIAN
+          and lost <= LPC_F32_LOST)
+    blocks = torch.from_numpy(x.reshape(LPC_T, 256)).to(dev)
+    frames = torch.cat([torch.cat([torch.zeros_like(blocks[:1]), blocks[:-1]]), blocks], 1)
+    ms = {f"{s} {str(d)[6:]}": median_ms(lambda s=s, d=d: P.F.lpc_frames(frames, d, s), sync)
+          for s, d in (("levinson", torch.float32), ("solve", torch.float64))}
+    print(f"[4 lpc] lpc_run {LPC_T} frames of 512 on {card}: solve f64 within {e64:.2e} of "
+          f"reference_lpc's largest coefficient (limit {LPC_F64_RTOL}); levinson f32 per-frame "
+          f"error median {np.median(e32):.2e} (limit {LPC_F32_MEDIAN:.3g}), {lost} of {len(e32)} "
+          f"frames above 1e-2 (limit {LPC_F32_LOST}; 4x JAX's f32 op on these frames), worst "
+          f"{e32.max():.2e}: {ok}; "
+          f"the reference took {ref_s:.1f} s")
+    for k, v in ms.items():
+        print(f"[5 timing] lpc_frames {k} {LPC_T}x512 on {card}: {v:.3f} ms = "
+              f"{LPC_T / (v * 1e-3):.4g} frames/s")
+    if not ok:
+        raise RuntimeError("lpc_run differs from reference_lpc")
+
+
+def drive_geq_fast(P, geq, card, sync):
+    """geq_apply_fast in f64 over GEQ_B x GEQ_T (one call; the scan's peak
+    memory printed) against reference_geq_linear on two sampled streams:
+    c_short of the output one step off on under GEQ_FAST_FLIPS of the
+    samples; its time (median of 3).  Returns the output."""
+    import torch
+
+    b, a = P.G.geq_coefficients()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = P.G.geq_apply_fast(geq, b, a, dtype=torch.float64)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    worst, share = 0, 0.0
+    for s in (0, GEQ_B - 1):
+        want = reference_geq_linear(geq[s].cpu().numpy(), b, a)
+        d = np.abs(P.cnum.c_short(y[s]).cpu().numpy().astype(np.int64) - want.astype(np.int64))
+        worst, share = max(worst, int(d.max())), max(share, float((d != 0).mean()))
+    ref_s = time.perf_counter() - t0
+    ms = median_ms(lambda: P.G.geq_apply_fast(geq, b, a, dtype=torch.float64), sync, reps=3)
+    ok = worst <= 1 and share <= GEQ_FAST_FLIPS and bool(torch.isfinite(y).all())
+    print(f"[4 geq-fast] geq_apply_fast f64 {GEQ_B}x{GEQ_T} in one call on {card}: streams 0 and "
+          f"{GEQ_B - 1} against reference_geq_linear max |diff| {worst}, differing share "
+          f"{share:.2e} (limit one step on {GEQ_FAST_FLIPS}); {ms:.3f} ms = "
+          f"{GEQ_B * GEQ_T / (ms * 1e-3):.4g} samples/s; peak memory {peak / 2 ** 30:.2f} GiB "
+          f"above the input (the reference took {ref_s:.1f} s): {ok}")
+    if not ok:
+        raise RuntimeError("geq_apply_fast differs from reference_geq_linear")
+    return y
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _lsb_share(got, want):
+    """(max |difference|, share of samples that differ) of two int tensors."""
+    import torch
+
+    d = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    return (int(d.max()), float((d != 0).double().mean())) if d.numel() else (0, 0.0)
+
+
+def drive_parallel(P, dev, x_full, aec, tp, geq, geq_fast, card, sync):
+    """Every parallel/sharded.py path in a world of one NCCL rank on this
+    card, at the unsharded op's smoke size, against that op on the same
+    inputs: each path's max |difference| printed and held to
+    tests/test_sharded.py's contract (equal, or one int16 step on under 1%,
+    em_step at rtol 1e-10, the GEQ at rtol 1e-7 / atol 1e-5).  K14 is counted
+    over the f32 enhancement paths.  One card cannot show what several do:
+    the halo exchanges and gathers are between a rank and itself here; the
+    multi-rank logic is held by tests/test_torch_parallel.py's gloo worlds.
+    Returns the K14 launches."""
+    import torch
+    import torch.distributed as dist
+
+    from jeicyboodsp_tpu_torch.parallel import mesh as M
+    from jeicyboodsp_tpu_torch.parallel import sharded as S
+
+    f64, f32 = torch.float64, torch.float32
+    t0 = time.perf_counter()
+    M.init_distributed(f"tcp://localhost:{_free_port()}", 1, 0, device=dev.type)
+    nccl = ".".join(map(str, torch.cuda.nccl.version())) if dev.type == "cuda" else "none"
+    print(f"[4 parallel] a world of one NCCL rank on {card}: NCCL {nccl}, torch "
+          f"{torch.__version__}; one card "
+          f"cannot show multi-GPU behaviour (halos and gathers stay on this card, no NVLink); "
+          f"the multi-rank logic is held by the gloo worlds of tests/test_torch_parallel.py")
+    results = []
+
+    def report(name, got, want, contract):
+        diff = max((float((g.double() - w.double()).abs().max()) if g.numel() else 0.0)
+                   for g, w in zip(got, want))
+        if contract == "equal":
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        elif contract == "lsb":
+            ok = all(_lsb_share(g, w)[0] <= 1 and _lsb_share(g, w)[1] < 0.01
+                     for g, w in zip(got, want) if g.dtype == torch.int16)
+            ok &= all(torch.equal(g, w) for g, w in zip(got, want) if g.dtype == torch.bool)
+        else:
+            rtol, atol = contract
+            ok = all(torch.allclose(g, w, rtol=rtol, atol=atol) for g, w in zip(got, want))
+        results.append(ok)
+        print(f"[4 parallel] {name}: max |sharded - unsharded| {diff:g} ({contract}): {ok}")
+
+    mt, md = M.make_mesh((1,), ("time",)), M.make_mesh((1,), ("data",))
+    m2, mm = M.make_mesh((1, 1), ("data", "time")), M.make_mesh((1,), ("model",))
+    blocks = torch.from_numpy(x_full.reshape(T_FULL, 512)).to(dev)
+
+    def k14_counted(run):
+        """Run a sharded call with K14's count set to 0 just before it and read
+        just after, so the unsharded reference run later adds nothing."""
+        P.K14.vad_flags.launches = 0
+        got = run()
+        sync()
+        return got, P.K14.vad_flags.launches
+
+    k14 = {}
+    for dt in (f64, f32):
+        got, n = k14_counted(lambda: S.enhance_sharded(blocks, mt, dtype=dt))
+        if dt == f32:
+            k14["enhance_sharded f32"] = n
+        report(f"enhance_sharded wiener {str(dt)[6:]} T={T_FULL}", got,
+               P.E.enhance_blocks(blocks, dtype=dt), "lsb")
+    b2 = blocks.reshape(2, T_FULL // 2, 512)
+    got, k14["enhance_sharded2d f32"] = k14_counted(lambda: S.enhance_sharded2d(b2, m2, dtype=f32))
+    want = [P.E.enhance_blocks(b2[i], dtype=f32) for i in range(2)]
+    report(f"enhance_sharded2d f32 2x{T_FULL // 2}", got,
+           (torch.stack([w[0] for w in want]), torch.stack([w[1] for w in want])), "lsb")
+    fc = torch.from_numpy(x_full[:FC_T * 1024].reshape(FC_T, 1024)).to(dev)
+    Hr, Hi = P.FC.filter_spectrum()
+    out, mask = S.fastconv_sharded(fc, Hr, Hi, mt)
+    report(f"fastconv_sharded f64 T={FC_T}", (out[mask],), (P.FC.fastconv_blocks(fc, Hr, Hi),),
+           "lsb")
+    x, r = aec
+    xb, rb = x.reshape(AEC_B, -1, 1024), r.reshape(AEC_B, -1, 1024)
+    for dt in (f64, f32):
+        nz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in P.N.nlms_init_state(dt).items()}
+        bz = {k: v.expand(AEC_B, *v.shape).contiguous()
+              for k, v in P.N.bnlms_init_state(dt).items()}
+        report(f"nlms_sharded {str(dt)[6:]} {AEC_B}x{AEC_T}", S.nlms_sharded(x, r, md, dtype=dt),
+               P.N.nlms_apply(x, r, nz, dtype=dt)[:2], "equal")
+        report(f"bnlms_sharded {str(dt)[6:]} {AEC_B}x{AEC_T}",
+               S.bnlms_sharded(xb, rb, md, dtype=dt), P.N.bnlms_apply(xb, rb, bz, dtype=dt)[:2],
+               "equal")
+    report(f"bnlms_sharded_time f32 T={TP_T}", S.bnlms_sharded_time(*tp, mt),
+           P.N.bnlms_apply_timeparallel(*tp), "lsb")
+    rng = np.random.default_rng(SEED + 12)
+    ml, mr = make_stereo(T_FULL * 512, rng)
+    bl = torch.from_numpy(ml.reshape(-1, 512)).to(dev)
+    br = torch.from_numpy(mr.reshape(-1, 512)).to(dev)
+    report(f"mvdr_sharded f64 T={T_FULL}", S.mvdr_sharded(bl, br, mt),
+           P.MV.mvdr_blocks(bl, br), "lsb")
+    report(f"mvdr_sharded_bins f32 T={T_FULL}", S.mvdr_sharded_bins(bl, br, mm),
+           P.MV.mvdr_blocks(bl, br, dtype=f32, fft_engine="mxu3"), "lsb")
+    fr = torch.from_numpy(np.stack([synth_class(1000, GMM_F)])[0]).to(dev)
+    mk = torch.ones(GMM_F, dtype=torch.bool, device=dev)
+    alpha = torch.full((4,), 0.25, dtype=f64, device=dev)
+    mean, cov = fr[0:16:4], torch.eye(12, dtype=f64, device=dev).expand(4, 12, 12) * 4.0
+    report(f"em_step_sharded f64 {GMM_F} frames", S.em_step_sharded(fr, mk, alpha, mean, cov, md),
+           P.GM.em_step(fr, mk, alpha, mean, cov), (1e-10, 1e-12))
+    b, a = P.G.geq_coefficients()
+    report(f"geq_sharded f64 T={GEQ_T}", (S.geq_sharded(geq[0], b, a, mt),), (geq_fast[0],),
+           (1e-7, 1e-5))
+    dp = S.data_parallel_sharding(md)
+    g32 = geq[:8].float()
+    report("data_parallel_sharding geq_apply_fast f32 8 streams",
+           (dp.gather(P.G.geq_apply_fast(dp.local(g32), b, a)),), (P.G.geq_apply_fast(g32, b, a),),
+           "equal")
+    sync()
+    dist.destroy_process_group()
+    print(f"[4 parallel] {len(results)} paths, all within their contracts {all(results)}; K14 "
+          f"launches on the f32 sharded enhancement paths {k14}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not all(results) or min(k14.values()) == 0:
+        raise RuntimeError("a sharded path differs from its unsharded op, or K14 did not launch "
+                           "on a sharded path")
+    return sum(k14.values())
+
+
 SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (file:line)
     "K1": ("enhance_full8", "enhance_full8.cu", "enhance_pallas.py:737"),
     "K2": ("enhance_fwd_int8", "enhance_mxu8.cu", "enhance_pallas.py:217"),
@@ -3419,7 +3970,9 @@ SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (f
     "K6": ("geq_cascade_quant", "biquad.cu", "biquad_pallas.py:336"),
     "K7": ("geq_cascade", "biquad.cu", "biquad_pallas.py:102"),
     "K8": ("nlms", "nlms.cu", "nlms_pallas.py:317"),
+    "K8f32": ("nlms_f32", "nlms.cu", "nlms_pallas.py:317"),  # the f32 instance (nlms --fast)
     "K9": ("bnlms", "nlms.cu", "nlms_pallas.py:261"),
+    "K9f32": ("bnlms_f32", "nlms.cu", "nlms_pallas.py:261"),  # the f32 instance (bnlms --fast)
     "K10": ("mfcc_fused", "mfcc.cu", "mfcc_pallas.py:89"),
     "K11": ("amdf", "amdf.cu", "amdf_pallas.py:85"),
     "K12": ("fft_pallas", "fft4.cu", "fft_pallas.py:121"),
@@ -3470,6 +4023,7 @@ def main() -> int:
     geq, aec = make_geq_streams(GEQ_B, GEQ_T, dev), make_aec_streams(AEC_B, AEC_T, dev)
     err, back_ins = check_kernels(P, blocks, C, rowpack, speech, sync)
     err.update(check_recursions(P, geq, aec, sync))
+    err.update(check_aec_f32(P, aec, sync))
     feat = feature_inputs(dev)
     err.update(check_features(P, feat, sync))
     xc, xf = transform_inputs()
@@ -3486,16 +4040,27 @@ def main() -> int:
     for k, n in drive_stream(P, dev, x_full, refs, geq, aec, sync).items():
         launches[k] += n  # the stream phase's launches, added to the earlier phases'
     drive_mvdr(P, dev, card, sync)
+    t_new = time.perf_counter()
+    launches.update(drive_aec_fast(P, dev, aec, sync))
+    tp = tp_inputs(dev)
+    drive_timeparallel(P, tp, card, sync)
+    drive_lpc(P, dev, card, sync)
+    geq_fast = drive_geq_fast(P, geq, card, sync)
+    print(f"[4 slice] the f32 AEC, time-parallel BNLMS, LPC and linear GEQ scan phases: "
+          f"{time.perf_counter() - t_new:.1f} s")
     speech_launches, speech_inputs = drive_speech(P, dev, sync)
     for k, n in speech_launches.items():
         launches[k] += n  # the speech phase's launches (K10), added to the earlier phases'
     time_chains(P, blocks, C, card, sync)
     times = time_kernels(P, blocks, C, rowpack, back_ins, card, sync)
     times.update(time_recursions(P, geq, aec, card, sync))
+    times.update(time_aec_fast(P, aec, card, sync))
     times.update(time_features(P, feat, classify, card, sync))
     times.update(time_transforms(P, xc, xf, blocks, C, back_ins, card, sync))
     time_stream(P, dev, x_full, card, sync)
     time_speech(P, dev, card, sync, speech_inputs)
+    # last: the NCCL world's threads would share the host with the timed phases above
+    launches["K14"] += drive_parallel(P, dev, x_full, aec, tp, geq, geq_fast, card, sync)
 
     print(card)
     print(json.dumps({"kernels": [{

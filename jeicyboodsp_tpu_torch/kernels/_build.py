@@ -10,8 +10,8 @@ missing nvcc or a failed compile raises with the compiler's stderr.
 Flags: ``-fmad=false`` keeps every ``a*b + c`` as two roundings, in f32 (the
 enhancement epilogues, in the JAX package's operand order; the MFCC's |X|,
 mel and DCT; the FFT's twiddle products; the GEQ cascade's f32 instance and
-its linear engine) and in f64 (the GEQ, NLMS and BNLMS recursions, in the
-reference's order): the kernels' exactness notes
+its linear engine; the f32 instances of the NLMS and BNLMS recursions) and
+in f64 (the GEQ, NLMS and BNLMS recursions, in the reference's order): the kernels' exactness notes
 rely on it.  No fast math:
 ``sqrtf``, ``logf`` and divisions stay IEEE.
 """
@@ -55,12 +55,15 @@ ENTRIES = {
     "jb_geq_cascade": [_P] * 3 + [_I] * 2 + [_P],
     # x, ref, coef in, hist in, est, err, coef out, hist out, B, T, compat, stream
     "jb_nlms": [_P] * 8 + [_I] * 3 + [_P],
+    "jb_nlms_f32": [_P] * 8 + [_I] * 3 + [_P],  # the same with f32 coefficients
     # K8's and K9's quotient alone, for the tests: a, d, q, want, n, stream
     "jb_test_quotient": [_P] * 4 + [_I, _P],
     # x, ref, gates, coef in, keep in, est, err, coef out, keep out, B, nb, stream
     "jb_bnlms": [_P] * 9 + [_I] * 2 + [_P],
-    # K9's resident blocks per SM: out int, stream (unused)
+    "jb_bnlms_f32": [_P] * 9 + [_I] * 2 + [_P],  # the same with f32 coefficients
+    # K9's resident blocks per SM (f64, f32 instance): out int, stream (unused)
     "jb_bnlms_occupancy": [_P, _P],
+    "jb_bnlms_f32_occupancy": [_P, _P],
     # prev, cur, N, rfft, mel runs, mel weights, n weights, dct, out, stream
     "jb_mfcc_fused": [_P, _P, _I] + [_P] * 3 + [_I] + [_P] * 3,
     # frames, T, lo, out, stream

@@ -31,6 +31,15 @@ scale), so the gate tests ``> 0.5`` and equals the oracle's decision.
 - :func:`bnlms_plain` is the plain PyTorch version: per block, the estimate
   as 128 tap-ordered vector adds and the gradient as 1024 sample-ordered
   ones.
+- :func:`bnlms_f32` and :func:`bnlms_f32_plain` are the f32 instance
+  (``jb_bnlms_f32``, counted in ``bnlms_f32.launches``), the JAX op's
+  float32 form (``jeicyboodsp_tpu/ops/nlms.py:bnlms_apply_block(dtype=
+  float32)``, what ``bnlms --fast`` runs): f32 coefficients, the estimate in
+  the same tap order in f32, ``g_i = RN(RN(2*MU*e_i) / d_i)`` with ``d_i =
+  RN(RN_f32(E_i) + EPS)`` from the same exact energies, ``grad[j] = sum_i
+  RN(u[j+i] * g_i)`` in sample order and ``c += grad / 1024`` under the gate;
+  every op rounded once.  The gate stays the exact one of
+  :func:`bnlms_gates`.
 """
 
 from __future__ import annotations
@@ -55,9 +64,9 @@ GATE_M = 2176
 GATE_ROWS = 8192  # (stream, block) rows per chunk of the gate's transforms
 
 
-def init_state(B: int, device=None):
-    """Fresh streams: zero coefficients, zero keep."""
-    return (torch.zeros(B, TAPS, dtype=torch.float64, device=device),
+def init_state(B: int, device=None, dtype=torch.float64):
+    """Fresh streams: zero coefficients (``dtype``), zero keep."""
+    return (torch.zeros(B, TAPS, dtype=dtype, device=device),
             torch.zeros(B, KEEP, dtype=torch.int16, device=device))
 
 
@@ -137,41 +146,99 @@ def bnlms_plain(x, ref, gates, coef, keep):
     return est, err, (c, kp.to(torch.int16))
 
 
+def bnlms_f32_plain(x, ref, gates, coef, keep):
+    """Plain PyTorch version of :func:`bnlms_f32` (any device)."""
+    B, T = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    c = coef.clone()
+    kp = keep.to(torch.float32)
+    mu2 = torch.tensor(2.0 * MU, **f32)  # RN_f32(0.02) = 2 * RN_f32(0.01)
+    eps = torch.tensor(EPS, **f32)
+    est = torch.empty_like(x)
+    err = torch.empty_like(x)
+    for k in range(T // BLOCK):
+        blk = slice(k * BLOCK, (k + 1) * BLOCK)
+        u = torch.cat([kp, x[:, blk].to(torch.float32)], 1)  # (B, 1151)
+        acc = torch.zeros(B, BLOCK, **f32)
+        for j in range(TAPS):
+            acc = acc + c[:, TAPS - 1 - j, None] * u[:, j:j + BLOCK]
+        y = c_short(acc).to(torch.int32)
+        e = ref[:, blk].to(torch.int32) - y
+        est[:, blk] = y.to(torch.int16)
+        err[:, blk] = e.to(torch.int16)
+        gate = gates[:, k]
+        if bool(gate.any()):
+            ud = u.to(torch.float64)
+            cs = torch.cat([torch.zeros(B, 1, dtype=torch.float64, device=x.device),
+                            torch.cumsum(ud * ud, 1)], 1)
+            d = (cs[:, TAPS:] - cs[:, :-TAPS]).to(torch.float32) + eps  # exact, rounded once
+            g = (mu2 * e.to(torch.float32)) / d
+            grad = torch.zeros(B, TAPS, **f32)
+            for i in range(BLOCK):  # sample order
+                grad = grad + u[:, i:i + TAPS] * g[:, i, None]
+            c = torch.where(gate[:, None], c + grad / BLOCK, c)
+        kp = u[:, BLOCK:]
+    return est, err, (c, kp.to(torch.int16))
+
+
+def _run(x, ref, gates, state, dtype):
+    """The wrapper of either instance: checks, then the kernel on a CUDA
+    tensor or the plain version on a CPU tensor."""
+    B, T = check_2d(x, "x")
+    if T % BLOCK:
+        raise ValueError(f"T={T} must be a multiple of {BLOCK}")
+    if state is None:
+        state = init_state(B, x.device, dtype)
+    coef, keep = state
+    dev = check({"x": (x, torch.int16, (B, T)), "ref": (ref, torch.int16, (B, T)),
+                 "gates": (gates, torch.bool, (B, T // BLOCK)),
+                 "coef": (coef, dtype, (B, TAPS)),
+                 "keep": (keep, torch.int16, (B, KEEP))})
+    if dev.type == "cpu":
+        plain = bnlms_plain if dtype == torch.float64 else bnlms_f32_plain
+        return plain(x, ref, gates, coef, keep), False
+    if B * T == 0:
+        return (torch.empty_like(x), torch.empty_like(x), (coef.clone(), keep.clone())), False
+    est, err = torch.empty_like(x), torch.empty_like(x)
+    new = (torch.empty_like(coef), torch.empty_like(keep))
+    _build.launch("jb_bnlms" if dtype == torch.float64 else "jb_bnlms_f32", dev, x.data_ptr(),
+                  ref.data_ptr(), gates.data_ptr(), coef.data_ptr(), keep.data_ptr(),
+                  est.data_ptr(), err.data_ptr(), new[0].data_ptr(), new[1].data_ptr(), B,
+                  T // BLOCK)
+    return (est, err, new), True
+
+
 def bnlms(x, ref, gates, state=None):
     """(B, T) int16 far-end x and near-end ref, T a multiple of 1024, and the
     (B, T/1024) bool gates of :func:`bnlms_gates` -> (est, err (B, T) int16,
     state).  state: ``(coef (B, 128) f64, keep (B, 127) int16)`` from an
     earlier call, or None for fresh streams.  CUDA tensors launch
     ``jb_bnlms``; CPU tensors run :func:`bnlms_plain`."""
-    B, T = check_2d(x, "x")
-    if T % BLOCK:
-        raise ValueError(f"T={T} must be a multiple of {BLOCK}")
-    if state is None:
-        state = init_state(B, x.device)
-    coef, keep = state
-    dev = check({"x": (x, torch.int16, (B, T)), "ref": (ref, torch.int16, (B, T)),
-                 "gates": (gates, torch.bool, (B, T // BLOCK)),
-                 "coef": (coef, torch.float64, (B, TAPS)),
-                 "keep": (keep, torch.int16, (B, KEEP))})
-    if dev.type == "cpu":
-        return bnlms_plain(x, ref, gates, coef, keep)
-    if B * T == 0:
-        return torch.empty_like(x), torch.empty_like(x), (coef.clone(), keep.clone())
-    est, err = torch.empty_like(x), torch.empty_like(x)
-    new = (torch.empty_like(coef), torch.empty_like(keep))
-    _build.launch("jb_bnlms", dev, x.data_ptr(), ref.data_ptr(), gates.data_ptr(),
-                  coef.data_ptr(), keep.data_ptr(), est.data_ptr(), err.data_ptr(),
-                  new[0].data_ptr(), new[1].data_ptr(), B, T // BLOCK)
-    bnlms.launches += 1
-    return est, err, new
+    out, launched = _run(x, ref, gates, state, torch.float64)
+    bnlms.launches += launched
+    return out
 
 
 bnlms.launches = 0
 
 
-def occupancy(device="cuda") -> int:
-    """K9's resident blocks of THREADS threads per SM on ``device``'s card, as
-    the CUDA runtime computes them from its registers and shared memory."""
+def bnlms_f32(x, ref, gates, state=None):
+    """K9's f32 instance: as :func:`bnlms` with ``coef (B, 128) float32``.
+    CUDA tensors launch ``jb_bnlms_f32``; CPU tensors run
+    :func:`bnlms_f32_plain`."""
+    out, launched = _run(x, ref, gates, state, torch.float32)
+    bnlms_f32.launches += launched
+    return out
+
+
+bnlms_f32.launches = 0
+
+
+def occupancy(device="cuda", dtype=torch.float64) -> int:
+    """K9's resident blocks of THREADS threads per SM on ``device``'s card
+    (the f64 instance, or the f32 one), as the CUDA runtime computes them
+    from its registers and shared memory."""
     blocks = ctypes.c_int(0)
-    _build.launch("jb_bnlms_occupancy", torch.device(device), ctypes.addressof(blocks))
+    entry = "jb_bnlms_occupancy" if dtype == torch.float64 else "jb_bnlms_f32_occupancy"
+    _build.launch(entry, torch.device(device), ctypes.addressof(blocks))
     return blocks.value

@@ -52,6 +52,7 @@ from jeicyboodsp_tpu_torch.kernels.vad_flags import vad_flags as vad_kernel
 from jeicyboodsp_tpu_torch.ops.dft import const, int8_col_split
 from jeicyboodsp_tpu_torch.utils.cnum import REF_PI, c_short, hamming_ref
 from jeicyboodsp_tpu_torch.utils.device import entry_device
+from jeicyboodsp_tpu_torch.utils.scan import associative_scan
 
 BLOCK_LEN = 512
 FFT_SIZE = 1024
@@ -181,37 +182,24 @@ def noise_affine_combine(l, r):
 
 
 def noise_affine_elements(speech, cnt, mags):
-    """Per-block monoid elements from VAD flags, run-lengths, magnitudes."""
+    """Per-block monoid elements from VAD flags, run-lengths, magnitudes
+    (any leading batch axes after the first, as JAX's)."""
     dtype = mags.dtype
     run = (cnt >= 2) & ~speech
     one = torch.ones((), dtype=dtype, device=mags.device)
     zero = torch.zeros((), dtype=dtype, device=mags.device)
     half = torch.where(cnt >= 3, 0.5 * one, one)
     a = torch.where(run, half, one)
-    b = torch.where(run[:, None], half[:, None] * mags, zero)
+    b = torch.where(run[..., None], half[..., None] * mags, zero)
     s = run & (cnt == NOISE_FRAMES)
     ah = torch.where(s, a, zero)
-    bh = torch.where(s[:, None], b, zero)
+    bh = torch.where(s[..., None], b, zero)
     return a, b, s, ah, bh
 
 
 def latched_from_composed(s_, bh_):
     """N_t given zero initial state: latched value or zeros."""
     return torch.where(s_[..., None], bh_, torch.zeros_like(bh_))
-
-
-def _prefix_scan(combine, elems):
-    """Inclusive scan of ``combine`` along dim 0 in log2(T) steps (Hillis and
-    Steele): at step d, element t takes combine(element t-d, element t)."""
-    T = elems[0].shape[0]
-    d = 1
-    while d < T:
-        left = tuple(e[:-d] for e in elems)
-        right = tuple(e[d:] for e in elems)
-        merged = combine(left, right)
-        elems = tuple(torch.cat([e[:d], m]) for e, m in zip(elems, merged))
-        d *= 2
-    return elems
 
 
 def _noise_assoc_scan(speech, mags):
@@ -224,9 +212,9 @@ def _noise_assoc_scan(speech, mags):
     sequential scan's (a is a power of two, so only additions round apart).
     """
     noise = ~speech
-    cnt, _ = _prefix_scan(runlen_combine, (noise.to(torch.int64), noise))
+    cnt, _ = associative_scan(runlen_combine, (noise.to(torch.int64), noise))
     elems = noise_affine_elements(speech, cnt, mags)
-    _, _, s_, _, bh_ = _prefix_scan(noise_affine_combine, elems)
+    _, _, s_, _, bh_ = associative_scan(noise_affine_combine, elems)
     return latched_from_composed(s_, bh_)
 
 

@@ -1,12 +1,12 @@
-"""Speech features: MFCC and pitch (counterpart of
+"""Speech features: MFCC, LPC and pitch (counterpart of
 ``jeicyboodsp_tpu/ops/features.py``, with its own copies of the constants and
 the mel filterbank of ``jeicyboodsp_tpu/oracle/mfcc.py`` and the constants of
-``jeicyboodsp_tpu/oracle/pitch.py``).
+``jeicyboodsp_tpu/oracle/lpc.py`` and ``oracle/pitch.py``).
 
 References: ``MFCCFeatureExtraction_auto_version1.cpp``,
-``PitchEstimation_method{1,2,3}.cpp``.  Neither extractor carries state
-across blocks beyond a keep buffer equal to the previous block, so every
-frame goes through one batched pass:
+``LPCEstimation.cpp``, ``PitchEstimation_method{1,2,3}.cpp``.  No extractor
+carries state across blocks beyond a keep buffer equal to the previous
+block, so every frame goes through one batched pass:
 
 - MFCC: pre-emphasis, Hamming window, 1024-point DFT magnitude, 38-channel
   mel, log, DCT-II with liftering.  :func:`mfcc_frames` runs it as torch ops
@@ -17,9 +17,14 @@ frame goes through one batched pass:
   or the AMDF (method 2); method 2 on an ``mxu*`` engine goes through K11
   (:mod:`~jeicyboodsp_tpu_torch.kernels.amdf`).
 
-LPC waits (ROADMAP queue 1, item 6).  The whole-signal entry points
-(:func:`mfcc_run`, :func:`pitch_run`) run on a CUDA card unless the caller
-passes ``device="cpu"``, which runs the kernels' plain versions.
+- LPC: Hamming window over [previous block, block], the biased
+  autocorrelation lags 0..12, and the 12x12 Toeplitz Yule-Walker system,
+  solved by ``torch.linalg.solve`` or by the Levinson-Durbin recursion
+  (:func:`lpc_frames`), torch ops throughout as in JAX (no kernel).
+
+The whole-signal entry points (:func:`mfcc_run`, :func:`lpc_run`,
+:func:`pitch_run`) run on a CUDA card unless the caller passes
+``device="cpu"``, which runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -35,6 +40,20 @@ from jeicyboodsp_tpu_torch.kernels.mfcc_fused import mfcc_fused
 from jeicyboodsp_tpu_torch.ops import dft
 from jeicyboodsp_tpu_torch.utils.cnum import REF_PI, hamming_ref
 from jeicyboodsp_tpu_torch.utils.device import entry_device
+
+LPC_LEN = 12  # LPCEstimation.cpp (oracle/lpc.py:27-28)
+LPC_BLOCK = 256
+
+
+def hamming(n, dtype=torch.float64, device=None):
+    """The reference's Hamming window 0.54 - 0.46 cos(2 REF_PI i / (n - 1)),
+    computed in float64 with numpy (whose cos is the oracle's and, on the
+    CPU, JAX's; torch's differs by an ulp, which the LPC systems' condition
+    would amplify) and rounded to ``dtype``."""
+    i = np.arange(n, dtype=np.float64)
+    w = 0.54 - 0.46 * np.cos(2.0 * REF_PI * i / (n - 1))
+    return torch.from_numpy(w).to(dtype=dtype, device=device)
+
 
 # MFCCFeatureExtraction_auto_version1.cpp (oracle/mfcc.py:28-36)
 MFCC_LEN = 12
@@ -189,6 +208,51 @@ def mfcc_run(x, dtype=torch.float64, skip_first: bool = True, fft_engine: str = 
 # ---------------------------------------------------------------------------
 # Pitch
 # ---------------------------------------------------------------------------
+
+
+def lpc_frames(frames, dtype=torch.float64, solver: str = "solve"):
+    """(F, 512) int16 analysis windows -> (F, 12) LPC coefficients, on the
+    frames' device.
+
+    solver="solve" solves the 12x12 Toeplitz system of the reference's
+    explicit inverse (LPCEstimation.cpp:115-126) with ``torch.linalg.solve``
+    (LU); solver="levinson" runs the Levinson-Durbin recursion in 12 steps
+    of elementwise ops over all frames (the same solution up to rounding)."""
+    if solver not in ("solve", "levinson"):
+        raise ValueError(f"solver must be 'solve' or 'levinson', got {solver!r}")
+    F, n = frames.shape
+    win = frames.to(dtype) * hamming(n, dtype, frames.device)
+    r = torch.stack([(win[:, :n - lag] * win[:, lag:]).sum(1) / (n - lag)
+                     for lag in range(LPC_LEN + 1)], 1)  # (F, 13)
+    if solver == "levinson":
+        a = torch.zeros(F, LPC_LEN, dtype=dtype, device=frames.device)
+        e = r[:, 0]
+        for m in range(1, LPC_LEN + 1):
+            acc = r[:, m]
+            for j in range(1, m):
+                acc = acc + a[:, j - 1] * r[:, m - j]
+            k = -acc / e
+            new_a = a.clone()
+            new_a[:, m - 1] = k
+            if m > 1:
+                new_a[:, : m - 1] = a[:, : m - 1] + k[:, None] * a[:, : m - 1].flip(1)
+            a = new_a
+            e = e * (1.0 - k * k)
+        return a
+    idx = torch.arange(LPC_LEN, device=frames.device)
+    toeplitz = r[:, (idx[:, None] - idx[None, :]).abs()]  # (F, 12, 12)
+    return torch.linalg.solve(toeplitz, -r[:, 1:, None])[..., 0]
+
+
+def lpc_run(x, dtype=torch.float64, solver: str = "solve", device="cuda"):
+    """Whole-signal LPC matching ``oracle.lpc.run`` -> (blocks - 1, 12) numpy:
+    256-sample blocks (a partial last one keeping the previous block's stale
+    tail), each analysed with the block before it, the first not written."""
+    dev = entry_device(device)
+    blocks = stale_blocks(np.asarray(x, np.int16), LPC_BLOCK)
+    prev = np.concatenate([np.zeros((1, LPC_BLOCK), np.int16), blocks])[: len(blocks)]
+    frames = torch.from_numpy(np.concatenate([prev, blocks], axis=1)).to(dev)
+    return lpc_frames(frames, dtype=dtype, solver=solver)[1:].cpu().numpy()
 
 
 def _pick(ac, pick_max: bool):

@@ -19,6 +19,11 @@ band's input is the previous band's int16 output.
   not the reference's output.  Batches of streams go through K7
   (``kernels.geq_cascade.geq_cascade``, in f32), which callers use directly,
   as the JAX package's benchmark uses ``geq_cascade_pallas``.
+  :func:`geq_apply_fast` is the JAX op of that name: the same linear cascade
+  written as a per-band affine 2x2 state-space scan (:func:`_biquad_linear`,
+  torch ops, plain XLA in JAX), the form ``parallel.sharded.geq_sharded``
+  shards over time.  Its float32 form overflows at the 44 Hz shelf's
+  near-unity pole on long signals, as JAX's does.
 
 Entry points run on a CUDA card unless the caller passes ``device="cpu"``
 (the kernels' plain versions).
@@ -36,6 +41,7 @@ from jeicyboodsp_tpu_torch.kernels.geq_cascade import pack_coefficients
 from jeicyboodsp_tpu_torch.kernels.geq_cascade_quant import geq_cascade_quant
 from jeicyboodsp_tpu_torch.utils.cnum import REF_PI
 from jeicyboodsp_tpu_torch.utils.device import entry_device
+from jeicyboodsp_tpu_torch.utils.scan import associative_scan
 
 SAMPLING_RATE = 48000.0  # 7Band_GEQ.cpp:33
 TOTAL_BANDS = 7
@@ -213,3 +219,65 @@ def run_quant(x, gains_db=GAINS_DB, compat=True, device="cuda", dtype=torch.floa
     y, _ = geq_cascade_quant(xx, coef)
     return y[0].cpu().numpy()
 
+
+
+# ---------------------------------------------------------------- fast path: the linear scan
+
+
+def state_space_combine(l, r):
+    """The affine 2x2 state-space monoid, r after l: (A, b) -> (Ar Al, Ar bl
+    + br).  A (n, 2, 2), shared by the batch; b (n, B, 2).  Each entry is
+    written out as two products and their sum, each rounded once (a BLAS
+    call may fuse them), in the order of the dot's index."""
+    Al, bl = l
+    Ar, br = r
+
+    def dot2(r0, r1, c0, c1):
+        return r0 * c0 + r1 * c1
+
+    A = torch.stack([torch.stack([dot2(Ar[:, i, 0], Ar[:, i, 1], Al[:, 0, k], Al[:, 1, k])
+                                  for k in range(2)], -1) for i in range(2)], -2)
+    b = torch.stack([dot2(Ar[:, i, 0, None], Ar[:, i, 1, None], bl[..., 0], bl[..., 1]) + br[..., i]
+                     for i in range(2)], -1)
+    return A, b
+
+
+def biquad_fir(x, x1, x2, b0, b1, b2):
+    """The biquad's FIR part b0 x[n] + b1 x[n-1] + b2 x[n-2], JAX's order."""
+    return b0 * x + b1 * x1 + b2 * x2
+
+
+def biquad_elements(f, a1, a2):
+    """The scan's elements of one band for FIR terms f (n, B): A = [[-a1,
+    -a2], [1, 0]] for every sample, b = (f, 0)."""
+    A = torch.stack([torch.stack([-a1, -a2]), torch.stack([torch.ones_like(a1),
+                                                           torch.zeros_like(a1)])])
+    return A.expand(f.shape[0], 2, 2), torch.stack([f, torch.zeros_like(f)], -1)
+
+
+def _biquad_linear(x, b0, b1, b2, a1, a2):
+    """One biquad as an associative scan over 2x2 state-space transitions
+    (``jeicyboodsp_tpu/ops/geq.py:_biquad_linear``): s[n] = (y[n], y[n-1])
+    = A s[n-1] + (f[n], 0), A = [[-a1, -a2], [1, 0]], f the FIR part, the
+    samples before the first zero.  x: (..., N) float; returns y of x's
+    shape.  The coefficients are 0-d tensors of x's dtype."""
+    shape = x.shape
+    xt = x.reshape(-1, shape[-1]).t()  # (N, B): time first
+    zero = torch.zeros_like(xt[:1])
+    x1 = torch.cat([zero, xt[:-1]])
+    x2 = torch.cat([zero, zero, xt[:-2]])[: xt.shape[0]]
+    f = biquad_fir(xt, x1, x2, b0, b1, b2)
+    _, s = associative_scan(state_space_combine, biquad_elements(f, a1, a2))
+    return s[..., 0].t().reshape(shape)
+
+
+def geq_apply_fast(x, b, a, dtype=torch.float32):
+    """Fast-mode cascade: float linear filtering, no int16 feedback.
+    x: (..., N) float or int tensor -> (..., N) in ``dtype`` (JAX's float32
+    default), on x's device."""
+    y = x.to(dtype)
+    b = torch.as_tensor(np.asarray(b), device=x.device).to(dtype)
+    a = torch.as_tensor(np.asarray(a), device=x.device).to(dtype)
+    for k in range(TOTAL_BANDS):
+        y = _biquad_linear(y, b[k, 0], b[k, 1], b[k, 2], a[k, 1], a[k, 2])
+    return y

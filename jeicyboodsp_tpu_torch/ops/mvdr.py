@@ -50,10 +50,61 @@ def vad_energy_flags(blocks, dtype=torch.float64):
     return energy > THRESHOLD_OF_ENERGY
 
 
+def previous_blocks(blocks):
+    """x[t-1] for each block t, zeros before the first."""
+    return torch.cat([torch.zeros_like(blocks[:1]), blocks[:-1]])
+
+
 def _pairs(blocks, dtype):
     """(T, 1024) [x[t-1], x[t]] in ``dtype``, zeros before the first block."""
-    prev = torch.cat([torch.zeros_like(blocks[:1]), blocks[:-1]])
-    return torch.cat([prev, blocks], 1).to(dtype)
+    return torch.cat([previous_blocks(blocks), blocks], 1).to(dtype)
+
+
+def analysis_frames(prev, blocks, dtype):
+    """(T, 1024) analysis frames in ``dtype``: [the previous block's first
+    511 samples (the keep buffer), the current block, 0]."""
+    return torch.nn.functional.pad(torch.cat([prev[:, :KEEP_LEN], blocks], 1).to(dtype), (0, 1))
+
+
+def covariance_terms(Lr, Li, Rr, Ri):
+    """(T, 4) [r00, r01, r10, r11]: each block pair's spatial-correlation
+    terms from the two channels' spectra over the bins given, divided by
+    FFT_LEN.  The division is exact (a power of two), so partial terms over
+    slices of the bins sum to the whole."""
+    return torch.stack([torch.sum(Lr ** 2 + Li ** 2, 1), torch.sum(-Lr * Ri + Li * Rr, 1),
+                        torch.sum(-Rr * Li + Ri * Lr, 1), torch.sum(Rr ** 2 + Ri ** 2, 1)],
+                       1) / FFT_LEN
+
+
+def mvdr_weights(R, bins, d_time, dtype):
+    """Complex (T, len(bins)) weights w0, w1 = R^-1 c / (c^H R^-1 c) at the
+    given bin indices, from each block's accumulated (T, 4) R through its
+    closed-form 2x2 inverse (singular -> inf/nan, as an unchecked LU); the
+    steering vector is c = [1, e^{j 2 pi f d_time}]."""
+    ctype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    a, b, c_, d = R.unbind(1)
+    inv = torch.stack([d, -b, -c_, a], 1) / (a * d - b * c_)[:, None]
+    ang = 2.0 * REF_PI * bins.to(dtype) * (SAMPLING_RATE / FFT_LEN) * d_time
+    c0 = torch.ones(bins.shape[0], dtype=ctype, device=R.device)
+    c1 = torch.complex(torch.cos(ang), torch.sin(ang))
+    w0 = inv[:, 0, None] * c0 + inv[:, 1, None] * c1
+    w1 = inv[:, 2, None] * c0 + inv[:, 3, None] * c1
+    denom = c0.conj() * w0 + c1.conj() * w1
+    return w0 / denom, w1 / denom
+
+
+def beamform(Lr, Li, Rr, Ri, w0, w1):
+    """(re, im) of the merged spectrum: each channel's frame spectrum times
+    its conjugated weight (:175-178), reproducing the reference's
+    overwrite-sequencing quirk (:180-183), where the updated real part feeds
+    the imaginary one."""
+    wl_r, wl_i = w0.real, -w0.imag
+    wr_r, wr_i = w1.real, -w1.imag
+    L0 = Lr * wl_r - Li * wl_i
+    L1 = L0 * wl_i + Li * wl_r
+    R0 = Rr * wr_r - Ri * wr_i
+    R1 = R0 * wr_i + Ri * wr_r
+    return L0 + R0, L1 + R1
 
 
 def _spectrum(x, ctype, mxu):
@@ -100,44 +151,16 @@ def mvdr_blocks(blocks_l, blocks_r, d_time: float = 0.0, dtype=torch.float64,
 
     Lfr, Lfi = _spectrum(pairs_l, ctype, use_mxu)
     Rfr, Rfi = _spectrum(pairs_r, ctype, use_mxu)
-    r00 = torch.sum(Lfr ** 2 + Lfi ** 2, 1) / FFT_LEN
-    r01 = torch.sum(-Lfr * Rfi + Lfi * Rfr, 1) / FFT_LEN
-    r10 = torch.sum(-Rfr * Lfi + Rfi * Lfr, 1) / FFT_LEN
-    r11 = torch.sum(Rfr ** 2 + Rfi ** 2, 1) / FFT_LEN
-    R = torch.cumsum(torch.stack([r00, r01, r10, r11], 1) * acc_f[:, None], 0)  # (T, 4)
+    R = torch.cumsum(covariance_terms(Lfr, Lfi, Rfr, Rfi) * acc_f[:, None], 0)  # (T, 4)
+    w0, w1 = mvdr_weights(R, torch.arange(FFT_LEN, device=blocks_l.device), d_time, dtype)
 
-    # closed-form 2x2 inverse per block (singular -> inf/nan, as an unchecked LU)
-    a, b, c_, d = R.unbind(1)
-    inv = torch.stack([d, -b, -c_, a], 1) / (a * d - b * c_)[:, None]
-
-    # steering vector per bin; weights w = R^-1 c / (c^H R^-1 c)
-    i = torch.arange(FFT_LEN, dtype=dtype, device=blocks_l.device)
-    ang = 2.0 * REF_PI * i * (SAMPLING_RATE / FFT_LEN) * d_time
-    c0 = torch.ones(FFT_LEN, dtype=ctype, device=blocks_l.device)
-    c1 = torch.complex(torch.cos(ang), torch.sin(ang))
-    w0 = inv[:, 0, None] * c0 + inv[:, 1, None] * c1  # (T, 1024)
-    w1 = inv[:, 2, None] * c0 + inv[:, 3, None] * c1
-    denom = c0.conj() * w0 + c1.conj() * w1
-    w0, w1 = w0 / denom, w1 / denom
-
-    # analysis frames: [previous block's first 511 samples, current block, 0]
-    def frame(blocks):
-        keep = torch.cat([torch.zeros_like(blocks[:1, :KEEP_LEN]), blocks[:-1, :KEEP_LEN]])
-        return torch.nn.functional.pad(torch.cat([keep, blocks], 1).to(dtype), (0, 1))
-
-    Lr, Li = _spectrum(frame(blocks_l), ctype, use_mxu)
-    Rr, Ri = _spectrum(frame(blocks_r), ctype, use_mxu)
-    wl_r, wl_i = w0.real, -w0.imag  # conjugated weights (:175-178)
-    wr_r, wr_i = w1.real, -w1.imag
-    # overwrite-sequencing quirk (:180-183): the updated real part feeds the imaginary
-    L0 = Lr * wl_r - Li * wl_i
-    L1 = L0 * wl_i + Li * wl_r
-    R0 = Rr * wr_r - Ri * wr_i
-    R1 = R0 * wr_i + Ri * wr_r
+    Lr, Li = _spectrum(analysis_frames(previous_blocks(blocks_l), blocks_l, dtype), ctype, use_mxu)
+    Rr, Ri = _spectrum(analysis_frames(previous_blocks(blocks_r), blocks_r, dtype), ctype, use_mxu)
+    re, im = beamform(Lr, Li, Rr, Ri, w0, w1)
     if use_mxu:  # the merged spectrum is not Hermitian: the full-bin real-part inverse
-        y = D.icdft_real(L0 + R0, L1 + R1)
+        y = D.icdft_real(re, im)
     else:
-        y = torch.fft.ifft(torch.complex(L0 + R0, L1 + R1)).real
+        y = torch.fft.ifft(torch.complex(re, im)).real
     return c_short(y[:, KEEP_LEN: KEEP_LEN + BLOCK_LEN]), write_mask
 
 

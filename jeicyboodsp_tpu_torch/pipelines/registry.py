@@ -23,9 +23,9 @@ its inputs as the reference program does:
 ``kw`` is passed on to the op: ``device`` (a CUDA card by default; "cpu"
 runs the plain versions) for all, ``fft_engine`` for the enhancement chain,
 pitch, MFCC, fastconv and MVDR, ``dtype`` for the enhancement chain and its
-stream, the GEQ, pitch, MFCC, fastconv, fft, MVDR, awgn and gmm-train,
-``use_assoc_scan`` for the enhancement chain, ``verbose`` for fft, gmm-train
-and viterbi, ``d_time`` and ``collapse`` for MVDR; ``stream`` takes its
+stream, the GEQ, the echo cancellers, pitch, MFCC, fastconv, fft, MVDR, awgn
+and gmm-train, ``use_assoc_scan`` for the enhancement chain, ``verbose`` for
+fft, gmm-train, viterbi and nlms, ``d_time`` and ``collapse`` for MVDR; ``stream`` takes its
 checkpoint arguments by name.
 """
 
@@ -70,7 +70,9 @@ def specsub(inp: str, out: str, **kw):
 
 
 def nlms(inp: str, ref: str, est_out: str, err_out: str, **kw):
-    """NLMS AEC: input header skipped, reference NOT.  kw: device, compat."""
+    """NLMS AEC: input header skipped, reference NOT.  kw: device, compat,
+    dtype (float64 by default; float32 is ``--fast``), verbose (the
+    per-block coefficient lines, float64 compat only)."""
     from jeicyboodsp_tpu_torch.ops import nlms as N
 
     est, err = N.run_nlms_stream(_read(inp, True), _read(ref, False), **kw)
@@ -80,7 +82,8 @@ def nlms(inp: str, ref: str, est_out: str, err_out: str, **kw):
 
 
 def bnlms(inp: str, ref: str, est_out: str, err_out: str, **kw):
-    """Block NLMS AEC: input header skipped, reference NOT.  kw: device."""
+    """Block NLMS AEC: input header skipped, reference NOT.  kw: device,
+    dtype (float64 by default; float32 is ``--fast``)."""
     from jeicyboodsp_tpu_torch.ops import nlms as N
 
     est, err = N.run_bnlms_stream(_read(inp, True), _read(ref, False), **kw)
@@ -365,3 +368,8 @@ PIPELINES = {
     "viterbi": viterbi,
     "stream": stream_enhance,
 }
+
+
+def run_pipeline(name: str, *args, **kw):
+    """Run the pipeline ``name`` with its file arguments and ``kw``."""
+    return PIPELINES[name](*args, **kw)

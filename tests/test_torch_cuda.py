@@ -1342,3 +1342,106 @@ def test_viterbi_forms_on_the_card(cuda, T):
     got = H.viterbi_batched(corpus.to(cuda), lengths.to(cuda), *dec_c[1:])
     assert torch.equal(got[0].cpu(), want[0])
     _same_scores(got[1].cpu().numpy(), want[1].numpy())
+
+
+# ---- the f32 instances of K8 and K9, and the time-parallel BNLMS
+
+from jeicyboodsp_tpu_torch.ops import nlms as TN  # noqa: E402
+
+
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("B,T", NLMS_CASES + [(3, 1100), (33, 400)])
+def test_nlms_f32_kernel_matches_plain(cuda, B, T, compat):
+    """K8's f32 instance bit-equal to its plain version (est, err, f32
+    coefficients bit for bit with the sign of zero, history) over chunk
+    edges and the window's first 256 samples, from a nonzero state, also
+    when the stream is cut into two calls."""
+    x, r = _echo_pair(B, T, B + 7)
+    x[0], r[0] = -5, 0
+    x, r = x.to(cuda), r.to(cuda)
+    coef, hist = _nlms_state(B, T)
+    state = (coef.float().to(cuda), hist.to(cuda))
+    cut = T // 3 if T > 2 else T
+    before = K8.nlms_f32.launches
+    e1, r1, s = K8.nlms_f32(x[:, :cut].contiguous(), r[:, :cut].contiguous(), state,
+                            compat=compat)
+    if cut < T:
+        e2, r2, s = K8.nlms_f32(x[:, cut:].contiguous(), r[:, cut:].contiguous(), s,
+                                compat=compat)
+        e1, r1 = torch.cat([e1, e2], 1), torch.cat([r1, r2], 1)
+    torch.cuda.synchronize()
+    assert K8.nlms_f32.launches == before + 1 + (cut < T)
+    we, wr, (wc, wh) = K8.nlms_f32_plain(x, r, *state, compat=compat)
+    assert torch.equal(e1, we) and torch.equal(r1, wr)
+    assert torch.equal(s[0].view(torch.int32), wc.view(torch.int32))
+    assert torch.equal(s[1], wh)
+
+
+@pytest.mark.parametrize("B,nb", [(B, nb) for B in (1, 7, 1025) for nb in (1, 2, 3)])
+def test_bnlms_f32_kernel_matches_plain(cuda, B, nb):
+    """K9's f32 instance bit-equal to its plain version (est, err, f32
+    coefficients bit for bit, keep) with open and shut gates, from a
+    nonzero state, also when the stream is cut into two calls; stream 0 is
+    silent on its far end."""
+    x, r = _echo_pair(B, nb * 1024, 20 + B)
+    x[0] = 0
+    x, r = x.to(cuda), r.to(cuda)
+    gates = torch.from_numpy(np.random.default_rng(B + nb).random((B, nb)) < 0.7).to(cuda)
+    gates[0] = True
+    coef, keep = _bnlms_state(B, nb)
+    state = (coef.float().to(cuda), keep.to(cuda))
+    state[1][0] = 0
+    before = K9.bnlms_f32.launches
+    e1, r1, s = K9.bnlms_f32(x[:, :1024].contiguous(), r[:, :1024].contiguous(),
+                             gates[:, :1].contiguous(), state)
+    if nb > 1:
+        e2, r2, s = K9.bnlms_f32(x[:, 1024:].contiguous(), r[:, 1024:].contiguous(),
+                                 gates[:, 1:].contiguous(), s)
+        e1, r1 = torch.cat([e1, e2], 1), torch.cat([r1, r2], 1)
+    torch.cuda.synchronize()
+    assert K9.bnlms_f32.launches == before + 1 + (nb > 1)
+    we, wr, (wc, wk) = K9.bnlms_f32_plain(x, r, gates, *state)
+    assert torch.equal(e1, we) and torch.equal(r1, wr)
+    assert torch.equal(s[0].view(torch.int32), wc.view(torch.int32)) and torch.equal(s[1], wk)
+
+
+def test_bnlms_f32_kernel_occupancy(cuda):
+    """K9's f32 instance fits at least as many blocks on an SM as the f64 one."""
+    assert K9.occupancy(cuda, torch.float32) >= K9.occupancy(cuda)
+
+
+def test_f32_ops_launch_the_f32_instances(cuda):
+    x, r = _echo_pair(3, 2048, 31)
+    x, r = x.to(cuda), r.to(cuda)
+    n8, n9 = K8.nlms_f32.launches, K9.bnlms_f32.launches
+    st = {k: v.expand(3, *v.shape).contiguous()
+          for k, v in TN.nlms_init_state(torch.float32).items()}
+    e, _, s = TN.nlms_apply(x, r, st, dtype=torch.float32)
+    bs = {k: v.expand(3, *v.shape).contiguous()
+          for k, v in TN.bnlms_init_state(torch.float32).items()}
+    be, _, bs = TN.bnlms_apply(x.view(3, 2, 1024), r.view(3, 2, 1024), bs, dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (K8.nlms_f32.launches, K9.bnlms_f32.launches) == (n8 + 1, n9 + 1)
+    assert s["coeff"].dtype == bs["coeff"].dtype == torch.float32
+    st_cpu = {k: v.cpu() for k, v in st.items()}
+    assert torch.equal(e.cpu(), TN.nlms_apply(x.cpu(), r.cpu(), st_cpu, dtype=torch.float32)[0])
+    bs_cpu = {k: v.expand(3, *v.shape).contiguous()
+              for k, v in TN.bnlms_init_state(torch.float32).items()}
+    assert torch.equal(be.cpu(), TN.bnlms_apply(x.cpu().view(3, 2, 1024), r.cpu().view(3, 2, 1024),
+                                                bs_cpu, dtype=torch.float32)[0])
+
+
+def test_timeparallel_on_card_matches_cpu(cuda):
+    """bnlms_apply_timeparallel on the card against the CPU path: within
+    one LSB on under 1% of the samples (the matmuls sum in other orders)."""
+    T = 16
+    rng = np.random.default_rng(41)
+    far = np.clip(rng.normal(0, 3000, (T, 1024)), -32768, 32767).astype(np.int16)
+    echo = 0.5 * np.roll(far.reshape(-1), 5).reshape(T, 1024)
+    near = np.clip(echo + rng.normal(0, 150, (T, 1024)), -32768, 32767).astype(np.int16)
+    got = TN.bnlms_apply_timeparallel(torch.from_numpy(far).to(cuda),
+                                      torch.from_numpy(near).to(cuda))
+    want = TN.bnlms_apply_timeparallel(torch.from_numpy(far), torch.from_numpy(near))
+    for g, w in zip(got, want):
+        d = (g.cpu().to(torch.int64) - w.to(torch.int64)).abs()
+        assert int(d.max()) <= 1 and float((d != 0).double().mean()) < 0.01
