@@ -27,8 +27,10 @@ instances of K8 and K9) at 1024 streams x 65,536 samples with NLMS
 ``--verbose``, the time-parallel BNLMS over one session of 1024 blocks,
 LPC over 8192 frames of 512, the linear GEQ scan ``geq_apply_fast`` over
 2048 x 49,152, and every ``parallel/sharded.py`` path in a world of one
-NCCL rank (K8, K9, K14 under them) -- in phases that each print lines and
-raise on failure:
+NCCL rank (K8, K9, K14 under them) with ``parallel/speech_sharded.py``'s
+training over 25 classes x 256 blocks, classification (K10) and decoding
+over 512 utterances x 256 blocks on an (expert, data) mesh of (1, 1) -- in
+phases that each print lines and raise on failure:
 
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA sources with nvcc and prints the seconds;
@@ -168,8 +170,20 @@ raise on failure:
      ``reference_geq_linear`` on two streams; each ``parallel/sharded.py``
      path in a world of one NCCL rank against its unsharded op (max |diff|
      printed, tests/test_sharded.py's contracts; K14 counted under the f32
-     enhancement paths, its launches added to K14's), run after phase 5
-     so that the NCCL world's threads do not share the host with it;
+     enhancement paths, its launches added to K14's), then on an (expert,
+     data) mesh of (1, 1) ``speech_train_sharded`` over 25 classes x 256
+     blocks of ``class_signal`` in f64 ``xla`` against ``speech_train`` at
+     tests/test_speech_sharded.py's contract (rtol 1e-9 / atol 1e-11,
+     eigenvectors by |cosine| within 1e-8, NaN equal) and in f32 ``mxu3``
+     (its difference from ``speech_train(mxu3)`` printed),
+     ``speech_classify_sharded`` f32 ``mxu3`` of 25 utterances against the
+     f64 models (K10 counted around this call alone and added to K10's;
+     every decision and score that of ``speech_classify(mxu3)``, within
+     SCORE_RTOL) and ``speech_decode_sharded`` over 512 utterances x 256
+     blocks against ``mfcc_blocks`` + ``viterbi_batched`` (f64 paths equal,
+     scores within 1e-10; f32 paths equal), each call's ms printed; run
+     after phase 5 so that the NCCL world's threads do not share the host
+     with it;
 5. timing (CUDA events around batches of back-to-back calls, see
    ``median_ms``): ``enhance_blocks`` of each engine, the ops ``geq_apply``
    (f64 and f32), ``nlms_apply`` and ``bnlms_apply`` (with the gate alone at
@@ -224,7 +238,12 @@ T_FULL = 16384  # blocks per call (8.39 M samples), the benchmark's size
 T_PROBE = 192   # blocks of the fidelity probe
 FS = 16000
 SEED = 20260817
-FLOORS = {"mxu8f": 78.0, "mxu8t": 65.0, "mxu8": 78.0, "mxu3": 85.0}  # dB vs the reference
+# the engines' floors in dB against the reference, the port's copy of the JAX package's
+# (jeicyboodsp_tpu_torch/config.py); read from the checkout, so the script alone stops here
+sys.path.insert(0, ROOT)
+from jeicyboodsp_tpu_torch.config import ENGINE_FIDELITY  # noqa: E402
+
+FLOORS = {e: ENGINE_FIDELITY["enhance", e]["floor"] for e in ("mxu8f", "mxu8t", "mxu8", "mxu3")}
 KERNEL_VS_PLAIN_DB = 90.0
 F32_RTOL = 1e-5     # K4's f32 planes against f64: of each plane's row max
 K4_F64_TOL = 2.0 ** -18  # K4's re/im vs f64 products: of each row's largest sum of |a*b|
@@ -1160,7 +1179,7 @@ def time_chains(P, blocks, C, card, sync):
     K1, E = P.K1, P.E
 
     def plain_chain(eng):
-        sp = E.vad_flags(blocks)
+        sp = E.vad_flags(blocks, torch.float32)
         if eng in K1_ENGINES:
             return K1.enhance_full8_plain(blocks, E._latch_rowpack(sp), C, "wiener",
                                           K1_ENGINES[eng])
@@ -1616,7 +1635,7 @@ PITCH_T = 16384   # frames of 1024 at hop 512: 8.39 M samples (bench/all_configs
 CLASSES = 25      # the class models gmm_train trains (jeicyboodsp_tpu/pipelines/registry.py:159)
 TRAIN_BLOCKS, UTT_BLOCKS = 64, 32  # blocks of 1024 behind a class model / in an utterance
 MFCC_FULL_DB = 85.0   # mfcc_blocks(mxu3) at full size vs the f64 reference: the TPU kernel's level
-MFCC_PIPE_DB = 100.0  # the mfcc pipeline vs the reference (config.ENGINE_FIDELITY["mfcc", "mxu3"])
+MFCC_PIPE_DB = ENGINE_FIDELITY["mfcc", "mxu3"]["floor"]  # the mfcc pipeline vs the reference
 SCORE_RTOL = 1e-4     # speech_classify's scores (f32 features) vs the f64 reference's
 PITCH_SAMPLED = 256   # full-size frames held against the reference
 AMDF_LO = 96          # K11's first lag on the pitch path
@@ -3845,6 +3864,139 @@ def _lsb_share(got, want):
     return (int(d.max()), float((d != 0).double().mean())) if d.numel() else (0, 0.0)
 
 
+SPEECH_SHARDED_BLOCKS = 256  # blocks a class: 512 frames, the JAX benchmark's frames a class
+TRAIN_RTOL, TRAIN_ATOL, TRAIN_DOT_TOL = 1e-9, 1e-11, 1e-8  # tests/test_speech_sharded.py
+DECODE_RTOL = 1e-10
+
+
+def _same_trained(got, want):
+    """tests/test_speech_sharded.py's training contract on two PCA exports
+    (torch): alpha, mean and cov at TRAIN_RTOL / TRAIN_ATOL, eigenvectors by
+    |cosine| within TRAIN_DOT_TOL, NaN equal.  Returns (ok, the largest
+    |difference| of alpha, mean and cov, the largest 1 - |cosine|)."""
+    import torch
+
+    ok = all(torch.allclose(g, w, rtol=TRAIN_RTOL, atol=TRAIN_ATOL, equal_nan=True)
+             for g, w in zip(got[:3], want[:3]))
+    diff = max(float((g - w).abs().nan_to_num(0.0).max()) for g, w in zip(got[:3], want[:3]))
+    e, f = got[3], want[3]
+    cos = ((e * f).sum(-2) / (e.norm(dim=-2) * f.norm(dim=-2) + 1e-300)).abs()
+    ok &= torch.equal(cos.isnan(), f.isnan().any(-2))
+    worst = float((1 - cos).abs().nan_to_num(0.0).max())
+    return ok and worst <= TRAIN_DOT_TOL, diff, worst
+
+
+def _event_ms(fn, sync):
+    """One call of fn between two CUDA events: (its result, ms)."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    sync()
+    return out, a.elapsed_time(b)
+
+
+def drive_speech_sharded(P, SS, mesh, dev, card, sync, n_blocks=SPEECH_SHARDED_BLOCKS,
+                         n_utt=VIT_U, utt_blocks=VIT_T // 2):
+    """parallel/speech_sharded.py's three paths on an (expert, data) mesh of
+    shape (1, 1), at full width (CLASSES classes of 12-dim features, 4
+    mixtures), against the unsharded ops on the same inputs:
+
+    - speech_train_sharded over CLASSES x n_blocks blocks of class_signal:
+      f64 xla against speech_train at tests/test_speech_sharded.py's
+      contract (eigenvectors by |cosine|, NaN equal), f32 mxu3 (its MFCC by
+      the matmul DFT, as JAX's sharded training) with its largest difference
+      from speech_train(mxu3) (through K10) printed;
+    - speech_classify_sharded f32 mxu3 of an utterance a class against the
+      f64 models: K10 counted around this call alone, every decision (the
+      reference's argmax) and score that of speech_classify(mxu3) one
+      utterance at a time, scores within SCORE_RTOL, NaN equal;
+    - speech_decode_sharded over n_utt utterances of utt_blocks blocks
+      against mfcc_blocks + viterbi_batched, with an HMM whose 6 states are
+      finite class models: f64 paths equal and scores within DECODE_RTOL,
+      f32 paths equal.
+
+    Each call's ms (CUDA events) printed beside the card.  Returns (ok, the
+    K10 launches of the sharded classification)."""
+    import torch
+
+    f64, f32 = torch.float64, torch.float32
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    audio = torch.from_numpy(np.stack([class_signal(c, n_blocks * 1024, rng).reshape(-1, 1024)
+                                       for c in range(CLASSES)])).to(dev)
+    utts = torch.from_numpy(np.stack([class_signal(c, UTT_BLOCKS * 1024, rng).reshape(-1, 1024)
+                                      for c in range(CLASSES)])).to(dev)
+    results = []
+    tag = f"[4 parallel] speech_sharded {CLASSES}x{n_blocks} blocks"
+    got, ms = _event_ms(lambda: SS.speech_train_sharded(audio, mesh, dtype=f64), sync)
+    want = P.S.speech_train(audio, dtype=f64)
+    ok, diff, dots = _same_trained(got, want)
+    finite = torch.isfinite(want[0]).all(-1) & torch.isfinite(want[3]).all(-1).all(-1).all(-1)
+    print(f"{tag}: speech_train_sharded f64 xla {ms:.1f} ms (one call, CUDA events; {card}); "
+          f"against speech_train: max |alpha, mean, cov difference| {diff:g} (rtol {TRAIN_RTOL}"
+          f" / atol {TRAIN_ATOL}), max 1 - |cosine| of the eigenvectors {dots:.2e} (limit "
+          f"{TRAIN_DOT_TOL}), NaN equal; {int(finite.sum())} of {CLASSES} models finite: {ok}")
+    results.append(ok)
+    got32, ms = _event_ms(lambda: SS.speech_train_sharded(audio, mesh, dtype=f32,
+                                                          fft_engine="mxu3"), sync)
+    want32 = P.S.speech_train(audio, dtype=f32, fft_engine="mxu3")
+    same_nan = all(torch.equal(g.isnan(), w.isnan()) for g, w in zip(got32[:3], want32[:3]))
+    d32 = max(float((g - w).abs().nan_to_num(0.0).max()) for g, w in zip(got32[:3], want32[:3]))
+    print(f"{tag}: speech_train_sharded f32 mxu3 (the matmul DFT) {ms:.1f} ms (one call; "
+          f"{card}); against speech_train(mxu3) (K10): max |alpha, mean, cov difference| "
+          f"{d32:g}, NaN in the same places {same_nan} (printed, not held: two MFCC routes)")
+    models = (got[0], got[1], got[2], got[3][..., :4])
+    P.K10.mfcc_fused.launches = 0
+    scores, ms = _event_ms(lambda: SS.speech_classify_sharded(utts, *models, mesh, dtype=f32,
+                                                              fft_engine="mxu3"), sync)
+    k10 = P.K10.mfcc_fused.launches
+    want_s = torch.stack([P.S.speech_classify(u, *models, dtype=f32, fft_engine="mxu3")
+                          for u in utts]).cpu().numpy()
+    got_s = scores.cpu().numpy()
+    fin = np.isfinite(want_s)
+    worst = float(np.max(np.abs(got_s[fin] - want_s[fin]) / np.abs(want_s[fin]), initial=0.0))
+    dec = [_c_argmax(g.tolist()) for g in got_s]
+    ok = (dec == [_c_argmax(w.tolist()) for w in want_s]
+          and np.array_equal(np.isnan(got_s), np.isnan(want_s)) and worst <= SCORE_RTOL)
+    print(f"{tag}: speech_classify_sharded f32 mxu3 of {CLASSES} utterances x {UTT_BLOCKS} "
+          f"blocks {ms:.2f} ms (one call; {card}), K10 launches {k10}; every decision that of "
+          f"speech_classify(mxu3), NaN equal, largest relative score difference {worst:.2e} "
+          f"(limit {SCORE_RTOL}); {sum(d == c for c, d in enumerate(dec))} decisions the class: "
+          f"{ok}")
+    results.append(ok and k10 > 0)
+    # the decoding HMM: 6 finite class models as its states, a random row-stochastic trans
+    states = torch.nonzero(finite)[:6, 0].tolist()
+    if len(states) < 6:
+        raise RuntimeError(f"only {len(states)} finite class models for the decoding HMM")
+    trans = rng.uniform(0.05, 1.0, (6, 6))
+    hmm64 = (*(v[states] for v in models), torch.from_numpy(trans / trans.sum(1, keepdims=True))
+             .to(dev))
+    hmm32 = tuple(v.float() for v in hmm64)
+    cls = np.array(states)[np.arange(n_utt) % 6]
+    dec_utts = torch.from_numpy(np.stack([class_signal(c, utt_blocks * 1024, rng).reshape(-1, 1024)
+                                          for c in cls])).to(dev)
+    for dt, hmm in ((f64, hmm64), (f32, hmm32)):
+        (paths, sc), ms = _event_ms(lambda: SS.speech_decode_sharded(dec_utts, *hmm, mesh,
+                                                                      dtype=dt), sync)
+        feats = P.F.mfcc_blocks(dec_utts, *P.F.mel_dct(dt, dev), dtype=dt)
+        lengths = torch.full((n_utt,), feats.shape[1], dtype=torch.int64, device=dev)
+        wp, ws = P.H.viterbi_batched(feats, lengths, *hmm, compat=False)
+        ok = torch.equal(paths, wp) and bool(torch.isfinite(ws).all())
+        ok &= torch.allclose(sc, ws, rtol=DECODE_RTOL, atol=0.0) if dt == f64 else True
+        rel = float(((sc - ws).abs() / ws.abs()).max())
+        print(f"{tag}: speech_decode_sharded {str(dt)[6:]} {n_utt} utterances x {utt_blocks} "
+              f"blocks ({2 * utt_blocks} frames) {ms:.1f} ms (one call; {card}); against "
+              f"mfcc_blocks + viterbi_batched: paths equal, finite scores within "
+              f"{DECODE_RTOL if dt == f64 else 'f32'} relative (largest {rel:.2e}): {ok}")
+        results.append(ok)
+    print(f"{tag}: {len(results)} checks, all within their contracts {all(results)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return all(results), k10
+
+
 def drive_parallel(P, dev, x_full, aec, tp, geq, geq_fast, card, sync):
     """Every parallel/sharded.py path in a world of one NCCL rank on this
     card, at the unsharded op's smoke size, against that op on the same
@@ -3854,12 +4006,16 @@ def drive_parallel(P, dev, x_full, aec, tp, geq, geq_fast, card, sync):
     over the f32 enhancement paths.  One card cannot show what several do:
     the halo exchanges and gathers are between a rank and itself here; the
     multi-rank logic is held by tests/test_torch_parallel.py's gloo worlds.
-    Returns the K14 launches."""
+    Then parallel/speech_sharded.py's three paths on an (expert, data) mesh
+    of shape (1, 1) (:func:`drive_speech_sharded`; the multi-rank logic held
+    by tests/test_torch_speech_sharded.py).  Returns the K14 launches and
+    K10's under speech_classify_sharded."""
     import torch
     import torch.distributed as dist
 
     from jeicyboodsp_tpu_torch.parallel import mesh as M
     from jeicyboodsp_tpu_torch.parallel import sharded as S
+    from jeicyboodsp_tpu_torch.parallel import speech_sharded as SS
 
     f64, f32 = torch.float64, torch.float32
     t0 = time.perf_counter()
@@ -3950,15 +4106,18 @@ def drive_parallel(P, dev, x_full, aec, tp, geq, geq_fast, card, sync):
     report("data_parallel_sharding geq_apply_fast f32 8 streams",
            (dp.gather(P.G.geq_apply_fast(dp.local(g32), b, a)),), (P.G.geq_apply_fast(g32, b, a),),
            "equal")
+    speech_ok, k10 = drive_speech_sharded(P, SS, M.make_mesh((1, 1), ("expert", "data")), dev,
+                                          card, sync)
     sync()
     dist.destroy_process_group()
     print(f"[4 parallel] {len(results)} paths, all within their contracts {all(results)}; K14 "
-          f"launches on the f32 sharded enhancement paths {k14}; "
+          f"launches on the f32 sharded enhancement paths {k14}; the sharded speech paths "
+          f"{speech_ok}, K10 launches under speech_classify_sharded {k10}; "
           f"{time.perf_counter() - t0:.1f} s")
-    if not all(results) or min(k14.values()) == 0:
-        raise RuntimeError("a sharded path differs from its unsharded op, or K14 did not launch "
-                           "on a sharded path")
-    return sum(k14.values())
+    if not (all(results) and speech_ok) or min(k14.values()) == 0 or k10 == 0:
+        raise RuntimeError("a sharded path differs from its unsharded op, or K14 or K10 did not "
+                           "launch on a sharded path")
+    return sum(k14.values()), k10
 
 
 SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (file:line)
@@ -4016,7 +4175,7 @@ def main() -> int:
     x_full = make_signal(T_FULL * 512, rng)
     blocks = torch.from_numpy(x_full.reshape(T_FULL, 512)).to(dev)
     C = P.E.enhance_constants(dev)
-    speech = P.E.vad_flags(blocks)
+    speech = P.E.vad_flags(blocks, torch.float32)
     rowpack = P.E._latch_rowpack(speech)
 
     # 3. kernels against plain versions; 4. main path; 5. timing
@@ -4060,7 +4219,9 @@ def main() -> int:
     time_stream(P, dev, x_full, card, sync)
     time_speech(P, dev, card, sync, speech_inputs)
     # last: the NCCL world's threads would share the host with the timed phases above
-    launches["K14"] += drive_parallel(P, dev, x_full, aec, tp, geq, geq_fast, card, sync)
+    k14, k10 = drive_parallel(P, dev, x_full, aec, tp, geq, geq_fast, card, sync)
+    launches["K14"] += k14
+    launches["K10"] += k10  # speech_classify_sharded(mxu3, f32)
 
     print(card)
     print(json.dumps({"kernels": [{

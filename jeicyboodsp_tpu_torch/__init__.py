@@ -21,7 +21,12 @@ found at the same path:
                 fastconv, fft, mvdr, awgn, gmm-train, gmm-test, viterbi,
                 stream), and speech training, classification and decoding
                 from raw audio.
-- ``utils``     C-numeric emulation (``c_short``), SNR, the entry device.
+- ``parallel``  process groups and meshes over ``torch.distributed``, halo
+                exchange and sharded scans, every sharded path of the JAX
+                package and the sharded speech pipeline.
+- ``config``    the engines' fidelity floors and the programs' configurations.
+- ``utils``     C-numeric emulation (``c_short``), SNR and the metrics
+                registry, the entry device.
 
 The package imports torch and numpy only: never jax, never
 ``jeicyboodsp_tpu``.  Ported so far: the Wiener / spectral-subtraction chain
@@ -34,8 +39,10 @@ run the four-step FFT K12; the 2-mic MVDR beamformer; streaming with
 checkpoint/resume (the enhancement, GEQ and echo-canceller sessions and the
 resumable ``stream`` pipeline); speech recognition (GMM training with the
 reference's model files, HMM/Viterbi decoding, ``speech_train`` and
-``speech_decode``) and the AWGN harness, as torch ops.  Every TPU kernel of
-the JAX package has its counterpart here.
+``speech_decode``) and the AWGN harness, as torch ops; the sharded paths
+over ``torch.distributed``, the sharded speech pipeline (training,
+classification through K10, decoding) among them.  Every TPU kernel of the
+JAX package has its counterpart here.
 """
 
 __version__ = "0.1.0"

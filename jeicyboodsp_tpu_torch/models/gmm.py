@@ -97,8 +97,14 @@ def _mixture_probs(frames, mean, cov):
     return _pca_prob(frames[..., None, :, :], mean, cov, PCA_LEN_TRAIN).transpose(-1, -2)
 
 
-def kmeans_counted(frames, mask, init_means):
-    """:func:`kmeans`, and the iterations each class ran ((...,) int64)."""
+def kmeans_counted(frames, mask, init_means, reduce=None):
+    """:func:`kmeans`, and the iterations each class ran ((...,) int64).
+
+    ``reduce``, where given, is applied in place to each sum over the frames
+    before it is used (a pass's cost, its per-cluster counts and sums, the
+    final counts and scatter): the sharded training passes an all-reduce
+    over the ranks that hold the frames."""
+    reduce = reduce or (lambda t: None)
     dt = frames.dtype
     sel = torch.zeros(*mask.shape, NUM_OF_MIXTURE, dtype=torch.bool, device=frames.device)
     means = init_means
@@ -111,10 +117,13 @@ def kmeans_counted(frames, mask, init_means):
         new_sel = sel | (torch.nn.functional.one_hot(arg, NUM_OF_MIXTURE).bool()
                          & mask[..., None])
         cost = torch.where(new_sel, d, 0.0).sum((-2, -1))
+        reduce(cost)
         new_count = count + 1
         keep_going = (new_count == 1) | ((cost - cost_before).abs() >= THRESHOLD_OF_DISTANCE)
         cnt = new_sel.sum(-2).to(dt)
         sums = new_sel.to(dt).transpose(-1, -2) @ frames
+        reduce(cnt)
+        reduce(sums)
         new_means = torch.where(cnt[..., None] > 0, sums / cnt.clamp_min(1.0)[..., None], 0.0)
         # a converged class keeps its carry while the others iterate
         go = (active & keep_going)[..., None, None]
@@ -129,8 +138,10 @@ def kmeans_counted(frames, mask, init_means):
     cnt = sel.sum(-2).to(dt)
     diff = frames[..., :, None, :] - means[..., None, :, :]  # (..., N, 4, 12)
     w = sel.to(dt)
-    covs = torch.einsum("...nki,...nkj->...kij", diff * w[..., None], diff) / cnt[..., None, None]
-    return means, covs, count
+    scatter = torch.einsum("...nki,...nkj->...kij", diff * w[..., None], diff)
+    reduce(cnt)
+    reduce(scatter)
+    return means, scatter / cnt[..., None, None], count
 
 
 def kmeans(frames, mask, init_means):

@@ -67,23 +67,30 @@ def _vad_window(device: torch.device):
     return hamming_ref(FFT_SIZE, torch.float32, device)[BLOCK_LEN:]
 
 
-def vad_flags(blocks, dtype=torch.float32):
-    """VAD over (T, 512) int16 blocks -> (T,) bool (True=speech), in ``dtype``.
+def vad_flags(blocks, dtype=torch.float64):
+    """VAD over (..., 512) int16 blocks -> (...) bool (True=speech), in
+    ``dtype``, along the last axis as JAX's (float64 by default, as JAX's).
 
     Semantics of WienerFilter_final.cpp:261-296 including the in-place int16
     window truncation and the windowed[i] x raw[i+1] ZCR pairing.  In f32
-    (the fused chain's VAD) it runs through the K14 wrapper with this
-    function's own f32 Hamming half, not the f64-built ``w2`` of
-    :func:`_dft_mats_aligned` that K2 and K4 read (ROADMAP R8); in another
-    dtype (the f64 compat path) as torch ops in that dtype.
+    (the fused chain's VAD) it runs through the K14 wrapper, the leading
+    axes flattened to its (N, 512) rows, with this function's own f32
+    Hamming half, not the f64-built ``w2`` of :func:`_dft_mats_aligned`
+    that K2 and K4 read (ROADMAP R8); in another dtype (the f64 compat path)
+    as torch ops in that dtype.  An empty leading axis gives empty flags and
+    launches nothing.
     """
+    lead = blocks.shape[:-1]
     if dtype == torch.float32:
-        return vad_kernel(blocks, _vad_window(blocks.device))
+        if not blocks.numel():
+            return torch.zeros(lead, dtype=torch.bool, device=blocks.device)
+        rows = blocks.reshape(-1, BLOCK_LEN).contiguous()
+        return vad_kernel(rows, _vad_window(blocks.device)).reshape(lead)
     w = hamming_ref(FFT_SIZE, dtype, blocks.device)[BLOCK_LEN:]
     x = blocks.to(dtype)
     s = c_short(x * w).to(dtype)  # truncated windowed samples
     energy = torch.sum(s * s, dim=-1) / FFT_SIZE  # integer terms: exact in f64
-    nxt = torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)  # last pairs with 0
+    nxt = torch.cat([x[..., 1:], torch.zeros_like(x[..., :1])], dim=-1)  # last pairs with 0
     zcr = torch.sum((s * nxt) < 0, dim=-1)
     return (energy > 700.0) | (zcr < 200.0)
 
@@ -420,7 +427,7 @@ def _enhance_fused_full(blocks, mode, emit_all, hq=True, L=64):
     """
     T = blocks.shape[0]
     bp = _pad_rows(blocks, L)
-    rowpack = _latch_rowpack(vad_flags(bp), L=L)
+    rowpack = _latch_rowpack(vad_flags(bp, torch.float32), L=L)
     out = enhance_full8(bp, rowpack, _constants_on(bp.device), mode=mode, hq=hq,
                         emit_all=emit_all, L=L)
     write_mask = torch.arange(T, device=blocks.device) >= 2

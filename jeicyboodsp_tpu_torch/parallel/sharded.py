@@ -174,12 +174,6 @@ def fastconv_sharded(blocks, Hr, Hi, mesh, dtype=torch.float64, axis: str = "tim
     return all_gather_rows(out, g), all_gather_rows(mask, g)
 
 
-def _vad(blocks, dtype):
-    """E.vad_flags over (T, ..., 512) blocks of any leading shape."""
-    return E.vad_flags(blocks.reshape(-1, E.BLOCK_LEN).contiguous(), dtype).reshape(
-        blocks.shape[:-1])
-
-
 def enhance_local(local, group, mode: str = "wiener", dtype=torch.float64):
     """A rank's (T_loc, ..., 512) blocks, time first (any batch axes after
     it) -> (out of the same shape int16, write mask (T_loc,))."""
@@ -187,7 +181,7 @@ def enhance_local(local, group, mode: str = "wiener", dtype=torch.float64):
     gidx = _global_index(t_loc, group, local.device)
     ext = torch.cat([left_halo(local, 2, group), local])  # x[t0-2], x[t0-1], then the shard
     X = E.frame_transform(torch.cat([ext[1:-1], ext[2:]], -1), dtype)
-    speech = _vad(local, dtype)
+    speech = E.vad_flags(local, dtype)
     noise = ~speech
     batch = noise.shape[1:]
     (cnt, _), _ = sharded_associative_scan(
@@ -376,23 +370,24 @@ def mvdr_sharded_bins(blocks_l, blocks_r, mesh, d_time=0.0, axis: str = "model")
 
 
 def em_step_local(f_loc, m_loc, alpha, mean, cov, group):
-    """One compat EM iteration over a rank's frames; the sufficient
-    statistics are summed over the group (all-reduce)."""
-    w = GM._mixture_probs(f_loc, mean, cov) * alpha[None, :]
-    w = w / w.sum(1, keepdim=True)
-    w = torch.where(m_loc[:, None], w, torch.zeros((), dtype=w.dtype, device=w.device))
-    n = m_loc.sum().to(f_loc.dtype)
-    sums = [n, w.sum(0), w.t() @ f_loc]
+    """One compat EM iteration over a rank's frames f_loc (..., N_loc, 12)
+    and mask (..., N_loc), any leading class axes; the sufficient statistics
+    are summed over the group (all-reduce)."""
+    w = GM._mixture_probs(f_loc, mean, cov) * alpha[..., None, :]
+    w = w / w.sum(-1, keepdim=True)
+    w = torch.where(m_loc[..., None], w, torch.zeros((), dtype=w.dtype, device=w.device))
+    n = m_loc.sum(-1).to(f_loc.dtype)
+    sums = [n, w.sum(-2), w.transpose(-1, -2) @ f_loc]
     for s in sums:
         dist.all_reduce(s, group=group)
     n, w_sum, wx = sums
     n_of_key = alpha + w_sum
-    alpha_new = n_of_key / n
-    mean_new = (mean + wx) / n_of_key[:, None]
-    diff = f_loc[:, None, :] - mean_new[None, :, :]
-    scatter = torch.einsum("nk,nki,nkj->kij", w, diff, diff)
+    alpha_new = n_of_key / n[..., None]
+    mean_new = (mean + wx) / n_of_key[..., None]
+    diff = f_loc[..., :, None, :] - mean_new[..., None, :, :]
+    scatter = torch.einsum("...nk,...nki,...nkj->...kij", w, diff, diff)
     dist.all_reduce(scatter, group=group)
-    return alpha_new, mean_new, scatter / n_of_key[:, None, None]
+    return alpha_new, mean_new, scatter / n_of_key[..., None, None]
 
 
 def em_step_sharded(frames, mask, alpha, mean, cov, mesh, axis: str = "data"):

@@ -46,7 +46,7 @@ def cuda():
 
 def _inputs(device, n_blocks=512, seed=3):
     blocks = torch.from_numpy(_signal(n_blocks, seed).reshape(-1, 512)).to(device)
-    rowpack = E._latch_rowpack(E.vad_flags(blocks))
+    rowpack = E._latch_rowpack(E.vad_flags(blocks, torch.float32))
     return blocks, rowpack, E.enhance_constants(device)
 
 
@@ -274,7 +274,7 @@ def test_int8_forward_pass_bit_equal(cuda, T):
     got_odd = K2.enhance_fwd_int8(odd, C)
     assert all(torch.equal(a, b) for a, b in zip(got_odd, got))
     if T % 64 == 0:
-        rowpack = E._latch_rowpack(E.vad_flags(blocks))
+        rowpack = E._latch_rowpack(E.vad_flags(blocks, torch.float32))
         _, pk = K.enhance_full8(blocks, rowpack, C, "wiener", True, return_planes=True)
         _, pp = K.enhance_full8_plain(blocks, rowpack, C, "wiener", True, return_planes=True)
         torch.cuda.synchronize()
@@ -293,7 +293,7 @@ def test_int8_inverse_pass_bit_equal(cuda, T, hq):
     runs = {"K3": K3.enhance_back_ola8(*_back_inputs("K2", blocks, C, 8), C, "wiener", hq,
                                        return_planes=True)}
     if T % 64 == 0:
-        rowpack = E._latch_rowpack(E.vad_flags(blocks))
+        rowpack = E._latch_rowpack(E.vad_flags(blocks, torch.float32))
         runs["K1"] = K.enhance_full8(blocks, rowpack, C, "wiener", hq, return_planes=True)
     for name, (_, p) in runs.items():
         got = p["uv"].view(torch.int32)
@@ -1170,6 +1170,26 @@ def test_vad_kernel_row_counts(cuda, T):
             assert got[-6:].tolist() == [False, False, True, True, False, False]
 
 
+def test_batched_vad_flags_through_k14(cuda):
+    """``ops.enhance.vad_flags`` in f32 over (B, T, 512) blocks (P6): one
+    K14 launch over the flattened rows, equal to one call a stream and to
+    the f32 flags on the CPU; an empty leading axis launches nothing."""
+    rows = np.concatenate([_signal(3 * 64, 16).reshape(-1, 512)[:-6],
+                           vad_threshold_rows(E._vad_window(cuda).cpu().numpy())])
+    blocks = torch.from_numpy(rows.reshape(3, 64, 512)).to(cuda)
+    before = K14.vad_flags.launches
+    got = E.vad_flags(blocks, torch.float32)
+    torch.cuda.synchronize()
+    assert K14.vad_flags.launches == before + 1
+    per_stream = torch.stack([E.vad_flags(blocks[b], torch.float32) for b in range(3)])
+    assert got.shape == (3, 64) and torch.equal(got, per_stream)
+    assert torch.equal(got.cpu(), E.vad_flags(blocks.cpu(), torch.float32))
+    assert got[-1, -6:].tolist() == [False, False, True, True, False, False]
+    before = K14.vad_flags.launches
+    assert E.vad_flags(blocks[:0], torch.float32).shape == (0, 64)
+    assert K14.vad_flags.launches == before
+
+
 def test_engines_mxu8f_mxu8t_launch_k14(cuda):
     blocks = torch.from_numpy(_signal(100, 8).reshape(-1, 512)).to(cuda)
     for eng in ("mxu8f", "mxu8t"):
@@ -1264,7 +1284,7 @@ def test_enhance_session_f32_on_the_card(cuda, tmp_path):
     rest = np.concatenate([again.process(blocks[s: s + 4]) for s in range(24, 48, 4)])
     assert snr_db(np.concatenate(outs[6:]), rest) >= 95.0
     sp = torch.from_numpy(blocks).to(cuda)
-    assert torch.equal(E.vad_flags(sp).cpu(), E.vad_flags(sp.cpu()))
+    assert torch.equal(E.vad_flags(sp, torch.float32).cpu(), E.vad_flags(sp.cpu(), torch.float32))
 
 
 # ---- speech recognition: GMM training and HMM decoding on the card (torch ops) ----

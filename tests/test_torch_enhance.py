@@ -122,7 +122,7 @@ def test_vad_flags_and_rowpack_exact(probe):
     _, x = probe
     b = x.reshape(-1, 512)
     sj = np.asarray(JE.vad_flags(jnp.asarray(b), jnp.float32))
-    st = TE.vad_flags(torch.from_numpy(b)).numpy()
+    st = TE.vad_flags(torch.from_numpy(b), torch.float32).numpy()
     np.testing.assert_array_equal(st, sj)
     for L in (16, 64):
         rj = np.asarray(JE._latch_rowpack(jnp.asarray(sj), L=L))
@@ -139,9 +139,58 @@ def test_vad_flags_and_rowpack_exact(probe):
         np.testing.assert_allclose(rt[:, :4], rj[:, :4], rtol=2 ** -20, atol=0)
 
 
+def _batched_vad_probe():
+    """ROADMAP P6's probe: 3 streams x 64 blocks of N(0, 30) noise with a
+    5000-amplitude tone on every third block."""
+    rng = np.random.default_rng(16)
+    x = rng.normal(0, 30, (3, 64, 512))
+    x[:, ::3] += 5000 * np.sin(2 * np.pi * 313 * np.arange(512) / 16000)
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("shape", [(3, 64), (192,), (3, 4, 16), ()], ids=str)
+def test_vad_flags_over_batch_axes_equal_jax(dtype, shape):
+    """``vad_flags`` over (..., 512) blocks: the energy and the ZCR partner
+    along the last axis, in f32 the leading axes flattened around K14's
+    wrapper; flags equal to JAX's on the same blocks."""
+    b = _batched_vad_probe().reshape(*shape, -1, 512)[..., 0, :]  # () takes one block
+    want = np.asarray(JE.vad_flags(jnp.asarray(b), getattr(jnp, dtype)))
+    got = TE.vad_flags(torch.from_numpy(b), getattr(torch, dtype))
+    assert got.dtype == torch.bool and tuple(got.shape) == want.shape == shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    if shape == (3, 64):
+        assert 0 < want.sum() < want.size  # speech and noise rows both
+
+
+def test_vad_flags_default_is_jax_s():
+    """The default call, float64 as JAX's default, equal to JAX's default
+    call."""
+    import inspect
+
+    assert inspect.signature(TE.vad_flags).parameters["dtype"].default is torch.float64
+    b = _batched_vad_probe()
+    np.testing.assert_array_equal(TE.vad_flags(torch.from_numpy(b)).numpy(),
+                                  np.asarray(JE.vad_flags(jnp.asarray(b))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", [(0, 512), (3, 0, 512), (0, 64, 512)], ids=str)
+def test_vad_flags_empty_leading_axis(dtype, shape):
+    """An empty leading axis gives empty flags of the leading shape, as JAX
+    does, and launches nothing (K14 needs T >= 1)."""
+    from jeicyboodsp_tpu_torch.kernels import vad_flags as K14
+
+    before = K14.vad_flags.launches
+    got = TE.vad_flags(torch.zeros(shape, dtype=torch.int16), dtype)
+    want = np.asarray(JE.vad_flags(jnp.zeros(shape, jnp.int16)))
+    assert got.dtype == torch.bool and tuple(got.shape) == want.shape == shape[:-1]
+    assert K14.vad_flags.launches == before
+
+
 def test_latch_probe_latches():
     x = _signal(*PROBES["latch64"])
-    sp = TE.vad_flags(torch.from_numpy(x.reshape(-1, 512)))
+    sp = TE.vad_flags(torch.from_numpy(x.reshape(-1, 512)), torch.float32)
     assert TE._latch_rowpack(sp)[:, 2].max() >= 0  # a latch happened
 
 
@@ -268,7 +317,7 @@ def test_k1_plain_planes_rebuild_its_output(probe, hq):
     _, x = probe
     blocks = torch.from_numpy(x.reshape(-1, 512))
     C = TE.enhance_constants("cpu")
-    rowpack = TE._latch_rowpack(TE.vad_flags(blocks))
+    rowpack = TE._latch_rowpack(TE.vad_flags(blocks, torch.float32))
     out, p = K.enhance_full8(blocks, rowpack, C, "wiener", hq, L=16, return_planes=True)
     assert torch.equal(out, K.enhance_full8(blocks, rowpack, C, "wiener", hq, L=16))
     re, im, ren = K.forward8_plain(blocks, C)

@@ -19,6 +19,7 @@ from jeicyboodsp_tpu.kernels import enhance_pallas as EP
 from jeicyboodsp_tpu.oracle import enhance as oenh
 from jeicyboodsp_tpu.ops import enhance as JE
 from jeicyboodsp_tpu.utils.metrics import snr_db
+from jeicyboodsp_tpu_torch.config import ENGINE_FIDELITY
 from jeicyboodsp_tpu_torch.kernels import enhance_back as K13
 from jeicyboodsp_tpu_torch.kernels import enhance_back_ola3 as K5
 from jeicyboodsp_tpu_torch.kernels import enhance_back_ola8 as K3
@@ -31,7 +32,7 @@ from test_torch_enhance import PROBES, _signal
 
 F = 64  # the JAX kernels' row tile: one grid step per 64-block probe
 ROW_RTOL = 1e-5  # K13's planes: of each row's max
-FLOOR = {"mxu8": 78.0, "mxu3": 85.0}  # vs the oracle (config.ENGINE_FIDELITY)
+FLOOR = {e: ENGINE_FIDELITY["enhance", e]["floor"] for e in ("mxu8", "mxu3")}  # vs the oracle
 PORT_VS_JAX_DB = 90.0
 MODES = ("wiener", "specsub")
 
@@ -240,7 +241,7 @@ def test_fused3_vs_jax_and_oracle(jax_parts, engine, mode):
 
 def test_in_kernel_vad_equals_vad_flags(probe_blocks):
     C = TE.enhance_constants("cpu")
-    want = TE.vad_flags(probe_blocks)
+    want = TE.vad_flags(probe_blocks, torch.float32)
     for fwd in (K2.enhance_fwd_int8, K4.enhance_fwd):
         sp = fwd(probe_blocks, C)[5]
         assert sp.shape == (probe_blocks.shape[0], 1)
@@ -374,7 +375,7 @@ def test_vad_flags_vs_jax_at_the_thresholds():
     that."""
     rows, w64 = _vad_probe()
     blocks = torch.from_numpy(rows)
-    got = TE.vad_flags(blocks).numpy()
+    got = TE.vad_flags(blocks, torch.float32).numpy()
     np.testing.assert_array_equal(got, np.asarray(JE.vad_flags(jnp.asarray(rows), jnp.float32)))
     np.testing.assert_array_equal(got[-12:], [False, False, True, True, False, False] * 2)
     before = K14.vad_flags.launches
