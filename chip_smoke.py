@@ -68,6 +68,14 @@ phases that each print lines and raise on failure:
    - the f32 instances of K8 (T = 2048, both pairings, and T = 257 from a
      nonzero state with -0.0 coefficients) and K9 (8 blocks, some gates
      shut) at 1024 streams, bit-equal to their plain f32 versions;
+   - the reference contracts (``utils.gpu_checks.run_checks("cuda")``, the
+     JAX package's ``tpu_checks`` probes through the port's entry points
+     against its oracles: the GEQ through K6 bit-exact, NLMS and BNLMS
+     through K8 and K9 int16-exact, engines mxu3, mxu8, mxu8f and mxu8t at
+     their floors and mxu1 below the 60 dB bar, the MVDR collapse, the int8
+     fast convolution at its floors, K11's pitch lags): its dict on a line
+     ``[3 checks] run_checks('cuda') on <card>: {...}`` and the launches it
+     made per kernel; fails unless ``all_ok``;
 4. main paths, every launch counter set to 0 just before each and read just
    after, each kernel launched at least once:
    - enhancement: the file-in/file-out pipelines of every engine on a
@@ -81,7 +89,7 @@ phases that each print lines and raise on failure:
      time too); ``run_stream`` f32 ``xla`` >= 95 dB and ``mxu`` >= 90 dB
      with the log-depth scan; ``wiener --fast --engine mxu8f`` from the CLI;
    - GEQ, NLMS, BNLMS: the ``geq``, ``nlms`` and ``bnlms`` pipelines on probe
-     files against the script's own float64 numpy copies of the oracles
+     files against the port's float64 oracles
      (GEQ byte-identical with a full-scale wrap-stress section, a partial
      last block and an empty payload; NLMS and BNLMS int16-equal; the BNLMS
      gate decisions that differ from the direct f64 sums printed, and none
@@ -93,7 +101,7 @@ phases that each print lines and raise on failure:
      BNLMS every block of an echo and a double-talk stream) must equal the
      references, B = 3072 runs (K6), and the GEQ's linear engine (K7)
      must come within 55 dB of a float64 linear cascade;
-   - features, against the script's own float64 numpy copies of the MFCC,
+   - features, against the port's float64 oracles of the MFCC,
      pitch and GMM-scoring oracles: the ``pitch1``-``pitch3`` pipelines in
      f64 and ``pitch2`` through K11 in f64 and from the CLI with ``--fast
      --engine mxu`` on a speech probe with a silent stretch, a partial last
@@ -111,8 +119,8 @@ phases that each print lines and raise on failure:
      payload and (fastconv) T <= 7, then every fastconv engine and
      ``fastconv_blocks_sparse`` at 2048 blocks, ``roundtrip_blocks`` f32
      radix2 / xla / fourstep and f64 radix2 at 16,384 blocks and
-     ``_enhance_fused`` at T = 16384, each against the script's float64
-     numpy copies of the oracles (f64 within one step; f32 at the floors of
+     ``_enhance_fused`` at T = 16384, each against the port's float64
+     oracles (f64 within one step; f32 at the floors of
      tests/test_engine_matrix.py; ``_enhance_fused`` >= 85 dB);
    - streaming (K6, K8, K9, K14 counted; their launches added to the
      earlier phases'): ``EnhanceSession`` wiener at T = 16384 in f64 and
@@ -128,13 +136,13 @@ phases that each print lines and raise on failure:
      ``reference_geq`` / ``reference_nlms_blocks`` / ``reference_bnlms_blocks``
      and to one uninterrupted session;
    - MVDR (no kernel): ``mvdr_blocks`` at T = 16384 against
-     ``reference_mvdr``, the script's f64 copy of the oracle: f64 ``xla``
+     ``reference_mvdr``, the port's f64 oracle: f64 ``xla``
      and ``steering_delay(0.3)`` within one step on under 1%, f32 ``xla``
      and ``mxu3`` with ``collapse=False`` >= 60 dB, the ``mxu3`` collapse
      within one step on under 1% and >= 90 dB;
    - speech recognition (K10 counted, its launches added to the earlier
      phases'; the rest torch ops, as the JAX modules are plain XLA), against
-     the script's float64 copies of ``oracle/gmm.py`` and
+     the port's float64 oracles ``oracle/gmm.py`` and
      ``oracle/viterbi.py``: ``train_classes_batched`` in f64 over the
      benchmark's 25 classes x 512 frames and the ``gmm-train`` CLI's model
      file at tests/test_gmm.py's bounds (eigenvector signs aligned first);
@@ -212,11 +220,19 @@ phases that each print lines and raise on failure:
    per file and the ``awgn`` CLI (host clock); the f32 instances of K8 and
    K9 at 1024 x 65,536 beside the f64 instances, their plain versions, the
    bounds in f32 operations and K9 f32's resident blocks, the f32 ops, and
-   ``lpc_frames`` per solver.  The
-   bounds of K5 and K13 count their GEMMs as
-   the 3xTF32 they run, with the bf16x3 figure beside; those of K4 and K10
-   count their functions through a real FFT, with the dense-DFT GEMM figure
-   beside.
+   ``lpc_frames`` per solver.  Every kernel's bytes, operations, their
+   type and the dependency chains come from
+   ``jeicyboodsp_tpu_torch.utils.profiling.KERNELS`` at the timed shapes,
+   the card's peaks from the same module, each bound printed with the basis
+   of its count: K1-K3 their int8 dots, K4 and K10 their functions through
+   a real FFT, K5 and K13 their bytes (their function, gain, inverse real
+   FFT and OLA, is far less f32 work), K11 its pairs at one instruction
+   each, K14 its bytes; the bytes are each function's inputs read once and
+   outputs written once (a stream that frames overlap counts once).
+
+The float64 references are the port's own, ``jeicyboodsp_tpu_torch.oracle``
+(numpy only), each held byte-identical to the JAX package's oracle of the
+same name by the CPU tests.
 
 Then the card's line, one JSON line of per-kernel results and, last, the
 ``{"ok": true, ...}`` line.  Imports neither jax nor the JAX package.
@@ -242,15 +258,34 @@ SEED = 20260817
 # (jeicyboodsp_tpu_torch/config.py); read from the checkout, so the script alone stops here
 sys.path.insert(0, ROOT)
 from jeicyboodsp_tpu_torch.config import ENGINE_FIDELITY  # noqa: E402
+# the float64 references the script holds the port to (numpy only)
+from jeicyboodsp_tpu_torch.oracle.cnum import REF_PI, c_short, stale_blocks  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.enhance import reference_enhance  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.fastconv import reference_fastconv  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.fftprog import reference_fft_roundtrip  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.geq import (  # noqa: E402
+    reference_geq, reference_geq_f32, reference_geq_linear,
+)
+from jeicyboodsp_tpu_torch.oracle.gmm import (  # noqa: E402
+    PCA_TEST, PCA_TRAIN, reference_read_models, reference_score, reference_score_file,
+    reference_train_class,
+)
+from jeicyboodsp_tpu_torch.oracle.lpc import reference_lpc  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.mfcc import reference_mfcc  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.mvdr import reference_mvdr  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.nlms import (  # noqa: E402
+    _double_talk, reference_bnlms_blocks, reference_nlms, reference_nlms_blocks,
+)
+from jeicyboodsp_tpu_torch.oracle.pitch import reference_pitch, reference_pitch_frames  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.viterbi import reference_forward, reference_hmm_decode  # noqa: E402
+# each kernel's bytes, operations and chain, and the card's peaks
+from jeicyboodsp_tpu_torch.utils import profiling as PROF  # noqa: E402
 
 FLOORS = {e: ENGINE_FIDELITY["enhance", e]["floor"] for e in ("mxu8f", "mxu8t", "mxu8", "mxu3")}
 KERNEL_VS_PLAIN_DB = 90.0
 F32_RTOL = 1e-5     # K4's f32 planes against f64: of each plane's row max
 K4_F64_TOL = 2.0 ** -18  # K4's re/im vs f64 products: of each row's largest sum of |a*b|
 K4_PLAIN_TOL = 2.0 ** -16  # K4 vs its plain version: of each row's largest sum of |a*b|
-# K4's function per frame through a real FFT: window (1024), the FFT (2.5 n log2 n), |X|
-# (4 per bin), the Nyquist dot (2 per sample), the VAD (6 per sample of a block)
-K4_FRAME_FLOPS = 1024 + 2.5 * 1024 * 10 + 4 * 512 + 2 * 1024 + 6 * 512
 LATCH_RTOL = 1e-6
 REPS = 7
 BATCH_MS, BATCH_MAX = 2.0, 50  # back-to-back calls timed together (median_ms)
@@ -262,31 +297,6 @@ PLAIN_T = {"K6": 4096, "K7": 4096, "K8": 2048, "K9": 8 * 1024}
 PLAIN_TIME_T = {"K6": 256, "K7": 256, "K8": 256, "K9": 1024}
 PLAIN_REPS = 3
 GEQ_LINEAR_DB = 55.0  # K7's f32 cascade against a float64 one (tests/test_pallas_kernels.py:17)
-# published H100 SXM peaks (dense): bytes/s of HBM3, int8, bf16 and TF32 tensor-core op/s
-HBM_BPS, INT8_OPS, BF16_OPS, TF32_OPS = 3.35e12, 1979e12, 989e12, 495e12
-# f64 and f32 outside the tensor cores (NVIDIA's H100 SXM data sheet), FMA counted as two
-F64_OPS, F32_OPS = 34e12, 67e12
-# dependent cycles per step of each recursion's longest chain, an estimate from the
-# kernels' instruction chains at ~8 cycles per f64 op, ~4 per f32 op, ~27 per shuffle,
-# ~19 per f64 <-> int conversion, ~5 per integer op (not measured here):
-# - K6 per step one band's y1 -> a1*y1 -> the subtraction -> + b0*x0 -> the truncating
-#   conversion and the sign extension -> the conversion back to f64: 3 x 8 + 19 + 5 + 19
-#   ~ 67; the lane layout hands band k-1's output over a step ahead (skew 2), lane 0's
-#   load is made a step ahead and c_short's range compares are left out where the
-#   coefficients bound every acc, so none of them is on it; T + 12 steps (fill, drain);
-# - K7 per step one band's s0 -> y (the add) -> c3*y -> the subtraction -> + s1: 4 x 4 = 16
-#   in f32; since the redesign it takes K6's lane layout (skew 2, T + 12 steps), so the
-#   shuffle and lane 0's load are off it as in K6;
-# - K8 per sample the estimate (a product and 7 adds: 64), the tree (5 shuffle-adds:
-#   175), c_short (two compares, the conversion, the sign extension: ~50), the error
-#   and its conversion (~24), then one tap's numerator, q0, four FMAs, its sign and
-#   its add (~61): ~375; d and 1/d come from the input alone, off the chain;
-# - K9 per block the estimate's 128 sequential adds (~1024), the energy scan's five
-#   shuffle-adds and the warp totals behind a barrier (~300), four parts' staging of
-#   1/d behind barriers (~400) and the gradient's 1024 sequential adds (~8192): ~10,000;
-#   the quotients hang off that add chain, each independent of the others.
-CHAIN_CYCLES = {"K6": 67, "K7": 16, "K8": 375, "K9": 10000}
-CHAIN_STEPS = {"K6": GEQ_T + 12, "K7": GEQ_T + 12, "K8": AEC_T, "K9": AEC_T // 1024}
 # the figures of K6-K9 before their redesigns on the H100: chain cycles, and each
 # kernel's time (NVIDIA H100 80GB HBM3, 700 W; PERF.md, section 6)
 OLD_CHAIN_CYCLES = {"K6": 60, "K8": 380, "K9": 9300}
@@ -301,314 +311,6 @@ def make_signal(n, rng):
     t = np.arange(n) / FS
     speech = 5000 * np.sin(2 * np.pi * 313 * t) * (np.sin(2 * np.pi * 0.5 * t) > 0.2)
     return np.clip(speech + rng.normal(0, 20, n), -32768, 32767).astype(np.int16)
-
-
-def _c_short(v):
-    t = np.trunc(np.asarray(v, np.float64))
-    ok = np.isfinite(t) & (t >= -(2 ** 31)) & (t <= 2 ** 31 - 1)
-    return np.where(ok, t, -(2.0 ** 31)).astype(np.int64).astype(np.int32).astype(np.int16)
-
-
-def reference_enhance(x, mode="wiener"):
-    """float64 numpy reference of WienerFilter_final.cpp /
-    SpectralSubtraction_final.cpp: 512-sample blocks (a partial last block
-    keeps the previous block's stale tail), VAD on [zeros, x], the
-    10-frame noise latch, the gain with saved phase, 512-shift OLA, output
-    from the third block on, double -> short truncation."""
-    x = np.asarray(x, np.int16)
-    if len(x) == 0:
-        return np.zeros(0, np.int16)
-    T = -(-len(x) // 512)
-    xb = np.zeros(T * 512, np.int16)
-    xb[: len(x)] = x
-    blocks = xb.reshape(T, 512)
-    if len(x) % 512 and T > 1:
-        blocks[-1, len(x) % 512:] = blocks[-2, len(x) % 512:]
-    w = 0.54 - 0.46 * np.cos(2.0 * 3.141592 * np.arange(1024) / 1023)
-    raw = blocks.astype(np.int64)
-    s = _c_short(raw * w[512:]).astype(np.int64)
-    energy = np.sum(s.astype(np.float64) ** 2, axis=1) / 1024
-    zcr = np.sum(s[:, :-1] * raw[:, 1:] < 0, axis=1)
-    speech = (energy > 700.0) | (zcr < 200.0)
-    prev = np.concatenate([np.zeros((1, 512), np.int16), blocks[:-1]])
-    X = np.fft.fft(np.concatenate([prev, blocks], axis=1).astype(np.float64) * w, axis=1)
-    mags = np.abs(X)
-    latched = np.zeros((T, 1024))
-    cnt, avg, lat = 0, np.zeros(1024), np.zeros(1024)
-    for t in range(T):
-        cnt = 0 if speech[t] else cnt + 1
-        if cnt >= 2:
-            avg = avg + mags[t]
-            if cnt >= 3:
-                avg = avg / 2.0
-            if cnt == 10:
-                lat = avg.copy()
-        latched[t] = lat
-    with np.errstate(divide="ignore", invalid="ignore"):
-        if mode == "wiener":
-            P = X.real ** 2 + X.imag ** 2
-            v = latched ** 2 / P
-            amp = np.abs(np.sqrt(P)) * (1.0 - np.where(v >= 1.0, 1.0, v))
-        else:
-            amp = mags - latched
-    phase = np.arctan2(X.imag, X.real)
-    y = np.fft.ifft(amp * np.cos(phase) + 1j * amp * np.sin(phase), axis=1).real
-    out = _c_short(y[1:-1, 512:] + y[2:, :512])  # written from t = 2 on
-    return out.reshape(-1)
-
-
-def _c_short_int(v):
-    """The reference's double -> short store of one value (see _c_short)."""
-    if not -2147483649.0 < v < 2147483648.0:  # out of int32 range, or NaN
-        return 0
-    t = int(v) & 0xFFFF
-    return t - 0x10000 if t >= 0x8000 else t
-
-
-def _stale_blocks(x, n):
-    """x cut into n-sample blocks, a partial last block keeping the previous
-    block's stale tail (the reference's fread)."""
-    x = np.asarray(x, np.int16)
-    full, rem = divmod(len(x), n)
-    if rem:
-        prev = x[(full - 1) * n: full * n] if full else np.zeros(n, np.int16)
-        x = np.concatenate([x, prev[rem:]])
-    return x.reshape(-1, n)
-
-
-def reference_geq(x, b, a):
-    """float64 reference of 7Band_GEQ.cpp on one signal: 512-sample blocks,
-    seven direct-form-I biquads in series, each output stored into a short
-    inside the recursion, every sum in the reference's order
-    b2*x2 - a2*y2 + b1*x1 - a1*y1 + b0*x0 (7Band_GEQ.cpp:279-300)."""
-    cur = [float(v) for v in _stale_blocks(x, 512).reshape(-1)]
-    for k in range(7):
-        b0, b1, b2 = (float(v) for v in b[k])
-        a1, a2 = float(a[k][1]), float(a[k][2])
-        x1 = x2 = y1 = y2 = 0.0
-        out = []
-        for v in cur:
-            acc = b2 * x2
-            acc -= a2 * y2
-            acc += b1 * x1
-            acc -= a1 * y1
-            acc += b0 * v
-            y = float(_c_short_int(acc))
-            x2, x1, y2, y1 = x1, v, y1, y
-            out.append(y)
-        cur = out
-    return np.array(cur, np.int16)
-
-
-def reference_geq_f32(x, b, a):
-    """reference_geq in float32, each product and sum one float32 numpy
-    operation, so each rounded once (``geq --fast``; jeicyboodsp_tpu/ops/geq.py:
-    geq_apply with dtype=float32 as written).  Not the reference's output."""
-    f32 = np.float32
-    cur = [f32(v) for v in _stale_blocks(x, 512).reshape(-1)]
-    bb, aa = np.asarray(b, f32), np.asarray(a, f32)
-    for k in range(7):
-        b0, b1, b2, a1, a2 = bb[k, 0], bb[k, 1], bb[k, 2], aa[k, 1], aa[k, 2]
-        x1 = x2 = y1 = y2 = f32(0)
-        out = []
-        for v in cur:
-            acc = b2 * x2
-            acc = acc - a2 * y2
-            acc = acc + b1 * x1
-            acc = acc - a1 * y1
-            acc = acc + b0 * v
-            y = f32(_c_short_int(float(acc)))
-            x2, x1, y2, y1 = x1, v, y1, y
-            out.append(y)
-        cur = out
-    return np.array(cur, np.int16)
-
-
-def reference_geq_linear(x, b, a):
-    """The same cascade in float64 with no store into a short inside it (the
-    GEQ's linear engine), stored into int16 once at the end."""
-    cur = [float(v) for v in _stale_blocks(x, 512).reshape(-1)]
-    for k in range(7):
-        x1 = x2 = y1 = y2 = 0.0
-        out = []
-        for v in cur:
-            y = b[k][0] * v + b[k][1] * x1 + b[k][2] * x2 - a[k][1] * y1 - a[k][2] * y2
-            x2, x1, y2, y1 = x1, v, y1, y
-            out.append(y)
-        cur = out
-    return _c_short(np.array(cur))
-
-
-def reference_nlms_blocks(xb, rb, trajectory=None):
-    """float64 reference of NormalLMS.cpp over (nb, 1024) blocks, every
-    block's est and err: 256 taps, mu 1e-4, the estimate against the reversed
-    coefficients summed tap by tap (add.accumulate is sequential), the update
-    2.0*u*MU*e/(norm + eps) per tap against the direct ones.  ``trajectory``,
-    a list, gets the first three coefficients after each block (what
-    ``--verbose`` prints, NormalLMS.cpp:128)."""
-    c = np.zeros(256)
-    u = np.zeros(255 + 1024)
-    est = np.zeros(xb.shape, np.int16)
-    err = np.zeros(xb.shape, np.int16)
-    for t in range(len(xb)):
-        u[255:] = xb[t]
-        for i in range(1024):
-            w = u[i:i + 256]
-            y = _c_short_int(np.add.accumulate(c[::-1] * w)[-1])
-            e = int(rb[t, i]) - y
-            c = c + 2.0 * w * 0.0001 * float(e) / (float(w @ w) + 0.0001)
-            est[t, i], err[t, i] = y, _c_short_int(float(e))
-        u[:255] = u[-255:]
-        if trajectory is not None:
-            trajectory.append(tuple(c[:3]))
-    return est, err
-
-
-def _double_talk(u, r):
-    """BNLMS.cpp:164-186, reads past the 1151-sample buffers zero: True for
-    double talk.  The correlations as direct float64 dot products."""
-    up = np.zeros(2048)
-    rp = np.zeros(3072)
-    up[:len(u)] = u
-    rp[:len(r)] = r
-    best = 0.0
-    for k in range(1024):
-        m = 2048 - k
-        best = max(best, float(np.dot(up[:m], rp[k:k + m])) / m)
-    return not best > 0.0
-
-
-def reference_bnlms_blocks(xb, rb):
-    """float64 reference of BNLMS.cpp over (nb, 1024) blocks: every block's
-    est and err and its gate (True = update).  128 taps, mu 0.01, the
-    estimate tap by tap with the block's frozen coefficients, the gradient
-    summed sample by sample, averaged by 1024 and applied when the
-    double-talk test allows."""
-    c = np.zeros(128)
-    u = np.zeros(127 + 1024)
-    r = np.zeros(127 + 1024)
-    est = np.zeros(xb.shape, np.int16)
-    err = np.zeros(xb.shape, np.int16)
-    gates = []
-    for t in range(len(xb)):
-        u[127:], r[127:] = xb[t], rb[t]
-        W = np.lib.stride_tricks.sliding_window_view(u, 128)[:1024]
-        y = _c_short(np.add.accumulate(W * c[::-1], axis=1)[:, -1]).astype(np.int64)
-        e = rb[t].astype(np.int64) - y
-        est[t], err[t] = y, _c_short(e)
-        gates.append(not _double_talk(u, r))
-        if gates[-1]:
-            d = (W * W).sum(1) + 0.00001  # exact integer energies
-            terms = 2.0 * W * 0.01 * e[:, None].astype(np.float64) / d[:, None]
-            c = c + np.add.accumulate(terms, axis=0)[-1] / 1024
-        u[:127], r[:127] = u[-127:], r[-127:]
-    return est, err, gates
-
-
-def reference_nlms(x, ref, bnlms=False):
-    """run_nlms / run_bnlms of the reference programs: as many 1024-sample
-    blocks as the shorter signal starts, each signal's blocks with its own
-    stale tails, the first block's output not written.  Returns est, err
-    (and the gates for BNLMS)."""
-    nb = -(-min(len(x), len(ref)) // 1024)
-    if nb == 0:
-        return (np.zeros(0, np.int16), np.zeros(0, np.int16)) + (([],) if bnlms else ())
-    xb, rb = _stale_blocks(x, 1024)[:nb], _stale_blocks(ref, 1024)[:nb]
-    out = reference_bnlms_blocks(xb, rb) if bnlms else reference_nlms_blocks(xb, rb)
-    return (out[0][1:].reshape(-1), out[1][1:].reshape(-1)) + tuple(out[2:])
-
-
-def reference_lpc(x):
-    """float64 copy of oracle/lpc.py:run (LPCEstimation.cpp): 256-sample
-    blocks with stale tails, each analysed with the block before it through
-    the Hamming window over 512 samples, the biased autocorrelation lags
-    0..12 as dot products over (512 - lag), the 12x12 Toeplitz system solved
-    by LU; the first block's row not written.  Returns (blocks - 1, 12)."""
-    n = 512
-    w = 0.54 - 0.46 * np.cos(2.0 * 3.141592 * np.arange(n) / (n - 1))
-    lags = np.abs(np.subtract.outer(np.arange(12), np.arange(12)))
-    prev = np.zeros(256, np.int16)
-    rows = []
-    for t, blk in enumerate(_stale_blocks(x, 256)):
-        win = np.concatenate([prev, blk]).astype(np.float64) * w
-        prev = blk
-        r = np.array([np.dot(win[:n - i], win[i:n]) / (n - i) for i in range(13)])
-        if t:
-            rows.append(np.linalg.solve(r[lags], -r[1:13]))
-    return np.stack(rows) if rows else np.zeros((0, 12))
-
-
-FFT_PI = 3.14159265358  # FFTAlgorithm_ver2.cpp:15
-FC_BLOCK, FC_FFT, FC_TAPS, FC_WARMUP = 1024, 8192, 7169, 7  # Fast_Convolution...cpp
-
-
-def _bitrev(n):
-    """The bit-reversal permutation of 0..n-1 (n a power of two)."""
-    bits = n.bit_length() - 1
-    k = np.arange(n)
-    return sum(((k >> b) & 1) << (bits - 1 - b) for b in range(bits))
-
-
-def _radix2(re, im, sign):
-    """FFTAlgorithm_ver2.cpp:94-149 over the rows of (B, n) float64 planes:
-    bit reversal, then per stage the butterflies and the inter-stage
-    twiddles with FFT_PI, each element in the C expression order."""
-    n = re.shape[1]
-    re, im = re[:, _bitrev(n)], im[:, _bitrev(n)]
-    npoint = n // 2
-    while True:
-        n2 = n // npoint
-        n1 = n2 // 2
-        idx = (n2 * np.arange(npoint)[:, None] + np.arange(n1)[None, :]).ravel()
-        ar, ai, br, bi = re[:, idx], im[:, idx], re[:, idx + n1], im[:, idx + n1]
-        re[:, idx], im[:, idx] = ar + br, ai + bi
-        re[:, idx + n1], im[:, idx + n1] = ar - br, ai - bi
-        if npoint == 1:
-            return re, im
-        nn = np.tile(np.arange(n2), npoint // 2)
-        idx2 = (np.arange(npoint // 2)[:, None] * 2 * n2 + n2 + np.arange(n2)[None, :]).ravel()
-        ang = sign * 2.0 * FFT_PI * nn / float(2 * n2)
-        c, s = np.cos(ang), np.sin(ang)
-        tr, ti = re[:, idx2], im[:, idx2]
-        re[:, idx2], im[:, idx2] = c * tr - s * ti, c * ti + s * tr
-        npoint //= 2
-
-
-def reference_fft_roundtrip(x):
-    """float64 numpy reference of FFTAlgorithm_ver2.cpp: 512-sample blocks
-    (a partial last block keeps the previous block's stale tail), its
-    radix-2 FFT forward and backward, / 512, double -> short."""
-    blocks = _stale_blocks(x, 512).astype(np.float64)
-    if not len(blocks):
-        return np.zeros(0, np.int16)
-    Xr, Xi = _radix2(blocks, np.zeros_like(blocks), -1.0)
-    yr, _ = _radix2(Xr, Xi, 1.0)
-    return _c_short(yr / 512.0).reshape(-1)
-
-
-def _rir():
-    """The 7169-tap RIR, from the repository's sparse table (FilterCoefficient.h)."""
-    d = np.load(os.path.join(ROOT, "jeicyboodsp_tpu", "data", "rir_coefficients.npz"))
-    h = np.zeros(int(d["length"]))
-    h[d["indices"]] = d["values"]
-    return h
-
-
-def reference_fastconv(x):
-    """float64 numpy reference of Fast_Convolution_Based_3DAudio_Impl.cpp:
-    1024-sample blocks (stale tails), the first 7 never stored (the queue
-    holds zeros), then per block the 8192-point segment of the 7 queued
-    blocks and the block: FFT times FFT(h), IFFT, samples [7168, 8192) to
-    short."""
-    blocks = _stale_blocks(x, FC_BLOCK).astype(np.float64)
-    if len(blocks) <= FC_WARMUP:
-        return np.zeros(0, np.int16)
-    H = np.fft.fft(_rir(), FC_FFT)
-    flat = blocks.reshape(-1)
-    flat[:FC_WARMUP * FC_BLOCK] = 0.0
-    out = [_c_short(np.fft.ifft(np.fft.fft(flat[s: s + FC_FFT]) * H).real[FC_TAPS - 1:])
-           for s in range(0, len(flat) - FC_FFT + 1, FC_BLOCK)]
-    return np.concatenate(out)
 
 
 def vad_threshold_rows(w2):
@@ -720,21 +422,12 @@ def profile_call(fn, sync, top=8):
     return a.elapsed_time(b), busy, sorted(kernels, reverse=True)[:top], sorted(host, reverse=True)[:top]
 
 
-def bound(nbytes, ops, peak):
-    """The least time (ms) of a kernel on this card: its bytes (each input
-    read once, each output written once) over the memory rate, or its
-    operations over the peak rate of their type, whichever is longer."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def tf32_note(ops, peak):
-    """For a 3xTF32 bound, the same GEMMs' bound as bf16x3 beside it."""
-    return f"; as bf16x3 {ops / BF16_OPS * 1e3:.4f} ms" if peak == TF32_OPS else ""
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
+def bound_line(work):
+    """A kernel's bound from its row of profiling.KERNELS, with the basis of
+    the count: (ms, "bytes" or "operations", the text to print)."""
+    b_ms, b_by = work.bound()
+    return b_ms, b_by, (f"bound {b_ms:.4f} ms by {b_by} ({work.nbytes / 1e6:.1f} MB, "
+                        f"{work.ops:.3g} {work.unit} ops; {work.basis})")
 
 
 def rel_err(got, want):
@@ -1101,47 +794,33 @@ def time_kernels(P, blocks, C, rowpack, back_ins, card, sync):
     import torch
 
     K1, K2, K3, K4, K5 = P.K1, P.K2, P.K3, P.K4, P.K5
-    consts = lambda mod: [C[k] for k in mod.CONSTS]  # noqa: E731
-    dots = T_FULL * 512 * 512  # MACs of one (T, 512) x (512, 512) product
-    runs = {  # kernel, plain version, bytes in + out, operations, peak of their type
+    runs = {  # kernel, plain version
         "K1": (lambda: K1.enhance_full8(blocks, rowpack, C, "wiener", True),
-               lambda: K1.enhance_full8_plain(blocks, rowpack, C, "wiener", True),
-               nbytes(blocks, rowpack, *consts(K1), blocks),  # out: int16 as blocks
-               2 * 26 * dots, INT8_OPS),  # hq: 16 forward, 10 inverse int8 dots
+               lambda: K1.enhance_full8_plain(blocks, rowpack, C, "wiener", True)),
         "K2": (lambda: K2.enhance_fwd_int8(blocks, C),
-               lambda: K2.enhance_fwd_int8_plain(blocks, C),
-               nbytes(blocks, *consts(K2), *K2.enhance_fwd_int8(blocks, C)),
-               2 * 16 * dots, INT8_OPS),
+               lambda: K2.enhance_fwd_int8_plain(blocks, C)),
         "K3": (lambda: K3.enhance_back_ola8(*back_ins["K2"], C, "wiener"),
-               lambda: K3.enhance_back_ola8_plain(*back_ins["K2"], C, "wiener"),
-               nbytes(*back_ins["K2"], *consts(K3), blocks),
-               2 * 10 * dots, INT8_OPS),
-        # K4: its function through a real FFT, not the dense-DFT GEMMs of the TPU kernel
-        "K4": (lambda: K4.enhance_fwd(blocks, C), lambda: K4.enhance_fwd_plain(blocks, C),
-               nbytes(blocks, *consts(K4), *K4.enhance_fwd(blocks, C)),
-               K4_FRAME_FLOPS * T_FULL, F32_OPS),
+               lambda: K3.enhance_back_ola8_plain(*back_ins["K2"], C, "wiener")),
+        "K4": (lambda: K4.enhance_fwd(blocks, C), lambda: K4.enhance_fwd_plain(blocks, C)),
         "K5": (lambda: K5.enhance_back_ola3(*back_ins["K4"], C, "wiener"),
-               lambda: K5.enhance_back_ola3_plain(*back_ins["K4"], C, "wiener"),
-               nbytes(*back_ins["K4"], *consts(K5), blocks),
-               3 * 2 * 2 * dots, TF32_OPS),  # its 2 f32 GEMMs as 3xTF32, as the kernel runs them
+               lambda: K5.enhance_back_ola3_plain(*back_ins["K4"], C, "wiener")),
     }
     library = gemm_cores(P, blocks, C, back_ins)
     times = {}
-    for name, (kern, plain, nb, ops, peak) in runs.items():
+    for name, (kern, plain) in runs.items():
         ms, plain_ms = median_ms(kern, sync), median_ms(plain, sync)
         lib_ms = median_ms(library[name], sync) if library[name] else None
-        b_ms, b_by = bound(nb, ops, peak)
+        b_ms, b_by, b_text = bound_line(PROF.KERNELS[name](T_FULL))
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                            library_ms=lib_ms)
         print(f"[5 timing] {name} wiener T={T_FULL} on {card}: kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, GEMM core {'-' if lib_ms is None else '%.3f ms' % lib_ms}, "
-              f"bound {b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops"
-              f"{tf32_note(ops, peak)})")
+              f"{b_text}")
     win = torch.from_numpy(P.K4.rfft_constants()[P.K4.WINDOW:]).to(blocks.device)
     windowed = P.K4.frames_f32(blocks) * win
     times["K4"]["library_ms"] = fft_library_turns(
         "K4", lambda: K4.enhance_fwd(blocks, C), library["K4"],
-        lambda: torch.fft.rfft(windowed), 3 * 2 * 4 * dots / BF16_OPS * 1e3, card, sync)
+        lambda: torch.fft.rfft(windowed), card, sync)
     mag, mag_n = K2.enhance_fwd_int8(blocks, C)[3:5]
     latch = (median_ms(lambda: K1.noise_latch(rowpack, mag, mag_n), sync),
              median_ms(lambda: K1.latch_from_rowpack(rowpack, torch.cat([mag, mag_n], 1), 64),
@@ -1151,18 +830,17 @@ def time_kernels(P, blocks, C, rowpack, back_ins, card, sync):
     return times
 
 
-def fft_library_turns(name, kern, core, rfft, gemm_bound_ms, card, sync):
+def fft_library_turns(name, kern, core, rfft, card, sync):
     """K4 or K10 in turns with its two PyTorch calls of the same function (the
     f32 matmul of the dense-DFT core, torch.fft.rfft of the windowed f32
-    frames): kernel, core, rfft, rfft, core, kernel.  Prints them, the
-    dense-DFT GEMM's bound as bf16x3 and the kernel's and rfft's device time
-    under torch.profiler; returns the faster call's ms."""
+    frames): kernel, core, rfft, rfft, core, kernel.  Prints them and the
+    kernel's and rfft's device time under torch.profiler; returns the faster
+    call's ms."""
     t = [median_ms(f, sync) for f in (kern, core, rfft, rfft, core, kern)]
     k, c, r = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
     print(f"[5 timing] {name} in turns on {card}: kernel {t[0]:.4f} / {t[5]:.4f} ms, f32 "
           f"matmul core {t[1]:.4f} / {t[4]:.4f} ms, torch.fft.rfft {t[2]:.4f} / {t[3]:.4f} ms; "
-          f"faster than the core {k < c}, than rfft {k < r}; the dense-DFT GEMM's own bound "
-          f"as bf16x3 {gemm_bound_ms:.4f} ms")
+          f"faster than the core {k < c}, than rfft {k < r}")
     for what, fn in (("kernel", kern), ("torch.fft.rfft", rfft)):
         wall, busy, kernels, _ = profile_call(fn, sync, top=4)
         top = ", ".join(f"{kn[:40]} x{cnt} {ms:.4f}" for ms, cnt, kn in kernels)
@@ -1443,7 +1121,7 @@ def drive_recursions(P, geq, aec, sync):
         if not ok:
             raise RuntimeError(f"geq --fast {c}: differs from the float32 copy")
     for i in (0, GEQ_B - 1):  # a wrap-stress stream and a tone
-        got = _c_short(yl[i].cpu().numpy())
+        got = c_short(yl[i].cpu().numpy())
         snr = snr_db(reference_geq_linear(geq[i].cpu().numpy(), b, a), got)
         print(f"[4 main-path] full size, K7 (the linear engine) stream {i}: {snr:.2f} dB vs a "
               f"float64 linear cascade (floor {GEQ_LINEAR_DB})")
@@ -1464,8 +1142,8 @@ def drive_recursions(P, geq, aec, sync):
         nb = -(-min(len(xp), len(rp)) // 1024)
         if nb == 0:
             continue
-        xs = torch.from_numpy(_stale_blocks(xp, 1024)[:nb].reshape(1, -1)).to(dev)
-        rs = torch.from_numpy(_stale_blocks(rp, 1024)[:nb].reshape(1, -1)).to(dev)
+        xs = torch.from_numpy(stale_blocks(xp, 1024)[:nb].reshape(1, -1)).to(dev)
+        rs = torch.from_numpy(stale_blocks(rp, 1024)[:nb].reshape(1, -1)).to(dev)
         keep = torch.zeros(1, 127, dtype=torch.int16, device=dev)
         got = P.K9.bnlms_gates(xs, rs, keep, keep)[0, 1:].tolist()  # the written blocks
         gdiff += sum(g != w for g, w in zip(got, refs["bnlms", c][2][1:]))
@@ -1559,44 +1237,36 @@ def time_recursions(P, geq, aec, card, sync):
     st8, st9 = P.K8.init_state(AEC_B, dev), P.K9.init_state(AEC_B, dev)
     cut = lambda v, k: v[:, :PLAIN_TIME_T[k]].contiguous()  # noqa: E731
     n_geq, n_aec = GEQ_B * GEQ_T, AEC_B * AEC_T
-    runs = {  # kernel, plain at its timing T, bytes in + out, operations, peak of their type
+    runs = {  # kernel, plain at its timing T, its work (profiling.KERNELS)
         "K6": (lambda: P.K6.geq_cascade_quant(geq, c64),
                lambda: P.K6.geq_cascade_quant_plain(cut(geq, "K6"), c64, st6),
-               nbytes(geq, c64, st6, geq, st6), 9 * 7 * n_geq, F64_OPS),
+               PROF.KERNELS["K6"](GEQ_B, GEQ_T)),
         "K7": (lambda: P.K7.geq_cascade(gf, c32),
                lambda: P.K7.geq_cascade_plain(cut(gf, "K7"), c32),
-               nbytes(gf, c32, gf), 9 * 7 * n_geq, F32_OPS),
+               PROF.KERNELS["K7"](GEQ_B, GEQ_T)),
         "K8": (lambda: P.K8.nlms(x, r),
                lambda: P.K8.nlms_plain(cut(x, "K8"), cut(r, "K8"), *st8),
-               nbytes(x, r, *st8, x, r, *st8),
-               (511 + 5 + 5 * 256) * n_aec, F64_OPS),  # dot, energy and divisor, update
+               PROF.KERNELS["K8"](AEC_B, AEC_T)),
         "K9": (lambda: P.K9.bnlms(x, r, gates),
                lambda: P.K9.bnlms_plain(cut(x, "K9"), cut(r, "K9"), cut(gates, "K9"), *st9),
-               nbytes(x, r, gates, *st9, x, r, *st9),
-               # per block the dot (2 ops per tap and sample); per open gate the window
-               # energies as a running difference (3 per sample, + eps), um = u * 2MU (1151),
-               # the gradient (a = um * e, the division, the add: 3 per tap and sample) and
-               # the update (2 per tap)
-               2 * 128 * n_aec + n_open * (1024 * (3 * 128 + 4) + 1151 + 2 * 128), F64_OPS),
+               PROF.KERNELS["K9"](AEC_B, AEC_T, n_open)),
     }
     clock_hz = card_clock_hz()
     times = {}
-    for name, (kern, plain, nb, ops, peak) in runs.items():
+    for name, (kern, plain, work) in runs.items():
         ms = median_ms(kern, sync)
         plain_ms = median_ms(plain, sync, reps=PLAIN_REPS)
-        b_ms, b_by = bound(nb, ops, peak)
-        chain_ms = CHAIN_STEPS[name] * CHAIN_CYCLES[name] / clock_hz * 1e3
+        b_ms, b_by, b_text = bound_line(work)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
         T = GEQ_T if name in ("K6", "K7") else AEC_T
         old_chain = (f"; {OLD_CHAIN_CYCLES[name]} cycles before the redesign"
                      if name in OLD_CHAIN_CYCLES else "")
         print(f"[5 timing] {name} {GEQ_B if T == GEQ_T else AEC_B}x{T} on {card}: kernel "
               f"{ms:.3f} ms = {(n_geq if T == GEQ_T else n_aec) / (ms * 1e-3):.4g} samples/s; "
-              f"plain {plain_ms:.3f} ms at T={PLAIN_TIME_T[name]}; bound {b_ms:.4f} ms by {b_by} "
-              f"({nb / 1e6:.1f} MB, {ops:.3g} ops); chain bound {chain_ms:.3f} ms "
-              f"({CHAIN_CYCLES[name]} cycles x {CHAIN_STEPS[name]} steps at "
-              f"{clock_hz / 1e6:.0f} MHz{old_chain}); library call: none; "
-              f"previously {PREVIOUS_MS[name]:.3f} ms")
+              f"plain {plain_ms:.3f} ms at T={PLAIN_TIME_T[name]}; {b_text}; chain bound "
+              f"{work.chain_ms(clock_hz):.3f} ms ({work.chain_cycles} cycles x "
+              f"{work.chain_steps} steps at {clock_hz / 1e6:.0f} MHz{old_chain}); library call: "
+              f"none; previously {PREVIOUS_MS[name]:.3f} ms")
     k6_f32 = median_ms(lambda: P.K6.geq_cascade_quant(geq, c32), sync)
     print(f"[5 timing] K6 f32 instance {GEQ_B}x{GEQ_T} on {card}: kernel {k6_f32:.3f} ms = "
           f"{n_geq / (k6_f32 * 1e-3):.4g} samples/s (f64 {times['K6']['ms']:.3f} ms)")
@@ -1639,22 +1309,6 @@ MFCC_PIPE_DB = ENGINE_FIDELITY["mfcc", "mxu3"]["floor"]  # the mfcc pipeline vs 
 SCORE_RTOL = 1e-4     # speech_classify's scores (f32 features) vs the f64 reference's
 PITCH_SAMPLED = 256   # full-size frames held against the reference
 AMDF_LO = 96          # K11's first lag on the pitch path
-REF_PI = 3.141592
-# lanes an H100 SM dispatches per clock: one warp instruction per clock on each of its 4
-# partitions, which is also its f32 rate (32 FP32 lanes a partition); its INT32 pipe has
-# 16 lanes a partition, 64 a clock per SM (NVIDIA's Hopper white paper)
-SM_LANES_PER_CLOCK = 128
-# the instructions of an AMDF pair on K11's route (csrc/amdf.cu): a packed int16 min
-# (VIMNMX.S16x2, the ALU pipe) and a dot (IDP2A, the FMA pipe) each take two pairs, so one
-# a pair (f32 would need two: d = a - b, then s += |d|; int32 three)
-AMDF_PAIR_OPS = 1
-# K11's chunk: 64 pairs (8 lags x 8 samples) from two 16-byte shared loads (a's 4 words,
-# b's 4 new ones), a warp's four 128-byte wavefronts each
-AMDF_CHUNK_PAIRS, AMDF_CHUNK_WAVEFRONTS = 64, 2 * 4 / 32
-# a real 1024-point FFT (2.5 n log2 n flops), then per frame pre-emphasis and window (3 per
-# sample), |X| (4 per bin), the mel runs (<= 2 weights per bin, 4 flops), the DCT (38 x 12)
-MFCC_FRAME_FLOPS = 2.5 * 1024 * 10 + 3 * 1024 + 4 * 512 + 4 * 512 + 2 * 38 * 12
-MFCC_MEL, MFCC_CEP = 38, 12
 
 
 def speech_signal(n, rng, silent=None):
@@ -1679,109 +1333,6 @@ def class_signal(c, n, rng):
     amp = 6000 * (0.6 + 0.4 * np.sin(2 * np.pi * 2.1 * t + rng.uniform(0, 6)) ** 2)
     x = amp * (np.sin(phase) + 0.4 * np.sin(2 * phase)) + rng.normal(0, 300, n)
     return np.clip(x, -32768, 32767).astype(np.int16)
-
-
-def mfcc_tables():
-    """float64 (512, 38) mel weights and (38, 12) DCT-II + lifter matrix of
-    MFCCFeatureExtraction_auto_version1.cpp: the mel filterbank built from
-    equal splits of the 0..22050 Hz mel axis (:118-152), a triangular weight
-    per bin towards the next channel edge (:154-174), DCT over channels 1..38
-    with sqrt(2/38), sinusoidal lifter L = 22 (:176-192)."""
-    unit = 1127.0 * np.log(1 + 22050.0 / 700.0) / (MFCC_MEL + 1)
-    edges = 700.0 * (np.exp(unit * np.arange(1, MFCC_MEL + 2) / 1127.0) - 1.0)
-    f = np.arange(512) / 511 * 22050.0
-    bins, k = np.zeros(512, np.int64), 0
-    for i in range(512):
-        if f[i] > edges[k] and k < MFCC_MEL:
-            k += 1
-        bins[i] = k
-    lower = np.where(bins == 0, 0.0, edges[np.maximum(bins - 1, 0)])
-    fb = np.maximum((edges[bins] - f) / (edges[bins] - lower), 0.0)
-    M = np.zeros((512, MFCC_MEL))
-    for i in range(512):
-        if bins[i] == 0:
-            M[i, 0] += 1 - fb[i]
-        else:
-            M[i, bins[i] - 1] += fb[i]
-            if bins[i] != MFCC_MEL:
-                M[i, bins[i]] += 1 - fb[i]
-    i, k = np.arange(1, MFCC_CEP + 1)[None, :], np.arange(1, MFCC_MEL + 1)[:, None]
-    lift = 1 + 0.5 * 22 * np.sin(REF_PI * np.arange(1, MFCC_CEP + 1) / 22)
-    D = np.sqrt(2.0 / MFCC_MEL) * np.cos(REF_PI * i * (k - 0.5) / MFCC_MEL) * lift[None, :]
-    return M, D
-
-
-def reference_mfcc_frames(frames):
-    """float64 MFCC of (F, 1024) int16 frames: pre-emphasis 0.96 from i = 1
-    (frame[0] stays 0), the Hamming window with REF_PI, |FFT| of bins
-    0..511, mel, log (log 0 = -inf), DCT + lifter."""
-    M, D = mfcc_tables()
-    f = frames.astype(np.float64)
-    pre = np.zeros_like(f)
-    pre[:, 1:] = f[:, 1:] - 0.96 * f[:, :-1]
-    w = 0.54 - 0.46 * np.cos(2.0 * REF_PI * np.arange(1024) / 1023)
-    X = np.fft.fft(pre * w, axis=1)[:, :512]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        return np.log(np.sqrt(X.real ** 2 + X.imag ** 2) @ M) @ D
-
-
-def reference_mfcc(x, skip_first=True):
-    """MFCCFeatureExtraction_auto_version1.cpp on one signal: 1024-sample
-    blocks (a partial last block keeps the previous block's stale tail), two
-    frames per block at hop 512 over [keep, block], the run's first frame
-    skipped (:95-97)."""
-    flat = np.concatenate([np.zeros(512, np.int16), _stale_blocks(x, 1024).reshape(-1)])
-    n = len(flat) // 512 - 1
-    frames = flat[np.arange(n)[:, None] * 512 + np.arange(1024)[None, :]]
-    feats = reference_mfcc_frames(frames)
-    return feats[1:] if skip_first else feats
-
-
-def reference_pitch_frames(frames, method):
-    """PitchEstimation_method{1,2,3}.cpp on (T, 1024) int16 frames [previous
-    block, block]: the autocorrelation by FFT (1), the AMDF (2) or the
-    direct autocorrelation (3) over lags 0..511, each lag's integer sum as
-    a double divided by 1024 - k (2, 3); the descending scan from 511 to 101
-    keeps the smallest lag at the extremum.  Returns lag, value, f0."""
-    u = frames.astype(np.int64)
-    if method == 1:
-        X = np.fft.fft(u.astype(np.float64), axis=1)
-        ac = np.fft.ifft(X.real ** 2 + X.imag ** 2, axis=1).real[:, :512]
-    else:
-        ac = np.stack([(np.abs(u[:, :1024 - k] - u[:, k:]) if method == 2
-                        else u[:, :1024 - k] * u[:, k:]).sum(1) / (1024 - k)
-                       for k in range(512)], 1)
-    sl = ac[:, 101:]
-    ext = sl.min(1) if method == 2 else sl.max(1)
-    lag = 101 + np.argmax(sl == ext[:, None], 1)
-    return lag, ext, FS / lag
-
-
-def reference_pitch(x, method):
-    """The pitch program on one signal: 512-sample blocks with stale tails,
-    frames [previous block, block]; nothing for an empty payload."""
-    blocks = _stale_blocks(x, 512)
-    if not len(blocks):
-        return np.zeros(0, np.int64), np.zeros(0), np.zeros(0)
-    prev = np.concatenate([np.zeros((1, 512), np.int16), blocks[:-1]])
-    return reference_pitch_frames(np.concatenate([prev, blocks], 1), method)
-
-
-def reference_score(frames, alpha, mean, cov, eig4):
-    """GMMAlgorithm_Test_Auto_ver2.cpp:151-236 on (N, 12) features: each
-    frame projected on a mixture's 4 eigenvectors, a diagonal Gaussian
-    product there, the mixtures weighted and summed, log; the mean over
-    frames.  Model in the test layout (projected mean in mean[k][:4],
-    variances on cov[k]'s diagonal)."""
-    s = 0.0
-    for k in range(4):
-        var = np.diagonal(cov[k])[:4]
-        with np.errstate(over="ignore", divide="ignore", invalid="ignore"):
-            terms = (1.0 / np.sqrt(2.0 * REF_PI)) * (1.0 / np.sqrt(var)) * np.exp(
-                -0.5 * (frames @ eig4[k] - mean[k][:4]) ** 2 / var)
-        s = s + alpha[k] * np.prod(terms, 1)
-    with np.errstate(divide="ignore"):
-        return float(np.mean(np.log(s)))
 
 
 def class_models(feats):
@@ -2039,49 +1590,30 @@ def time_features(P, feat, classify, card, sync):
     print(f"[5 profile] speech_classify under torch.profiler, ms per utterance: wall "
           f"{wall / n:.3f}, device busy {busy / n:.4f} (idle {100 * (1 - busy / wall):.1f}%); "
           f"kernels by device time: {top(kernels)}; host ops by self CPU time: {top(host)}")
-    clock_hz = card_clock_hz()
-    sms = torch.cuda.get_device_properties(frames.device).multi_processor_count
-    pairs = PITCH_T * sum(1024 - k for k in range(AMDF_LO, 512))
-    out10 = P.K10.mfcc_fused(prev, cur)
-    runs = {  # kernel, plain, bytes in + out, (operations, peak of their type), library call
-        # K10: the function's own work, the MFCC through a real FFT, not the dense DFT
-        # GEMM that the kernel runs
+    runs = {  # kernel, plain, its work (profiling.KERNELS), library call
         "K10": (lambda: P.K10.mfcc_fused(prev, cur), lambda: P.K10.mfcc_fused_plain(prev, cur),
-                nbytes(prev, cur, out10), (MFCC_FRAME_FLOPS * N, F32_OPS),
-                lambda: frames_f32 @ cs),
+                PROF.KERNELS["K10"](N), lambda: frames_f32 @ cs),
         "K11": (lambda: P.K11.amdf(frames, AMDF_LO), lambda: P.K11.amdf_plain(frames, AMDF_LO),
-                nbytes(frames) + PITCH_T * (512 - AMDF_LO) * 8,
-                (AMDF_PAIR_OPS * pairs, sms * SM_LANES_PER_CLOCK * clock_hz), None),
+                PROF.KERNELS["K11"](PITCH_T, AMDF_LO), None),
     }
     times = {}
-    for name, (kern, plain, nb, (ops, peak), lib) in runs.items():
+    for name, (kern, plain, work, lib) in runs.items():
         ms = median_ms(kern, sync)
         plain_ms = median_ms(plain, sync, reps=PLAIN_REPS)
         lib_ms = median_ms(lib, sync) if lib else None
-        b_ms, b_by = bound(nb, ops, peak)
+        b_ms, b_by, b_text = bound_line(work)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         n_samples = MFCC_T * 1024 if name == "K10" else PITCH_T * 512
         before = f" (previously {PREVIOUS_MS[name]:.3f} ms)" if name in PREVIOUS_MS else ""
         print(f"[5 timing] {name} at full size on {card}: kernel {ms:.3f} ms{before} = "
               f"{n_samples / (ms * 1e-3):.4g} samples/s; plain {plain_ms:.3f} ms; "
-              f"{'f32 matmul core %.3f ms' % lib_ms if lib_ms else 'library call: none'}; bound "
-              f"{b_ms:.4f} ms by {b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops)")
-    gemm_ms = 3 * 2 * N * 1024 * 1024 / BF16_OPS * 1e3
-    # the chunks K11 runs: every group's, its last one whole (PROC - k0 = 8 * chunks)
-    chunks = PITCH_T * sum((1024 - k0) // 8 for k0 in range(AMDF_LO, 512, 8))
-    waves = chunks * AMDF_CHUNK_WAVEFRONTS
-    print(f"[5 timing] the kernels' own formulations: K11 runs {chunks * AMDF_CHUNK_PAIRS:.4g} "
-          f"pairs ({chunks * AMDF_CHUNK_PAIRS / pairs - 1:.2%} past the function's, the "
-          f"triangles' pads), {AMDF_PAIR_OPS * AMDF_CHUNK_PAIRS} VIMNMX.S16x2 and IDP2A a chunk = "
-          f"{AMDF_PAIR_OPS * chunks * AMDF_CHUNK_PAIRS / (sms * SM_LANES_PER_CLOCK * clock_hz) * 1e3:.3f}"
-          f" ms at {SM_LANES_PER_CLOCK} lanes per SM per cycle; its shared loads two 16-byte "
-          f"loads a chunk ({8 / AMDF_CHUNK_PAIRS:.4f} words a pair), {waves:.4g} wavefronts = "
-          f"{waves / (sms * clock_hz) * 1e3:.3f} ms at one a cycle per SM; {clock_hz / 1e6:.0f} MHz")
+              f"{'f32 matmul core %.3f ms' % lib_ms if lib_ms else 'library call: none'}; "
+              f"{b_text}")
     win = torch.from_numpy(P.K4.rfft_constants()[P.K4.WINDOW:]).to(frames.device)
     pre = torch.cat([torch.zeros_like(frames_f32[:, :1]),
                      frames_f32[:, 1:] - P.F.PRE_EMPHASIS * frames_f32[:, :-1]], 1) * win
     times["K10"]["library_ms"] = fft_library_turns(
-        "K10", runs["K10"][0], runs["K10"][4], lambda: torch.fft.rfft(pre), gemm_ms, card, sync)
+        "K10", runs["K10"][0], runs["K10"][3], lambda: torch.fft.rfft(pre), card, sync)
     return times
 
 
@@ -2395,33 +1927,27 @@ def time_transforms(P, xc, xf, blocks, C, back_ins, card, sync):
     Yr, Yi = Xr * Hr - Xi * Hi, Xr * Hi + Xi * Hr
     Z = torch.complex(Yr, Yi)
     nseg = len(segs)
-    fft_flops = 5 * FC.FFT_SIZE * np.log2(FC.FFT_SIZE) * nseg
     fwd_ms = median_ms(lambda: K12.fft_pallas(segs, None, FC.FFT_SIZE, True), sync)
     ins13 = back_ins["K4"]
-    out13 = P.K13.enhance_back(*ins13, C, "wiener")
     w = P.E._vad_window(dev)
-    flags = P.K14.vad_flags(blocks, w)
-    dots = T_FULL * 512 * 512
-    runs = {  # kernel, plain version, bytes in + out, operations, peak, library call
+    runs = {  # kernel, plain version, its work (profiling.KERNELS), library call
         "K12": (lambda: K12.fft_pallas(Yr, Yi, FC.FFT_SIZE, False),
                 lambda: K12.fft_four_step(Yr, Yi, FC.FFT_SIZE, False),
-                nbytes(Yr, Yi, Xr, Xi), fft_flops, F32_OPS, lambda: torch.fft.fft(Z)),
+                PROF.KERNELS["K12"](nseg, FC.FFT_SIZE), lambda: torch.fft.fft(Z)),
         "K13": (lambda: P.K13.enhance_back(*ins13, C, "wiener"),
                 lambda: P.K13.enhance_back_plain(*ins13, C, "wiener"),
-                nbytes(*ins13, *(C[k] for k in P.K13.CONSTS), *out13),
-                3 * 2 * 2 * dots, TF32_OPS, gemm_cores(P, blocks, C, back_ins)["K5"]),
+                PROF.KERNELS["K13"](T_FULL), gemm_cores(P, blocks, C, back_ins)["K5"]),
         "K14": (lambda: P.K14.vad_flags(blocks, w), lambda: P.K2.vad_rows(blocks, w),
-                nbytes(blocks, w, flags), 6 * blocks.numel(), F32_OPS, None),
+                PROF.KERNELS["K14"](T_FULL), None),
     }
     times = {}
-    for name, (kern, plain, nb, ops, peak, lib) in runs.items():
+    for name, (kern, plain, work, lib) in runs.items():
         ms, plain_ms = median_ms(kern, sync), median_ms(plain, sync)
         lib_ms = median_ms(lib, sync) if lib else None
-        b_ms, b_by = bound(nb, ops, peak)
+        b_ms, b_by, b_text = bound_line(work)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         print(f"[5 timing] {name} alone on {card}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"library {'-' if lib_ms is None else '%.3f ms' % lib_ms}, bound {b_ms:.4f} ms by "
-              f"{b_by} ({nb / 1e6:.1f} MB, {ops:.3g} ops{tf32_note(ops, peak)})")
+              f"library {'-' if lib_ms is None else '%.3f ms' % lib_ms}, {b_text}")
     core = gemm_cores(P, blocks, C, back_ins)["K5"]
     for mode in MODES:  # K5 and K13 beside their f32 matmul core, in turns, both gains
         t = [median_ms(f, sync) for f in (
@@ -2440,25 +1966,23 @@ def time_transforms(P, xc, xf, blocks, C, back_ins, card, sync):
           f"{1 - busy / wall:.1%} (the wrapper's checks, the allocation and the ctypes launch); "
           f"a call in batches {times['K14']['ms']:.4f} ms (previously {PREVIOUS_MS['K14']:.3f})")
     print(f"[5 timing] K12 ({nseg}, {FC.FFT_SIZE}): the inverse above; the forward on real input "
-          f"{fwd_ms:.3f} ms (bound {bound(nbytes(segs, Xr, Xi), fft_flops, F32_OPS)[0]:.4f} ms); "
+          f"{fwd_ms:.3f} ms ({bound_line(PROF.KERNELS['K12'](nseg, FC.FFT_SIZE, True))[2]}); "
           f"library = torch.fft.fft on complex64")
     # K12 at the FFT program's shape, (16384, 512): forward on real blocks, inverse on their spectra
     fbf = fb.float()
     Fr, Fi = K12.fft_pallas(fbf, None, 512, True)
     Fz = torch.complex(Fr, Fi)
-    flops512 = 5 * 512 * 9 * FFT_T
-    for what, kern, plain, nb, lib in (
+    for what, kern, plain, real, lib in (
             ("forward, real input", lambda: K12.fft_pallas(fbf, None, 512, True),
-             lambda: K12.fft_four_step(fbf, None, 512, True), nbytes(fbf, Fr, Fi),
+             lambda: K12.fft_four_step(fbf, None, 512, True), True,
              lambda: torch.fft.fft(fbf)),
             ("inverse, complex input", lambda: K12.fft_pallas(Fr, Fi, 512, False),
-             lambda: K12.fft_four_step(Fr, Fi, 512, False), nbytes(Fr, Fi, Fr, Fi),
+             lambda: K12.fft_four_step(Fr, Fi, 512, False), False,
              lambda: torch.fft.ifft(Fz))):
         t = [median_ms(f, sync) for f in (kern, plain, lib)]
-        b_ms, b_by = bound(nb, flops512, F32_OPS)
         print(f"[5 timing] K12 ({FFT_T}, 512) {what} on {card}: kernel {t[0]:.4f} ms, plain "
-              f"{t[1]:.3f} ms, torch.fft {t[2]:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-              f"({nb / 1e6:.1f} MB)")
+              f"{t[1]:.3f} ms, torch.fft {t[2]:.4f} ms, "
+              f"{bound_line(PROF.KERNELS['K12'](FFT_T, 512, real))[2]}")
     return times
 
 
@@ -2470,8 +1994,6 @@ STREAM_RAGGED = (1, 3, 5, 7, 4, 11)  # chunk sizes in turn
 STREAM_CLI_CHUNK, STREAM_CLI_EVERY, STREAM_CLI_CRASH = 64, 8, 50
 MVDR_FLIPS = 0.01         # f64 against the reference: one step, on under 1% (tests/test_mvdr.py)
 MVDR_F32_DB, MVDR_COLLAPSE_DB = 60.0, 90.0
-MV_BLOCK, MV_KEEP, MV_FFT = 512, 511, 1024  # BeamForming_MVDR_ver1.cpp
-MV_THRESHOLD, MV_FS, MV_SPEED, MV_DIST = 700.0, 16000.0, 34000.0, 800.0
 
 
 def make_stereo(n, rng):
@@ -2482,73 +2004,6 @@ def make_stereo(n, rng):
     xl = np.clip(speech + rng.normal(0, 15, n), -32768, 32767).astype(np.int16)
     xr = np.clip(0.8 * speech + rng.normal(0, 15, n), -32768, 32767).astype(np.int16)
     return xl, xr
-
-
-def reference_mvdr(xl, xr, d_time=0.0):
-    """float64 numpy reference of BeamForming_MVDR_ver1.cpp (a copy of
-    jeicyboodsp_tpu/oracle/mvdr.py): 512-sample stereo blocks of the shorter
-    channel (stale tails), the left channel's energy VAD on [zeros(511), x,
-    0], a never-reset 2x2 correlation R summed from the unwindowed FFTs of
-    [previous noise block, block] once two noise blocks follow each other,
-    frames [keep(511), x, 0] whose keep is the current block's first 511
-    samples, weights R^-1 c / (c^H R^-1 c), the overwrite-sequencing quirk,
-    samples 511..1022 of the IFFT to short, written from the second block."""
-    w = 0.54 - 0.46 * np.cos(2.0 * REF_PI * np.arange(MV_FFT) / (MV_FFT - 1))
-    xl, xr = np.asarray(xl, np.int16), np.asarray(xr, np.int16)
-    n = min(len(xl), len(xr))
-    noise_cnt, count = 0, 0
-    temp_l, temp_r = np.zeros(MV_BLOCK, np.int16), np.zeros(MV_BLOCK, np.int16)
-    R = np.zeros((2, 2))
-    keep_l, keep_r = np.zeros(MV_KEEP), np.zeros(MV_KEEP)
-    prev_l, prev_r = np.zeros(MV_BLOCK, np.int16), np.zeros(MV_BLOCK, np.int16)
-    i = np.arange(MV_FFT)
-    ang = 2.0 * REF_PI * i * (MV_FS / MV_FFT) * d_time
-    c = np.stack([np.ones(MV_FFT, np.complex128), np.cos(ang) + 1j * np.sin(ang)])
-    out = []
-    for s in range(0, n, MV_BLOCK):
-        bl, br = xl[s: s + MV_BLOCK], xr[s: s + MV_BLOCK]
-        if len(bl) < MV_BLOCK:
-            bl = np.concatenate([bl, prev_l[len(bl):]])
-        if len(br) < MV_BLOCK:
-            br = np.concatenate([br, prev_r[len(br):]])
-        prev_l, prev_r = bl, br
-        frame = np.zeros(MV_FFT, np.int64)
-        frame[MV_KEEP: MV_KEEP + MV_BLOCK] = bl
-        if not np.sum(_c_short(frame * w).astype(np.float64) ** 2) / MV_FFT > MV_THRESHOLD:
-            noise_cnt += 1
-            if noise_cnt > 1:
-                L = np.fft.fft(np.concatenate([temp_l, bl]).astype(np.float64), MV_FFT)
-                Rt = np.fft.fft(np.concatenate([temp_r, br]).astype(np.float64), MV_FFT)
-                R[0, 0] += np.sum(L.real ** 2 + L.imag ** 2) / MV_FFT
-                R[0, 1] += np.sum(-L.real * Rt.imag + L.imag * Rt.real) / MV_FFT
-                R[1, 0] += np.sum(-Rt.real * L.imag + Rt.imag * L.real) / MV_FFT
-                R[1, 1] += np.sum(Rt.real ** 2 + Rt.imag ** 2) / MV_FFT
-            temp_l, temp_r = bl.copy(), br.copy()
-        else:
-            noise_cnt = 0
-        count += 1
-        frame_l, frame_r = np.zeros(MV_FFT), np.zeros(MV_FFT)
-        frame_l[:MV_KEEP], frame_r[:MV_KEEP] = keep_l, keep_r
-        frame_l[MV_KEEP: MV_KEEP + MV_BLOCK], frame_r[MV_KEEP: MV_KEEP + MV_BLOCK] = bl, br
-        L, Rf = np.fft.fft(frame_l), np.fft.fft(frame_r)
-        Rc = R.astype(np.complex128)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            det = Rc[0, 0] * Rc[1, 1] - Rc[0, 1] * Rc[1, 0]
-            Rinv = np.array([[Rc[1, 1], -Rc[0, 1]], [-Rc[1, 0], Rc[0, 0]]],
-                            dtype=np.complex128) / det
-            wv = Rinv @ c
-            wv = wv / (np.conj(c) * wv).sum(axis=0)
-        wl_r, wl_i, wr_r, wr_i = wv[0].real, -wv[0].imag, wv[1].real, -wv[1].imag
-        L0 = L.real * wl_r - L.imag * wl_i
-        L1 = L0 * wl_i + L.imag * wl_r
-        R0 = Rf.real * wr_r - Rf.imag * wr_i
-        R1 = R0 * wr_i + Rf.imag * wr_r
-        y = np.fft.ifft((L0 + R0) + 1j * (L1 + R1)).real
-        if count > 1:
-            out.append(_c_short(y[MV_KEEP: MV_KEEP + MV_BLOCK]))
-        keep_l = frame_l[MV_KEEP: 2 * MV_KEEP].copy()
-        keep_r = frame_r[MV_KEEP: 2 * MV_KEEP].copy()
-    return np.concatenate(out) if out else np.zeros(0, np.int16)
 
 
 def _session_run(sess, blocks, sizes):
@@ -2850,193 +2305,8 @@ def drive_mvdr(P, dev, card, sync):
 
 # ---- speech recognition: GMM training and classification, HMM decoding (no kernel but K10) ----
 
-GMM_FEATURE_LEN, GMM_MIXTURES, PCA_TRAIN, PCA_TEST = 12, 4, 8, 4
-KMEANS_THRESHOLD, EM_ITERATIONS, HMM_STATES = 1.0, 3, 6
 # bytes of a GMMParameter struct: alpha, mean, cov, eigvec (PCA_LEN 8 as trained, 4 as tested)
 TRAIN_STRUCT, TEST_STRUCT = 8 * (4 + 48 + 576 + 48 * PCA_TRAIN), 8 * (4 + 48 + 576 + 48 * PCA_TEST)
-
-
-class RefGMM:
-    """The C GMMParameter struct in the train layout (PCA_LEN 8)."""
-
-    def __init__(self):
-        self.alpha = np.zeros(GMM_MIXTURES)
-        self.mean = np.zeros((GMM_MIXTURES, GMM_FEATURE_LEN))
-        self.cov = np.zeros((GMM_MIXTURES, GMM_FEATURE_LEN, GMM_FEATURE_LEN))
-        self.eigvec = np.zeros((GMM_MIXTURES, GMM_FEATURE_LEN, PCA_TRAIN))
-
-
-def _ref_top_eigpairs(cov, k):
-    """Descending eigenpairs (a stable sort), NaN for a non-finite matrix."""
-    if not np.all(np.isfinite(cov)):
-        return np.full(k, np.nan), np.full((cov.shape[0], k), np.nan)
-    vals, vecs = np.linalg.eigh(cov)
-    order = np.argsort(-vals, kind="stable")
-    return vals[order[:k]], vecs[:, order[:k]]
-
-
-def reference_kmeans(frames, means):
-    """KmeansAlogorithm (GMMAlgorithm_Train_Auto_ver2.cpp:342-438): the
-    Selection matrix is never cleared, ties go to the last mixture, the loop
-    stops once the cost moves by less than 1.  Returns (means, covariances)."""
-    n = len(frames)
-    sel = np.zeros((n, GMM_MIXTURES), dtype=bool)
-    means = means.copy()
-    cost_before = 0.0
-    count = 0
-    while True:
-        count += 1
-        d = ((frames[:, None, :] - means[None, :, :]) ** 2).sum(axis=2)
-        arg = (GMM_MIXTURES - 1) - np.argmin(d[:, ::-1], axis=1)
-        sel[np.arange(n), arg] = True
-        cost = float((d * sel).sum())
-        if count == 1 or abs(cost - cost_before) >= KMEANS_THRESHOLD:
-            cost_before = cost
-        else:
-            covs = np.zeros((GMM_MIXTURES, GMM_FEATURE_LEN, GMM_FEATURE_LEN))
-            for j in range(GMM_MIXTURES):
-                idx = sel[:, j]
-                cnt = int(idx.sum())
-                diff = frames[idx] - means[j]
-                with np.errstate(invalid="ignore", divide="ignore"):
-                    covs[j] = (diff.T @ diff) / cnt
-            return means, covs
-        for j in range(GMM_MIXTURES):
-            cnt = int(sel[:, j].sum())
-            if cnt == 0:
-                means[j] = 0.0
-                continue
-            means[j] = frames[sel[:, j]].sum(axis=0) / cnt
-
-
-def reference_em_step(frames, p):
-    """One EM iteration (:263-337): top-8 PCA densities, responsibilities
-    divided by their unguarded sum, alpha and mean accumulated onto their
-    previous values."""
-    n = len(frames)
-    probs = np.zeros((n, GMM_MIXTURES))
-    for k in range(GMM_MIXTURES):
-        vals, vecs = _ref_top_eigpairs(p.cov[k], PCA_TRAIN)
-        xp = frames @ vecs
-        mp = p.mean[k] @ vecs
-        with np.errstate(invalid="ignore", divide="ignore"):
-            terms = (1.0 / np.sqrt(2.0 * REF_PI)) * (1.0 / np.sqrt(vals)) * np.exp(
-                -0.5 * (xp - mp) ** 2 / vals
-            )
-        probs[:, k] = np.prod(terms, axis=1)
-    w = probs * p.alpha[None, :]
-    with np.errstate(invalid="ignore"):
-        w = w / w.sum(axis=1, keepdims=True)
-    n_of_key = p.alpha + w.sum(axis=0)
-    p.alpha = n_of_key / n
-    p.mean = (p.mean + w.T @ frames) / n_of_key[:, None]
-    for k in range(GMM_MIXTURES):
-        diff = frames - p.mean[k]
-        p.cov[k] = (diff * w[:, k : k + 1]).T @ diff / n_of_key[k]
-
-
-def reference_pca_export(p):
-    """PCADiagonalizeCovarianceMatrix (:456-519), in place: the projected
-    mean in mean[:8], covariance rows 0-7 zeroed with the eigenvalues on the
-    diagonal, rows 8-11 stale."""
-    for k in range(GMM_MIXTURES):
-        vals, vecs = _ref_top_eigpairs(p.cov[k], PCA_TRAIN)
-        proj_mean = p.mean[k] @ vecs
-        p.mean[k] = 0.0
-        p.mean[k][:PCA_TRAIN] = proj_mean
-        for i in range(PCA_TRAIN):
-            p.cov[k][i] = 0.0
-            p.cov[k][i][i] = vals[i]
-        p.eigvec[k] = vecs
-
-
-def reference_train_class(files):
-    """One class over its feature arrays: means seeded from frames 0, 4, 8,
-    12, k-means, alpha 1/4, EM_ITERATIONS EM steps a file, the PCA export."""
-    p = RefGMM()
-    first = files[0]
-    for j in range(GMM_MIXTURES):
-        p.mean[j] = first[j * 4]
-    p.mean, p.cov = reference_kmeans(first, p.mean)
-    p.alpha[:] = 1.0 / GMM_MIXTURES
-    for frames in files:
-        for _ in range(EM_ITERATIONS):
-            reference_em_step(frames, p)
-    reference_pca_export(p)
-    return p
-
-
-def reference_score_file(frames, alpha, mean, cov_diag4, eigvec4):
-    """GMMAlgorithm_Test_Auto_ver2.cpp:151-236 frame by frame: the PCA-4
-    diagonal Gaussian of each mixture, weighted and summed, log (unguarded),
-    the mean over frames."""
-    total = 0.0
-    for x in frames:
-        s = 0.0
-        for k in range(GMM_MIXTURES):
-            xp = x @ eigvec4[k]
-            with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
-                terms = (
-                    (1.0 / np.sqrt(2.0 * REF_PI))
-                    * (1.0 / np.sqrt(cov_diag4[k]))
-                    * np.exp(-0.5 * (xp - mean[k][:PCA_TEST]) ** 2 / cov_diag4[k])
-                )
-            s += alpha[k] * float(np.prod(terms))
-        with np.errstate(divide="ignore"):
-            total += np.log(s)
-    return total / len(frames)
-
-
-def reference_gmm_emission(x, alpha, mean, cov_diag4, eigvec4):
-    """Viterbi_version1.cpp:248-267: the mixtures' PCA-4 diagonal Gaussians,
-    weighted and summed."""
-    s = 0.0
-    for k in range(GMM_MIXTURES):
-        xp = x @ eigvec4[k]
-        with np.errstate(invalid="ignore", divide="ignore"):
-            terms = (
-                (1.0 / np.sqrt(2.0 * REF_PI))
-                * (1.0 / np.sqrt(cov_diag4[k]))
-                * np.exp(-0.5 * (xp - mean[k][:PCA_TEST]) ** 2 / cov_diag4[k])
-            )
-        s += alpha[k] * float(np.prod(terms))
-    return s
-
-
-def reference_hmm_decode(frames, states, trans, bests=None):
-    """HMMRecognition (Viterbi_version1.cpp:157-246) with its quirks: the
-    log of the already-log accumulated value (NaN through C's comparisons),
-    the per-time argmax re-found instead of a backtrace, path[0] never
-    written, the score read at t = 1.  ``states``: 6 (alpha, mean,
-    cov_diag4, eigvec4).  Returns (path (T-1,), score); a list ``bests``
-    receives the value printed at each step t = T-1..1 (:222)."""
-    T = len(frames)
-    P = np.zeros((HMM_STATES, T))
-    with np.errstate(invalid="ignore", divide="ignore"):
-        for m in range(HMM_STATES):
-            P[m, 0] = np.log(reference_gmm_emission(frames[0], *states[m])) + np.log(1.0 / HMM_STATES)
-        for t in range(1, T):
-            for m in range(HMM_STATES):
-                emis = reference_gmm_emission(frames[t], *states[m])
-                for u in range(HMM_STATES):
-                    cand = np.log(P[u, t - 1]) + np.log(trans[u, m]) + np.log(emis)
-                    if u == 0:
-                        P[m, t] = cand
-                    elif P[m, t] < cand:
-                        P[m, t] = cand
-    path = np.zeros(max(T - 1, 0), dtype=np.int64)
-    score = 0.0
-    for t in range(T - 1, 0, -1):
-        best, arg = P[0, t], 0
-        for m in range(1, HMM_STATES):
-            if P[m, t] > best:
-                best, arg = P[m, t], m
-        score = best
-        if bests is not None:
-            bests.append(best)
-        if t <= T - 2:
-            path[t] = arg
-    return path, score
 
 
 GMM_C, GMM_F = 25, 512    # classes x frames of the training corpus (bench/all_configs.py:938)
@@ -3062,21 +2332,6 @@ def synth_class(seed, n):
     sub = center + r.normal(0, 4.0, (4, 12))
     ids = (np.arange(n) // 4) % 4
     return sub[ids] + r.normal(0, 0.5, (n, 12))
-
-
-def reference_read_models(path, n, stride, pca):
-    """n GMM structs read at fixed ``stride`` bytes (zeros past the end, as
-    fread leaves them): alpha, mean, the 4 leading diagonal entries of cov,
-    eigvec[..., :4]."""
-    with open(path, "rb") as f:
-        data = f.read()
-    out = []
-    for i in range(n):
-        a = np.frombuffer(data[i * stride:(i + 1) * stride].ljust(stride, b"\0"), "<f8")
-        cov = a[52:628].reshape(4, 12, 12)
-        out.append((a[:4], a[4:52].reshape(4, 12), np.stack([np.diag(c)[:4] for c in cov]),
-                    a[628:628 + 48 * pca].reshape(4, 12, pca)[..., :4]))
-    return out
 
 
 def _c_argmax(scores):
@@ -3116,24 +2371,6 @@ def _check_trained(what, got, refs):
 
 def _same_value(got, want, rtol, atol=0.0):
     return (np.isnan(got) and np.isnan(want)) or abs(got - want) <= atol + rtol * abs(want)
-
-
-def reference_forward(frames, alpha, mean, cov, eigvec, trans):
-    """float64 forward values (T, 6) of the corrected Viterbi: P[0] = log
-    emis[0] + log(1/6), P[t][m] = max_u (P[t-1][u] + log trans[u, m]) +
-    log emis[t][m], the emissions as reference_gmm_emission's, vectorized."""
-    var = np.diagonal(cov, axis1=-2, axis2=-1)[..., None, :4]
-    xp = np.einsum("ti,skij->sktj", frames, eigvec[..., :4])
-    with np.errstate(divide="ignore", under="ignore"):
-        terms = (1.0 / np.sqrt(2.0 * REF_PI)) * (1.0 / np.sqrt(var)) * np.exp(
-            -0.5 * (xp - mean[..., None, :4]) ** 2 / var)
-        le = np.log((alpha[..., None] * np.prod(terms, -1)).sum(1)).T  # (T, 6)
-        lt = np.log(trans)
-    P = np.zeros_like(le)
-    P[0] = le[0] + np.log(1.0 / HMM_STATES)
-    for t in range(1, len(le)):
-        P[t] = np.max(P[t - 1][:, None] + lt, 0) + le[t]
-    return P
 
 
 def bench_hmm(rng):
@@ -3641,7 +2878,7 @@ def drive_aec_fast(P, dev, aec, sync):
         _aec_floors(f"{kind} --fast CLI on the echo probe", zip(want, got))
     traj = []
     nb = -(-len(px) // 1024)
-    ve, verr = reference_nlms_blocks(_stale_blocks(px, 1024)[:nb], _stale_blocks(pr, 1024)[:nb],
+    ve, verr = reference_nlms_blocks(stale_blocks(px, 1024)[:nb], stale_blocks(pr, 1024)[:nb],
                                      traj)
     want = "".join("rgsdCoefficient[0] %f, rgsdCoefficient[1] %f, rgsdCoefficient[2] %f \n" % c
                    for c in traj)
@@ -3678,27 +2915,22 @@ def time_aec_fast(P, aec, card, sync):
     runs = {
         "K8f32": (lambda: P.K8.nlms_f32(x, r), lambda: P.K8.nlms(x, r),
                   lambda: P.K8.nlms_f32_plain(cut(x, "K8"), cut(r, "K8"), *st8), "K8",
-                  nbytes(x, r, *st8, x, r, *st8),
-                  (511 + 5 + 2 * 256) * n_aec),  # the dot, d and g, the update
+                  PROF.KERNELS["K8f32"](AEC_B, AEC_T)),
         "K9f32": (lambda: P.K9.bnlms_f32(x, r, gates), lambda: P.K9.bnlms(x, r, gates),
                   lambda: P.K9.bnlms_f32_plain(cut(x, "K9"), cut(r, "K9"), cut(gates, "K9"),
                                                *st9), "K9",
-                  nbytes(x, r, gates, *st9, x, r, *st9),
-                  # the dot (2 per tap and sample); per open gate d and g (4 per sample),
-                  # the gradient (2 per tap and sample) and the update (2 per tap)
-                  2 * 128 * n_aec + n_open * (1024 * (2 * 128 + 4) + 2 * 128)),
+                  PROF.KERNELS["K9f32"](AEC_B, AEC_T, n_open)),
     }
     times = {}
-    for name, (kern, f64_kern, plain, base, nb, ops) in runs.items():
+    for name, (kern, f64_kern, plain, base, work) in runs.items():
         ms = median_ms(kern, sync)
         ms64 = median_ms(f64_kern, sync, reps=3)
         plain_ms = median_ms(plain, sync, reps=PLAIN_REPS)
-        b_ms, b_by = bound(nb, ops, F32_OPS)
+        b_ms, b_by, b_text = bound_line(work)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
         print(f"[5 timing] {name} {AEC_B}x{AEC_T} on {card}: kernel {ms:.3f} ms = "
               f"{n_aec / (ms * 1e-3):.4g} samples/s; the f64 instance {ms64:.3f} ms; plain "
-              f"{plain_ms:.3f} ms at T={PLAIN_TIME_T[base]}; bound {b_ms:.4f} ms by {b_by} "
-              f"({nb / 1e6:.1f} MB, {ops:.3g} f32 ops); library call: none")
+              f"{plain_ms:.3f} ms at T={PLAIN_TIME_T[base]}; {b_text}; library call: none")
     print(f"[5 timing] K9 f32 resident blocks per SM ({P.K9.THREADS} threads a block): "
           f"{P.K9.occupancy(dev, f32)} (f64 instance {P.K9.occupancy(dev)})")
     nz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in N.nlms_init_state(f32).items()}
@@ -4120,6 +3352,23 @@ def drive_parallel(P, dev, x_full, aec, tp, geq, geq_fast, card, sync):
     return sum(k14.values()), k10
 
 
+def drive_checks(card):
+    """The reference contracts on the card: ``utils.gpu_checks.run_checks``
+    (JAX's ``tpu_checks`` probes through the port's entry points against the
+    oracles), its dict printed as one JSON object on a line of its own and
+    the launches it made per kernel; fails unless ``all_ok``."""
+    from jeicyboodsp_tpu_torch.utils import gpu_checks
+
+    launched = {}
+    t0 = time.perf_counter()
+    res = gpu_checks.run_checks("cuda", launched)
+    secs = time.perf_counter() - t0
+    print(f"[3 checks] run_checks('cuda') on {card}: {json.dumps(res)}")
+    print(f"[3 checks] {secs:.1f} s; launches per kernel {launched}")
+    if not res["all_ok"]:
+        raise RuntimeError(f"run_checks: a contract failed: {res}")
+
+
 SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (file:line)
     "K1": ("enhance_full8", "enhance_full8.cu", "enhance_pallas.py:737"),
     "K2": ("enhance_fwd_int8", "enhance_mxu8.cu", "enhance_pallas.py:217"),
@@ -4187,6 +3436,7 @@ def main() -> int:
     err.update(check_features(P, feat, sync))
     xc, xf = transform_inputs()
     err.update(check_transforms(P, xc, xf, blocks, C, back_ins, sync))
+    drive_checks(card)
     cases = {"probe": probe, "full": x_full, "partial": probe[: T_PROBE * 512 - 100],
              "empty": probe[:0]}
     refs = {(c, m): reference_enhance(x, m) for c, x in cases.items() for m in MODES}

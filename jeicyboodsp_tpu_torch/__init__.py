@@ -25,8 +25,14 @@ found at the same path:
                 exchange and sharded scans, every sharded path of the JAX
                 package and the sharded speech pipeline.
 - ``config``    the engines' fidelity floors and the programs' configurations.
+- ``oracle``    the programs' float64 references (numpy only), held
+                byte-identical to the JAX package's oracles.
 - ``utils``     C-numeric emulation (``c_short``), SNR and the metrics
-                registry, the entry device.
+                registry, the entry device; ``gpu_checks.run_checks`` (the
+                reference contracts through the kernels on a card, or their
+                plain versions on the CPU: ``run_checks("cpu")``),
+                ``profiling`` (``trace``, the H100 rooflines, each kernel's
+                work in ``KERNELS``), ``debug`` (NaN and inf guards).
 
 The package imports torch and numpy only: never jax, never
 ``jeicyboodsp_tpu``.  Ported so far: the Wiener / spectral-subtraction chain
@@ -41,8 +47,11 @@ resumable ``stream`` pipeline); speech recognition (GMM training with the
 reference's model files, HMM/Viterbi decoding, ``speech_train`` and
 ``speech_decode``) and the AWGN harness, as torch ops; the sharded paths
 over ``torch.distributed``, the sharded speech pipeline (training,
-classification through K10, decoding) among them.  Every TPU kernel of the
-JAX package has its counterpart here.
+classification through K10, decoding) among them; the one-pass bf16
+enhancement engine ``mxu1``, below the 60 dB bar and not on the CLI.  Every
+TPU kernel of the JAX package has its counterpart here, and every module
+but ``native.py`` (a host fallback for the recursions K6, K8, K9 run) and
+the TPU benchmark.
 """
 
 __version__ = "0.1.0"

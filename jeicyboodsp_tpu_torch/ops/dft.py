@@ -7,11 +7,18 @@ The bases stay f32-rounded numpy constants, as the JAX package makes them.
 
 Precision tiers.  The JAX package names its matmul-DFT engines by the TPU
 precision they ask for (``mxu`` HIGHEST, ``mxu3`` HIGH, ``mxu8`` the int8
-kernels' class).  Here every ``mxu*`` tier outside a kernel is one
-``torch.matmul`` in the data's dtype, full f32 for f32 data: PyTorch runs
-f32 matmuls without TF32 unless ``torch.backends.cuda.matmul.allow_tf32``
-is set, and the port never sets it.  In f64 the bases are the f32 values
-cast up, which is what JAX's ``jnp.dot(f64 data, f32 constant)`` computes.
+kernels' class, ``mxu1`` DEFAULT).  Here every ``mxu*`` tier outside a
+kernel but ``mxu1`` is one ``torch.matmul`` in the data's dtype, full f32
+for f32 data: PyTorch runs f32 matmuls without TF32 unless
+``torch.backends.cuda.matmul.allow_tf32`` is set, and the port never sets
+it.  ``mxu1`` is DEFAULT's one pass (:func:`matmul`): both operands rounded
+to bfloat16, then multiplied and summed in the data's dtype -- each product
+of two bf16 values is exact in f32, so the f32 matmul of the rounded
+operands is that pass, summed in f32 (a bf16 ``torch.matmul`` would round
+its output to bf16 as well).  It lands below the 60 dB compat bar
+(``config.ENGINE_FIDELITY``) and no CLI reaches it.  In f64 the bases are
+the f32 values cast up, which is what JAX's ``jnp.dot(f64 data, f32
+constant)`` computes.
 """
 
 from __future__ import annotations
@@ -81,15 +88,24 @@ def _autocorr_mats(n: int, keep: int):
     return (wk * np.cos(ang) / n).astype(np.float32)
 
 
+def matmul(a, b, fft_engine: str = "mxu"):
+    """``a @ b`` at the precision tier of ``fft_engine``: ``mxu1`` rounds
+    both operands to bfloat16 (to nearest even) first; every other tier
+    multiplies them as given."""
+    if fft_engine == "mxu1":
+        a, b = (t.to(torch.bfloat16).to(t.dtype) for t in (a, b))
+    return a @ b
+
+
 def const(a, like):
     """The numpy constant ``a`` as a tensor of ``like``'s dtype and device."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=like.device, dtype=like.dtype)
 
 
-def rdft(x):
+def rdft(x, fft_engine: str = "mxu"):
     """Real (..., n) -> half-spectrum (re, im) each (..., n//2+1)."""
     C, S = _rdft_mats(x.shape[-1])
-    return x @ const(C, x), x @ const(S, x)
+    return matmul(x, const(C, x), fft_engine), matmul(x, const(S, x), fft_engine)
 
 
 def irdft(re, im, n: int):
@@ -104,15 +120,15 @@ def full_from_half(re, im):
     return (torch.cat([re, re[..., mirror]], -1), torch.cat([im, -im[..., mirror]], -1))
 
 
-def cdft_of_real_full(x):
+def cdft_of_real_full(x, fft_engine: str = "mxu"):
     """Real (..., n) -> full n-bin spectrum (re, im): fft(x) for real x."""
-    return full_from_half(*rdft(x))
+    return full_from_half(*rdft(x, fft_engine))
 
 
-def icdft_real(re, im):
+def icdft_real(re, im, fft_engine: str = "mxu"):
     """Full-bin (re, im) (..., n) -> ifft(..).real (..., n), no symmetry assumed."""
     IC, IS = _icdft_real_mats(re.shape[-1])
-    return re @ const(IC, re) - im @ const(IS, re)
+    return matmul(re, const(IC, re), fft_engine) - matmul(im, const(IS, re), fft_engine)
 
 
 def autocorr_from_half_power(p_half, n: int, keep: int):

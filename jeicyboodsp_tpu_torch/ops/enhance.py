@@ -10,8 +10,10 @@ Counterpart of ``jeicyboodsp_tpu/ops/enhance.py``, with its
   :func:`_noise_scan` (or its log-depth form :func:`_noise_assoc_scan`),
   the gain with trig or ratio resynthesis and the OLA, all as torch ops in
   ``dtype`` -- plain XLA in the JAX package, so torch ops on the card here;
-- ``mxu`` with ratio resynthesis: the 512-aligned matmul DFT with the
-  closed-form noise latch (:func:`_enhance_fast_mxu`);
+- ``mxu`` and ``mxu1`` with ratio resynthesis: the 512-aligned matmul DFT
+  with the closed-form noise latch (:func:`_enhance_fast_mxu`), ``mxu1`` at
+  the one-pass bf16 tier of :func:`~jeicyboodsp_tpu_torch.ops.dft.matmul`
+  (below the 60 dB bar; no CLI reaches it, as in the JAX package);
 - the four fused engines, f32 whatever ``dtype``, through kernels whose
   wrappers launch hand-written CUDA kernels on a CUDA tensor and their
   plain versions on a CPU tensor:
@@ -49,7 +51,7 @@ from jeicyboodsp_tpu_torch.kernels.enhance_full8 import (
 from jeicyboodsp_tpu_torch.kernels.enhance_fwd import enhance_fwd, rfft_constants
 from jeicyboodsp_tpu_torch.kernels.enhance_fwd_int8 import enhance_fwd_int8
 from jeicyboodsp_tpu_torch.kernels.vad_flags import vad_flags as vad_kernel
-from jeicyboodsp_tpu_torch.ops.dft import const, int8_col_split
+from jeicyboodsp_tpu_torch.ops.dft import const, int8_col_split, matmul
 from jeicyboodsp_tpu_torch.utils.cnum import REF_PI, c_short, hamming_ref
 from jeicyboodsp_tpu_torch.utils.device import entry_device
 from jeicyboodsp_tpu_torch.utils.scan import associative_scan
@@ -58,7 +60,7 @@ BLOCK_LEN = 512
 FFT_SIZE = 1024
 NOISE_FRAMES = 10
 ENGINES = ("mxu8f", "mxu8t", "mxu8", "mxu3")  # the fused engines, each a chain of kernels
-ALL_ENGINES = ("xla", "mxu", "mxu3", "mxu8", "mxu8f", "mxu8t")
+ALL_ENGINES = ("xla", "mxu", "mxu1", "mxu3", "mxu8", "mxu8f", "mxu8t")
 
 
 @functools.lru_cache(maxsize=4)
@@ -488,14 +490,14 @@ def frame_transform(frames, dtype, real_fft: bool = False, fft_engine: str = "xl
     ``real_fft`` computes only the 513 non-redundant bins (the input is
     real).  An ``mxu*`` engine evaluates the 513-bin DFT as two matmuls
     with the f32 bases of :func:`_dft_matrices` in ``dtype`` (full f32 on a
-    card: the port never enables TF32).
+    card: the port never enables TF32; ``mxu1`` at its bf16 tier).
     """
     w = hamming_ref(FFT_SIZE, dtype, frames.device)
     windowed = frames.to(dtype) * w
     if fft_engine.startswith("mxu"):
         fwd_re, fwd_im, _, _ = _dft_matrices()
-        return torch.complex(windowed @ const(fwd_re, windowed),
-                             windowed @ const(fwd_im, windowed))
+        return torch.complex(matmul(windowed, const(fwd_re, windowed), fft_engine),
+                             matmul(windowed, const(fwd_im, windowed), fft_engine))
     if real_fft:
         return torch.fft.rfft(windowed)
     ctype = torch.complex128 if dtype == torch.float64 else torch.complex64
@@ -531,7 +533,8 @@ def gain_and_resynth(X, ns, mode: str, real_fft: bool = False, resynth: str = "t
         Y = torch.complex(amp * torch.cos(phase), amp * torch.sin(phase)).to(X.dtype)
     if fft_engine.startswith("mxu"):
         _, _, inv_re, inv_im = _dft_matrices()
-        return Y.real @ const(inv_re, Y.real) - Y.imag @ const(inv_im, Y.real)
+        return (matmul(Y.real, const(inv_re, Y.real), fft_engine)
+                - matmul(Y.imag, const(inv_im, Y.real), fft_engine))
     if real_fft:
         return torch.fft.irfft(Y, FFT_SIZE)
     return torch.fft.ifft(Y).real
@@ -560,17 +563,22 @@ def _frames(blocks):
     return torch.cat([prev, blocks], 1)
 
 
-def _enhance_fast_mxu(blocks, mode, dtype, emit_all):
-    """Engine ``mxu`` (JAX ``_enhance_fast_mxu``, its plain branch): the
-    512-aligned matmul DFT with the window folded into the bases, the
-    closed-form noise latch, ratio resynthesis and the symmetry-halved
-    inverse, as torch ops in ``dtype``; the latch through the
+def _enhance_fast_mxu(blocks, mode, dtype, emit_all, fft_engine="mxu"):
+    """Engines ``mxu`` and ``mxu1`` (JAX ``_enhance_fast_mxu``, its plain
+    branch): the 512-aligned matmul DFT with the window folded into the
+    bases, the closed-form noise latch, ratio resynthesis and the
+    symmetry-halved inverse, as torch ops in ``dtype``, every product at the
+    tier of ``fft_engine``; the latch through the
     :func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.noise_latch` wrapper
     in f32."""
     frames = _frames(blocks).to(dtype)  # the window is folded into WC/WS/nyq
     M = {k: const(v, frames) for k, v in _dft_mats_aligned().items()}
-    re, im = frames @ M["WC"], frames @ M["WS"]
-    re_n = frames @ M["nyq"]  # (T,) Nyquist (im == 0)
+
+    def mm(a, b):
+        return matmul(a, b, fft_engine)
+
+    re, im = mm(frames, M["WC"]), mm(frames, M["WS"])
+    re_n = mm(frames, M["nyq"])  # (T,) Nyquist (im == 0)
     P512 = re * re + im * im
     mag512 = torch.sqrt(P512)
     mag_n = re_n.abs()
@@ -586,9 +594,9 @@ def _enhance_fast_mxu(blocks, mode, dtype, emit_all):
         g512 = (mag512 - ns512) / mag512
         g_n = (mag_n - ns_n) / mag_n
     Yre, Yim, Yre_n = re * g512, im * g512, re_n * g_n
-    u = Yre @ M["UC512"] + Yre_n[:, None] * M["u_nyq"]
-    v = Yim @ M["VS512"]
-    y512 = Yre @ M["y512col"][:BLOCK_LEN] + Yre_n * M["y512col"][BLOCK_LEN]
+    u = mm(Yre, M["UC512"]) + Yre_n[:, None] * M["u_nyq"]
+    v = mm(Yim, M["VS512"])
+    y512 = mm(Yre, M["y512col"][:BLOCK_LEN]) + Yre_n * M["y512col"][BLOCK_LEN]
     tail = torch.cat([y512[:, None], (u + v)[:, 1:].flip(1)], 1)  # y[512:1024]
     return _ola(u - v, tail, emit_all)
 
@@ -603,7 +611,8 @@ def enhance_blocks(blocks, mode: str = "wiener", dtype=torch.float64,
     ``mxu8f`` int8, the whole chain in one kernel; ``mxu8t`` the same with
     the turbo inverse; ``mxu8`` int8, forward and back kernels around the
     latch; ``mxu3`` the same in f32 (these four are f32 kernels whatever
-    ``dtype``); ``mxu`` the plain matmul path in ``dtype``.  Anything else
+    ``dtype``); ``mxu`` the plain matmul path in ``dtype``, ``mxu1`` the
+    same at the one-pass bf16 tier.  Anything else
     runs the generic path in ``dtype``: the frame transform, the VAD, the
     sequential noise scan (``use_assoc_scan``: its log-depth form), the
     gain with ``resynth`` and the OLA.
@@ -617,8 +626,8 @@ def enhance_blocks(blocks, mode: str = "wiener", dtype=torch.float64,
     if fft_engine not in ALL_ENGINES:
         raise ValueError(f"fft_engine must be one of {ALL_ENGINES}, got {fft_engine!r}")
     if fft_engine.startswith("mxu") and resynth == "ratio":
-        if fft_engine == "mxu":
-            return _enhance_fast_mxu(blocks, mode, dtype, emit_all)
+        if fft_engine in ("mxu", "mxu1"):
+            return _enhance_fast_mxu(blocks, mode, dtype, emit_all, fft_engine)
         if fft_engine in ("mxu8f", "mxu8t"):
             return _enhance_fused_full(blocks, mode, emit_all, hq=(fft_engine == "mxu8f"))
         return _enhance_fused3(blocks, mode, emit_all, int8=(fft_engine == "mxu8"))

@@ -148,14 +148,15 @@ def mfcc_frames(frames, mel_m, dct_m, dtype=torch.float64, fft_engine: str = "xl
 
     Each frame is [x[i-1] history ... current] as framed by the caller; the
     pre-emphasis + window + DFT + mel + DCT pipeline matches the oracle.
-    ``mxu*`` engines run the DFT as matmuls (:func:`.dft.rdft`); ``xla``
-    runs ``torch.fft`` (complex128 in f64, ``rfft`` in f32).
+    ``mxu*`` engines run the DFT as matmuls (:func:`.dft.rdft`, ``mxu1`` at
+    its bf16 tier); ``xla`` runs ``torch.fft`` (complex128 in f64, ``rfft``
+    in f32).
     """
     f = frames.to(dtype)
     pre = torch.cat([torch.zeros_like(f[:, :1]), f[:, 1:] - PRE_EMPHASIS * f[:, :-1]], 1)
     windowed = pre * hamming_ref(WINDOW_LEN, dtype).to(f.device)  # built on the host: exact division
     if fft_engine.startswith("mxu"):
-        re, im = dft.rdft(windowed)
+        re, im = dft.rdft(windowed, fft_engine)
         xr, xi = re[:, :KEEP_LEN], im[:, :KEEP_LEN]
     else:
         X = (torch.fft.fft(windowed.to(torch.complex128)) if dtype == torch.float64
@@ -289,7 +290,10 @@ def pitch_frames(frames, method: int = 1, dtype=torch.float64, fft_engine: str =
     elif method == 1:
         u = frames.to(dtype)
         if fft_engine.startswith("mxu"):
-            re, im = dft.rdft(u)  # Wiener-Khinchin: half-bin power -> one cosine matmul
+            # Wiener-Khinchin: half-bin power -> one cosine matmul, in full precision
+            # whatever the engine (mxu1 too), as JAX asks HIGHEST here: the lag is an
+            # argmax over near-equal period-multiple peaks
+            re, im = dft.rdft(u)
             ac = dft.autocorr_from_half_power(re ** 2 + im ** 2, PROC, BLOCK)
         else:
             ctype = torch.complex128 if dtype == torch.float64 else torch.complex64

@@ -107,10 +107,11 @@ def beamform(Lr, Li, Rr, Ri, w0, w1):
     return L0 + R0, L1 + R1
 
 
-def _spectrum(x, ctype, mxu):
-    """(re, im) of the full 1024-bin DFT of real rows x."""
-    if mxu:
-        return D.cdft_of_real_full(x)
+def _spectrum(x, ctype, fft_engine):
+    """(re, im) of the full 1024-bin DFT of real rows x: for an ``mxu*``
+    engine the matmul DFT at its tier, else ``torch.fft``."""
+    if fft_engine.startswith("mxu"):
+        return D.cdft_of_real_full(x, fft_engine)
     X = torch.fft.fft(x.to(ctype))
     return X.real, X.imag
 
@@ -149,16 +150,18 @@ def mvdr_blocks(blocks_l, blocks_r, d_time: float = 0.0, dtype=torch.float64,
         y = w0[:, None] * blocks_l.to(dtype) + w1[:, None] * blocks_r.to(dtype)
         return c_short(y), write_mask
 
-    Lfr, Lfi = _spectrum(pairs_l, ctype, use_mxu)
-    Rfr, Rfi = _spectrum(pairs_r, ctype, use_mxu)
+    Lfr, Lfi = _spectrum(pairs_l, ctype, fft_engine)
+    Rfr, Rfi = _spectrum(pairs_r, ctype, fft_engine)
     R = torch.cumsum(covariance_terms(Lfr, Lfi, Rfr, Rfi) * acc_f[:, None], 0)  # (T, 4)
     w0, w1 = mvdr_weights(R, torch.arange(FFT_LEN, device=blocks_l.device), d_time, dtype)
 
-    Lr, Li = _spectrum(analysis_frames(previous_blocks(blocks_l), blocks_l, dtype), ctype, use_mxu)
-    Rr, Ri = _spectrum(analysis_frames(previous_blocks(blocks_r), blocks_r, dtype), ctype, use_mxu)
+    frames_l = analysis_frames(previous_blocks(blocks_l), blocks_l, dtype)
+    frames_r = analysis_frames(previous_blocks(blocks_r), blocks_r, dtype)
+    Lr, Li = _spectrum(frames_l, ctype, fft_engine)
+    Rr, Ri = _spectrum(frames_r, ctype, fft_engine)
     re, im = beamform(Lr, Li, Rr, Ri, w0, w1)
     if use_mxu:  # the merged spectrum is not Hermitian: the full-bin real-part inverse
-        y = D.icdft_real(re, im)
+        y = D.icdft_real(re, im, fft_engine)
     else:
         y = torch.fft.ifft(torch.complex(re, im)).real
     return c_short(y[:, KEEP_LEN: KEEP_LEN + BLOCK_LEN]), write_mask

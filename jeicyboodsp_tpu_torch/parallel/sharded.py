@@ -248,14 +248,14 @@ def mvdr_local(local_l, local_r, group, d_time=0.0, dtype=torch.float64):
         E.runlen_combine, (noise.to(torch.int32), noise), group,
         (torch.zeros((), dtype=torch.int32), torch.ones((), dtype=torch.bool)))
     accumulate = noise & (cnt >= 2)
-    Lfr, Lfi = MV._spectrum(torch.cat([prev_l, local_l], 1).to(dtype), ctype, False)
-    Rfr, Rfi = MV._spectrum(torch.cat([prev_r, local_r], 1).to(dtype), ctype, False)
+    Lfr, Lfi = MV._spectrum(torch.cat([prev_l, local_l], 1).to(dtype), ctype, "xla")
+    Rfr, Rfi = MV._spectrum(torch.cat([prev_r, local_r], 1).to(dtype), ctype, "xla")
     contrib = MV.covariance_terms(Lfr, Lfi, Rfr, Rfi) * accumulate[:, None].to(dtype)
     (R,), _ = sharded_associative_scan(lambda l, r: (l[0] + r[0],), (contrib,), group,
                                        (torch.zeros(4, dtype=dtype),))
     w0, w1 = MV.mvdr_weights(R, torch.arange(MV.FFT_LEN, device=local_l.device), d_time, dtype)
-    Lr, Li = MV._spectrum(MV.analysis_frames(prev_l, local_l, dtype), ctype, False)
-    Rr, Ri = MV._spectrum(MV.analysis_frames(prev_r, local_r, dtype), ctype, False)
+    Lr, Li = MV._spectrum(MV.analysis_frames(prev_l, local_l, dtype), ctype, "xla")
+    Rr, Ri = MV._spectrum(MV.analysis_frames(prev_r, local_r, dtype), ctype, "xla")
     y = torch.fft.ifft(torch.complex(*MV.beamform(Lr, Li, Rr, Ri, w0, w1))).real
     return c_short(y[:, MV.KEEP_LEN:MV.KEEP_LEN + MV.BLOCK_LEN]), gidx >= 1
 

@@ -17,15 +17,13 @@ from jeicyboodsp_tpu_torch.utils import metrics as TM
 
 CONFIGS = ("GEQConfig", "FastConvConfig", "EnhanceConfig", "AECConfig", "MVDRConfig",
            "SpeechConfig")
-LEFT_OUT = {("enhance", "mxu1")}  # an engine the port does not have
 
 
-def test_engine_keys_are_jax_s_but_mxu1():
-    assert set(JC.ENGINE_FIDELITY) - set(TC.ENGINE_FIDELITY) == LEFT_OUT
-    assert set(TC.ENGINE_FIDELITY) <= set(JC.ENGINE_FIDELITY)
+def test_engine_keys_are_jax_s():
+    assert set(TC.ENGINE_FIDELITY) == set(JC.ENGINE_FIDELITY)
 
 
-@pytest.mark.parametrize("key", sorted(set(JC.ENGINE_FIDELITY) - LEFT_OUT), ids="/".join)
+@pytest.mark.parametrize("key", sorted(JC.ENGINE_FIDELITY), ids="/".join)
 def test_engine_floor_and_typ_equal(key):
     want, got = JC.ENGINE_FIDELITY[key], TC.ENGINE_FIDELITY[key]
     assert set(got) == set(want) == {"floor", "typ", "note"}

@@ -1465,3 +1465,15 @@ def test_timeparallel_on_card_matches_cpu(cuda):
     for g, w in zip(got, want):
         d = (g.cpu().to(torch.int64) - w.to(torch.int64)).abs()
         assert int(d.max()) <= 1 and float((d != 0).double().mean()) < 0.01
+
+
+def test_run_checks_on_the_card(cuda):
+    """``utils.gpu_checks.run_checks`` on the card: every reference contract
+    holds, and each kernel it runs (K1-K6, K8, K9, K11, K14) launched."""
+    from jeicyboodsp_tpu_torch.utils import gpu_checks
+
+    launched = {}
+    res = gpu_checks.run_checks("cuda", launched)
+    assert res["all_ok"], res
+    assert set(launched) == {"K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9", "K11", "K14"}
+    assert all(n > 0 for n in launched.values()), launched

@@ -331,15 +331,15 @@ def test_k1_plain_planes_rebuild_its_output(probe, hq):
 
 
 def test_chip_smoke_reference_matches_oracle():
-    """chip_smoke.py carries its own numpy reference (it may not import the
-    JAX package); it must equal the oracle byte for byte."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke
+    """The port's own numpy reference (``jeicyboodsp_tpu_torch.oracle``, which
+    chip_smoke.py holds the port to: it may not import the JAX package)
+    must equal the JAX package's oracle byte for byte."""
+    from jeicyboodsp_tpu_torch.oracle import enhance as port_oracle
 
     for n in (0, 100, 512, 1100, 40 * 512 - 77):
         x = _signal(-(-n // 512), 7, silent_blocks=8)[:n]
         for mode in ("wiener", "specsub"):
-            np.testing.assert_array_equal(chip_smoke.reference_enhance(x, mode), oenh.run(x, mode))
+            np.testing.assert_array_equal(port_oracle.reference_enhance(x, mode), oenh.run(x, mode))
 
 
 @pytest.mark.parametrize("engine", sorted(ENGINE_FLOOR))
@@ -372,9 +372,10 @@ def test_pipeline_file_end_to_end(tmp_path, engine):
 @pytest.mark.parametrize("engine", ["xla", "mxu"])
 def test_unported_engines_raise(engine):
     """Engines xla and mxu, once unported, now run (zeros in, zeros out);
-    an engine the JAX package's CLI does not offer raises."""
+    an engine the JAX package does not have raises (mxu1, once the example,
+    is ported too)."""
     b = torch.zeros(4, 512, dtype=torch.int16)
     out, mask = TE.enhance_blocks(b, dtype=torch.float32, resynth="ratio", fft_engine=engine)
     assert out.shape == (4, 512) and not out.any() and mask.tolist() == [False, False, True, True]
     with pytest.raises(ValueError, match="fft_engine"):
-        TE.enhance_blocks(b, fft_engine=engine + "1")
+        TE.enhance_blocks(b, fft_engine=engine + "2")

@@ -219,11 +219,11 @@ def test_run_stream_needs_a_card_unless_asked_for_the_cpu():
 
 
 def test_chip_smoke_reference_matches_oracle():
-    """chip_smoke.py's own float64 overlap-save equals oracle/fastconv.run
-    byte for byte."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke
+    """The port's own float64 overlap-save (``jeicyboodsp_tpu_torch.oracle``,
+    which chip_smoke.py holds the port to) equals oracle/fastconv.run byte
+    for byte."""
+    from jeicyboodsp_tpu_torch.oracle import fastconv as port_oracle
 
     for n in (0, 7 * 1024, 7 * 1024 + 1, 12 * 1024 + 77, 16 * 1024):
         x = _signal(n, seed=n + 1)
-        np.testing.assert_array_equal(chip_smoke.reference_fastconv(x), ofc.run(x))
+        np.testing.assert_array_equal(port_oracle.reference_fastconv(x), ofc.run(x))

@@ -29,6 +29,9 @@ from jeicyboodsp_tpu_torch.kernels import mfcc_fused as K10
 from jeicyboodsp_tpu_torch.models import gmm as TG
 from jeicyboodsp_tpu_torch.ops import dft as tdft
 from jeicyboodsp_tpu_torch.ops import features as tf
+from jeicyboodsp_tpu_torch.oracle import gmm as port_ogmm
+from jeicyboodsp_tpu_torch.oracle import mfcc as port_omfcc
+from jeicyboodsp_tpu_torch.oracle import pitch as port_opitch
 from jeicyboodsp_tpu_torch.pipelines.speech import speech_classify
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -520,21 +523,21 @@ def test_features_entry_points_default_to_the_card():
         tf.mfcc_run(np.zeros(600, np.int16))
 
 
-# ---- chip_smoke.py's own references --------------------------------------------
+# ---- the port's own references (jeicyboodsp_tpu_torch.oracle) and chip_smoke.py's data ----
 
 
 @pytest.mark.parametrize("skip_first", [True, False])
 def test_chip_smoke_mfcc_reference_matches_oracle(skip_first):
-    """chip_smoke.py carries its own float64 MFCC reference (it may not
+    """The port carries its own float64 MFCC reference (chip_smoke.py may not
     import the JAX package); it equals the oracle to 1e-9 with the oracle's
     NaN frames, partial blocks and empty payloads."""
     rng = np.random.default_rng(19)
     x = chip_smoke.speech_signal(6 * 1024 + 300, rng, silent=(1024, 3072))
-    M, D = chip_smoke.mfcc_tables()
+    M, D = port_omfcc.mfcc_tables()
     assert np.array_equal(M, tf.mel_matrix()) and np.allclose(D, tf.dct_lifter_matrix(), rtol=1e-14)
     for n in (0, 100, 1024, len(x)):
         want = omfcc.run(x[:n], skip_first=skip_first)
-        got = chip_smoke.reference_mfcc(x[:n], skip_first=skip_first)
+        got = port_omfcc.reference_mfcc(x[:n], skip_first=skip_first)
         g, w = _finite_equal_masks(got, want)
         np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-9)
 
@@ -545,7 +548,7 @@ def test_chip_smoke_pitch_reference_matches_oracle(method):
     x = chip_smoke.speech_signal(512 * 10 + 77, rng, silent=(1024, 2048))
     for n in (0, 300, len(x)):
         want = opitch.run(x[:n], method)
-        lag, val, f0 = chip_smoke.reference_pitch(x[:n], method)
+        lag, val, f0 = port_opitch.reference_pitch(x[:n], method)
         assert [int(v) for v in lag] == [w[0] for w in want]
         np.testing.assert_allclose(val, [w[1] for w in want], rtol=1e-12)
         assert [float(v) for v in f0] == [w[2] for w in want]
@@ -558,14 +561,14 @@ def test_chip_smoke_score_reference_and_class_models():
     scored by the port and by the reference, pick every utterance's class."""
     rng = np.random.default_rng(21)
     C = 4
-    feats = [chip_smoke.reference_mfcc(chip_smoke.class_signal(c, 16 * 1024, rng), False)
+    feats = [port_omfcc.reference_mfcc(chip_smoke.class_signal(c, 16 * 1024, rng), False)
              for c in range(C)]
     model = chip_smoke.class_models(feats)
     utt = [chip_smoke.class_signal(c, 8 * 1024, rng) for c in range(C)]
     tmodel = TG.model_to_port(*model, "cpu")
     for c in range(C):
-        f = chip_smoke.reference_mfcc(utt[c], False)
-        ref = [chip_smoke.reference_score(f, *(m[j] for m in model)) for j in range(C)]
+        f = port_omfcc.reference_mfcc(utt[c], False)
+        ref = [port_ogmm.reference_score(f, *(m[j] for m in model)) for j in range(C)]
         for j in range(C):
             diag = np.stack([np.diagonal(model[2][j][k])[:4] for k in range(4)])
             np.testing.assert_allclose(ref[j], ogmm.score_file(f, model[0][j], model[1][j], diag,

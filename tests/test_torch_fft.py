@@ -234,12 +234,12 @@ def test_run_stream_needs_a_card_unless_asked_for_the_cpu():
 
 
 def test_chip_smoke_reference_matches_oracle():
-    """chip_smoke.py's own float64 copy of the FFT program equals
-    oracle/fftprog.run byte for byte."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke
+    """The port's own float64 copy of the FFT program
+    (``jeicyboodsp_tpu_torch.oracle``, which chip_smoke.py holds the port to)
+    equals oracle/fftprog.run byte for byte."""
+    from jeicyboodsp_tpu_torch.oracle import fftprog as port_oracle
 
-    np.testing.assert_array_equal(chip_smoke._bitrev(512), fftprog.bitrev_indices(512))
+    np.testing.assert_array_equal(port_oracle._bitrev(512), fftprog.bitrev_indices(512))
     for n in (0, 100, 512, 512 * 7 + 77):
         x = _noise(n, n + 1)
-        np.testing.assert_array_equal(chip_smoke.reference_fft_roundtrip(x), fftprog.run(x))
+        np.testing.assert_array_equal(port_oracle.reference_fft_roundtrip(x), fftprog.run(x))

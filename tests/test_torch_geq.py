@@ -274,22 +274,19 @@ def test_chip_smoke_geq_references_match_oracle():
     wrap stress, partial blocks and an empty payload, its float32 copy must
     equal the port's f32 route, and its linear form must agree with the JAX
     f64 scan."""
-    import sys
-
-    sys.path.insert(0, ROOT)
-    import chip_smoke
+    from jeicyboodsp_tpu_torch.oracle import geq as port_oracle
 
     b, a = TG.geq_coefficients()
     x = np.concatenate([_tone(1024, seed=4), _stress(512, seed=4)])
     for n in (0, 100, 512, 1100, len(x)):
-        np.testing.assert_array_equal(chip_smoke.reference_geq(x[:n], b, a), ogeq.run(x[:n]))
+        np.testing.assert_array_equal(port_oracle.reference_geq(x[:n], b, a), ogeq.run(x[:n]))
         # its float32 copy (geq --fast) against the port's f32 route, itself held to JAX's
-        np.testing.assert_array_equal(chip_smoke.reference_geq_f32(x[:n], b, a),
+        np.testing.assert_array_equal(port_oracle.reference_geq_f32(x[:n], b, a),
                                       TG.run_quant(x[:n], device="cpu", dtype=torch.float32))
     tone = _tone(1024, seed=5)
     lin = np.asarray(jgeq.geq_apply_fast(jnp.asarray(tone.astype(np.float64)), b, a,
                                          dtype=jnp.float64))
-    got = chip_smoke.reference_geq_linear(tone, b, a)
+    got = port_oracle.reference_geq_linear(tone, b, a)
     assert np.abs(got.astype(np.float64) - np.trunc(lin)).max() <= 1
 
 

@@ -15,7 +15,6 @@ import contextlib
 import io
 import os
 import re
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -30,11 +29,9 @@ from jeicyboodsp_tpu.pipelines import registry as jreg
 from jeicyboodsp_tpu_torch.cli import main
 from jeicyboodsp_tpu_torch.models import gmm as tg
 from jeicyboodsp_tpu_torch.models import serialization as ts
+from jeicyboodsp_tpu_torch.oracle import gmm as port_og
 from jeicyboodsp_tpu_torch.pipelines import registry as treg
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-import chip_smoke  # noqa: E402
 
 VERBOSE_RTOL, VERBOSE_ATOL = 1e-6, 2e-4  # %.5f lines (tests/test_verbose.py:186)
 
@@ -403,7 +400,7 @@ def test_gmm_test_lines_equal_jax_on_one_model(corpus, mismatch):
 
 def test_gmm_test_against_the_smoke_reference(corpus):
     """The port's decisions on the JAX model file equal those of
-    chip_smoke.reference_score_file's scores under the reference's argmax
+    the port's oracle's reference_score_file's scores under the reference's argmax
     (the first 9 files: classes 0-6)."""
     _, main_list, jax_model, _ = corpus
     with contextlib.redirect_stdout(io.StringIO()):
@@ -414,7 +411,7 @@ def test_gmm_test_against_the_smoke_reference(corpus):
     assert [g[0] for g in got] == [ci for ci, _ in files]
     for (_, pred, _), (_, path) in list(zip(got, files))[:9]:
         frames = np.fromfile(path, "<f8").reshape(-1, 12)
-        scores = [chip_smoke.reference_score_file(frames, *m) for m in models]
+        scores = [port_og.reference_score_file(frames, *m) for m in models]
         best, want = scores[0], 0
         for u in range(1, 25):
             if best < scores[u]:
@@ -515,21 +512,22 @@ def test_speech_train_against_jax(T):
 
 
 def test_smoke_gmm_references_equal_the_oracle():
-    """chip_smoke's copies of oracle/gmm.py give the same bytes: kmeans,
+    """The port's copies of oracle/gmm.py (``jeicyboodsp_tpu_torch.oracle.gmm``,
+    which chip_smoke.py holds the port to) give the same bytes: kmeans,
     em_step, train_class (one and two files), pca_export, score_file."""
     rng = np.random.default_rng(42)
     f1, f2 = _class_data(rng), _class_data(rng, n=80)
-    for got, want in zip(chip_smoke.reference_kmeans(f1, f1[0:16:4].copy()),
+    for got, want in zip(port_og.reference_kmeans(f1, f1[0:16:4].copy()),
                          og.kmeans(f1, f1[0:16:4].copy())):
         assert got.tobytes() == want.tobytes()
     for files in ([f1], [f1, f2], [_synth_class_frames(1000), _synth_class_frames(2000)]):
-        got, want = chip_smoke.reference_train_class(files), og.train_class(files)
+        got, want = port_og.reference_train_class(files), og.train_class(files)
         for k in ("alpha", "mean", "cov", "eigvec"):
             assert np.asarray(getattr(got, k)).tobytes() == np.asarray(getattr(want, k)).tobytes(), k
     o = og.train_class([f1])
     a4, m4, cv4, e4 = js.train_to_test_params(o.alpha, o.mean, o.cov, o.eigvec)
     d4 = np.stack([np.diag(c)[:4] for c in cv4])
     for frames in (f1, f2):
-        got = chip_smoke.reference_score_file(frames, a4, m4, d4, e4)
+        got = port_og.reference_score_file(frames, a4, m4, d4, e4)
         want_s = og.score_file(frames, a4, m4, d4, e4)
         assert np.asarray(got).tobytes() == np.asarray(want_s).tobytes()

@@ -11,9 +11,7 @@ bounds.  Tolerances are stated in each test.
 import contextlib
 import io
 import itertools
-import os
 import re
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,11 +26,9 @@ from jeicyboodsp_tpu.pipelines import registry as jreg
 from jeicyboodsp_tpu_torch.cli import main
 from jeicyboodsp_tpu_torch.models import hmm as th
 from jeicyboodsp_tpu_torch.models import serialization as ts
+from jeicyboodsp_tpu_torch.oracle import viterbi as port_ov
 from jeicyboodsp_tpu_torch.pipelines import registry as treg
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-import chip_smoke  # noqa: E402
 
 SCORE_RTOL = 1e-9  # compat scores: tests/test_gmm.py:136 (the oracle), tests/test_verbose.py:113
 
@@ -418,14 +414,15 @@ def test_speech_decode_against_jax():
 
 
 def test_smoke_hmm_decode_equals_the_oracle():
-    """chip_smoke.reference_hmm_decode gives oracle/viterbi.hmm_decode's
+    """The port's oracle's reference_hmm_decode (which chip_smoke.py holds the
+    port to) gives oracle/viterbi.hmm_decode's
     bytes on every probe, and its printed values are JAX's full=True bests
     from t = T-1 down to 1."""
     for obs, model in PROBES.values():
         states = [(model[0][m], model[1][m], np.stack([np.diag(c)[:4] for c in model[2][m]]),
                    model[3][m]) for m in range(6)]
         bests = []
-        gp, gs = chip_smoke.reference_hmm_decode(obs, states, model[4], bests)
+        gp, gs = port_ov.reference_hmm_decode(obs, states, model[4], bests)
         wp, ws = ov.hmm_decode(obs, states, model[4])
         assert gp.tobytes() == wp.tobytes() and np.float64(gs).tobytes() == np.float64(ws).tobytes()
         jb = np.asarray(jh.viterbi(jnp.asarray(obs), *(jnp.asarray(a) for a in model), full=True)[2])

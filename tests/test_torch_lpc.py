@@ -1,6 +1,7 @@
 """The port's LPC (``jeicyboodsp_tpu_torch.ops.features``: ``hamming``,
 ``lpc_frames``, ``lpc_run``) against ``oracle/lpc.py`` and the JAX op, and
-chip_smoke.py's float64 copy of the oracle."""
+the port's float64 copy of the oracle (``jeicyboodsp_tpu_torch.oracle.lpc``,
+which chip_smoke.py holds the port to)."""
 
 import os
 import sys
@@ -13,6 +14,7 @@ import torch
 from jeicyboodsp_tpu.oracle import lpc as olpc
 from jeicyboodsp_tpu.ops import features as JF
 from jeicyboodsp_tpu_torch.ops import features as TF
+from jeicyboodsp_tpu_torch.oracle import lpc as port_olpc
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -124,7 +126,7 @@ def test_smoke_levinson_f32_limits_follow_jax():
 
     rng = np.random.default_rng(cs.SEED + 9)
     x = cs.make_signal(cs.LPC_T * 256, rng)  # drive_lpc's input
-    want = cs.reference_lpc(x)
+    want = port_olpc.reference_lpc(x)
     scale = np.abs(want).max(1)
     blocks = x.reshape(-1, 256)
     frames = np.concatenate([np.concatenate([np.zeros_like(blocks[:1]), blocks[:-1]]), blocks], 1)

@@ -9,9 +9,6 @@ per dtype and engine (f64 within one step on under 1% of the samples, f32
 matmuls, as they are plain XLA in the JAX package.
 """
 
-import os
-import sys
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,10 +21,8 @@ from jeicyboodsp_tpu.utils.metrics import snr_db
 from jeicyboodsp_tpu_torch.cli import main
 from jeicyboodsp_tpu_torch.ops import dft as tdft
 from jeicyboodsp_tpu_torch.ops import mvdr as tmv
+from jeicyboodsp_tpu_torch.oracle import mvdr as port_omv
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-import chip_smoke  # noqa: E402
 
 F64_FLIPS = 0.01  # one int16 step, on under 1% of the samples (tests/test_mvdr.py)
 
@@ -137,8 +132,8 @@ def test_off_diagonal_correlation_is_roundoff():
     real blocks is roundoff beside the channel energies."""
     xl, xr = _stereo(512 * 16)
     bl, br = (torch.from_numpy(x.reshape(-1, 512)) for x in (xl, xr))
-    L = tmv._spectrum(tmv._pairs(bl, torch.float64), torch.complex128, False)
-    R = tmv._spectrum(tmv._pairs(br, torch.float64), torch.complex128, False)
+    L = tmv._spectrum(tmv._pairs(bl, torch.float64), torch.complex128, "xla")
+    R = tmv._spectrum(tmv._pairs(br, torch.float64), torch.complex128, "xla")
     r00 = (L[0] ** 2 + L[1] ** 2).sum(1)
     r11 = (R[0] ** 2 + R[1] ** 2).sum(1)
     r01 = (-L[0] * R[1] + L[1] * R[0]).sum(1)
@@ -182,14 +177,14 @@ def test_mvdr_blocks_vs_jax(dtype, engine, collapse, d_time):
 
 
 def test_reference_mvdr_byte_equal_to_oracle():
-    """chip_smoke.py's own f64 copy of the oracle, which the card's run
-    holds the port to."""
+    """The port's own f64 copy of the oracle (``jeicyboodsp_tpu_torch.oracle``),
+    which the card's run holds the port to."""
     xl, xr = _stereo(512 * 12 + 77, seed=5)
     for dt in (0.0, tmv.steering_delay(0.3)):
         want = omv.run(xl, xr, d_time=dt)
-        got = chip_smoke.reference_mvdr(xl, xr, d_time=dt)
+        got = port_omv.reference_mvdr(xl, xr, d_time=dt)
         assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
-    assert chip_smoke.reference_mvdr(xl[:0], xr).size == 0
+    assert port_omv.reference_mvdr(xl[:0], xr).size == 0
 
 
 def test_pipeline_and_cli(tmp_path):

@@ -354,17 +354,13 @@ def test_chip_smoke_aec_references_match_oracle():
     """chip_smoke.py's own float64 NLMS / BNLMS references (it may not import
     the JAX package) equal the oracle: est, err and the BNLMS gates, with a
     partial block, unequal lengths, a shut gate and an empty payload."""
-    import os
-    import sys
-
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    import chip_smoke
+    from jeicyboodsp_tpu_torch.oracle import nlms as port_oracle
 
     x, r = _echo(3 * 1024 + 200, 12)
     xs = np.abs(x.astype(np.int32)).clip(0, 32767).astype(np.int16)
     for xi, ri in ((x, r), (x[:2500], r[:2900]), (xs, -(xs // 2)), (x[:0], r[:0])):
         for bn, oracle in ((False, onl.run_nlms), (True, onl.run_bnlms)):
-            got = chip_smoke.reference_nlms(xi, ri, bnlms=bn)
+            got = port_oracle.reference_nlms(xi, ri, bnlms=bn)
             want = oracle(xi, ri)
             np.testing.assert_array_equal(got[0], want[0])
             np.testing.assert_array_equal(got[1], want[1])
@@ -373,4 +369,4 @@ def test_chip_smoke_aec_references_match_oracle():
         np.concatenate([st.keep_in, xs[s:s + 1024]]).astype(np.float64),
         np.concatenate([st.keep_ref, -(xs[s:s + 1024] // 2)]).astype(np.float64))
         for s in (0,)]
-    assert chip_smoke.reference_nlms(xs, -(xs // 2), bnlms=True)[2][:1] == wants == [False]
+    assert port_oracle.reference_nlms(xs, -(xs // 2), bnlms=True)[2][:1] == wants == [False]
