@@ -396,19 +396,26 @@ def median_ms(fn, sync, reps=REPS):
 def profile_call(fn, sync, top=8):
     """One warm-up call of fn, then one under torch.profiler: its wall ms
     (CUDA events), the device busy ms, and the ``top`` kernels by device time
-    and host ops by self CPU time, each as (ms, count, name)."""
+    and host ops by self CPU time, each as (ms, count, name).  The port
+    records its spans while the profiler runs (``utils.metrics``: with a
+    drain before a session's output copy and NLMS's state copy); they are
+    dropped after the call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from jeicyboodsp_tpu_torch.utils.metrics import REGISTRY
+
     fn()
     sync()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    first = len(REGISTRY.spans())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         a.record()
         fn()
         b.record()
         sync()
+    REGISTRY.take_spans(first)
     kernels, host = [], []
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
@@ -2245,7 +2252,8 @@ def time_stream(P, dev, x_full, card, sync):
                   f"a chunk, {chunk * 512 / ms * 1e3:.4g} samples/s")
             if chunk == STREAM_CHUNK:
                 wall, busy, kernels, host = profile_call(step, sync, top=5)
-                print(f"[5 timing] EnhanceSession {name} chunk {chunk} under torch.profiler: "
+                print(f"[5 timing] EnhanceSession {name} chunk {chunk} under torch.profiler "
+                      f"(spans recorded, the output's copy drained first): "
                       f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
                       f"{1 - busy / wall:.3f}; top kernels "
                       f"{[(round(t, 4), c, k[:40]) for t, c, k in kernels]}; top host ops "

@@ -18,9 +18,18 @@ the port's bit-exact kernels on one stream (B = 1): the GEQ through K6 in
 f64 (``ops.geq.geq_apply``), NLMS through K8 (``ops.nlms.nlms_apply``),
 BNLMS through its f64 FFT gate and K9 (``ops.nlms.bnlms_apply``).  Sessions
 run on ``device``, a CUDA card unless the caller asks for the CPU.
+
+While spans are recorded (``utils.metrics``), each chunk of an AEC or
+enhancement session is a ``session.process`` span with the request id
+(session serial, chunk number), holding ``session.chunk_in`` (copy), the
+op's spans, ``session.drain`` (wait: the queued work, so that the copy
+after it is the transfer alone; not after ``nlms_apply``, which leaves
+nothing queued) and ``session.out`` (copy).
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -30,8 +39,10 @@ from jeicyboodsp_tpu_torch.ops import enhance as E
 from jeicyboodsp_tpu_torch.ops import geq as G
 from jeicyboodsp_tpu_torch.ops import nlms as N
 from jeicyboodsp_tpu_torch.utils.device import entry_device
+from jeicyboodsp_tpu_torch.utils.metrics import REGISTRY
 
 AEC_BLOCK = N.BLOCK_LEN
+_SERIALS = itertools.count()  # each AEC or enhancement session's serial: its spans' request ids
 
 
 def _int16(x) -> np.ndarray:
@@ -84,6 +95,7 @@ class AECSession:
         self.variant = variant
         self._dev = entry_device(device)
         self.state = N.nlms_init_state() if variant == "nlms" else N.bnlms_init_state()
+        self._serial, self._chunks = next(_SERIALS), 0
 
     @property
     def coeff(self) -> np.ndarray:
@@ -108,13 +120,18 @@ class AECSession:
                              f"got {len(x)} and {len(ref)}")
         if not len(x):
             return x.copy(), ref.copy()
-        xt, rt = (torch.from_numpy(v).to(self._dev) for v in (x, ref))
-        if self.variant == "nlms":
-            est, err, self.state = N.nlms_apply(xt, rt, self.state)
-        else:
-            est, err, self.state = N.bnlms_apply(xt.view(-1, AEC_BLOCK), rt.view(-1, AEC_BLOCK),
-                                                 self.state)
-        return est.reshape(-1).cpu().numpy(), err.reshape(-1).cpu().numpy()
+        self._chunks += 1
+        with REGISTRY.span("session.process", "stage", self._serial, self._chunks):
+            with REGISTRY.span("session.chunk_in", "copy"):
+                xt, rt = (torch.from_numpy(v).to(self._dev) for v in (x, ref))
+            if self.variant == "nlms":  # drains its own queue before its state's copy
+                est, err, self.state = N.nlms_apply(xt, rt, self.state)
+            else:
+                est, err, self.state = N.bnlms_apply(xt.view(-1, AEC_BLOCK),
+                                                     rt.view(-1, AEC_BLOCK), self.state)
+                REGISTRY.drain("session.drain", self._dev)
+            with REGISTRY.span("session.out", "copy"):
+                return est.reshape(-1).cpu().numpy(), err.reshape(-1).cpu().numpy()
 
     def checkpoint(self, path: str) -> None:
         state = {"coeff": self.coeff, "keep": self.keep}
@@ -141,12 +158,19 @@ class EnhanceSession:
         self._mode = mode
         self._dtype = dtype if dtype is not None else torch.float64
         self.state = E.stream_init_state(self._dtype, self._dev)
+        self._serial, self._chunks = next(_SERIALS), 0
 
     def process(self, blocks) -> np.ndarray:
         """(Tc, 512) int16 in -> the written output samples out."""
-        b = torch.from_numpy(_int16(blocks)).to(self._dev)
-        out, mask, self.state = E.enhance_chunk(self.state, b, mode=self._mode, dtype=self._dtype)
-        return out[mask].reshape(-1).cpu().numpy()
+        self._chunks += 1
+        with REGISTRY.span("session.process", "stage", self._serial, self._chunks):
+            with REGISTRY.span("session.chunk_in", "copy"):
+                b = torch.from_numpy(_int16(blocks)).to(self._dev)
+            out, mask, self.state = E.enhance_chunk(self.state, b, mode=self._mode,
+                                                    dtype=self._dtype)
+            REGISTRY.drain("session.drain", self._dev)
+            with REGISTRY.span("session.out", "copy"):
+                return out[mask].reshape(-1).cpu().numpy()
 
     def checkpoint(self, path: str, **extras) -> None:
         """Save the state's leaves (and ``extras`` beside them) to ``path``."""

@@ -54,6 +54,7 @@ from jeicyboodsp_tpu_torch.kernels.vad_flags import vad_flags as vad_kernel
 from jeicyboodsp_tpu_torch.ops.dft import const, int8_col_split, matmul
 from jeicyboodsp_tpu_torch.utils.cnum import REF_PI, c_short, hamming_ref
 from jeicyboodsp_tpu_torch.utils.device import entry_device
+from jeicyboodsp_tpu_torch.utils.metrics import REGISTRY
 from jeicyboodsp_tpu_torch.utils.scan import associative_scan
 
 BLOCK_LEN = 512
@@ -121,8 +122,9 @@ def _noise_scan_carry(speech, mags, carry):
     and rows before the chunk's first latch hold ``latched``.  Every noise
     row is summed.  Returns ``(ns, (cnt, avg, latched))``, the state after
     the last row."""
-    ns, cnt, avg = _noise_rows(speech, mags, int(carry[0]), carry[1].clone(), carry[2],
-                               to_end=True)
+    with REGISTRY.span("enhance.cnt", "wait"):
+        cnt0 = int(carry[0])
+    ns, cnt, avg = _noise_rows(speech, mags, cnt0, carry[1].clone(), carry[2], to_end=True)
     return ns, (cnt[-1].to(torch.int32), avg, ns[-1].clone())
 
 
@@ -134,10 +136,13 @@ def _noise_rows(speech, mags, cnt0: int, avg, held, to_end: bool):
     T, nb = mags.shape
     cnt, run = _run_counts(speech, cnt0)
     latch = run & (cnt == NOISE_FRAMES)
-    lrows = torch.nonzero(latch).flatten().tolist()
+    with REGISTRY.span("enhance.latch_rows", "wait"):
+        lrows = torch.nonzero(latch).flatten().tolist()
     end = T if to_end else (lrows[-1] + 1 if lrows else 0)
-    rows = torch.nonzero(run[:end]).flatten().tolist()
-    halve = (cnt >= 3).tolist()
+    with REGISTRY.span("enhance.noise_rows", "wait"):
+        rows = torch.nonzero(run[:end]).flatten().tolist()
+    with REGISTRY.span("enhance.halve", "wait"):
+        halve = (cnt >= 3).tolist()
     snap = torch.empty(len(lrows), nb, dtype=mags.dtype, device=mags.device)
     li = 0
     for t in rows:
@@ -709,29 +714,45 @@ def enhance_chunk(state, blocks, mode: str = "wiener", dtype=torch.float64):
     the sequential noise scan from the carry, trig resynthesis), so chunked
     processing with carried state equals one-shot processing exactly; the
     state dict is what checkpoints persist.
+
+    While spans are recorded (``utils.metrics``), the call is an
+    ``enhance.chunk`` span holding the stages ``enhance.fft``,
+    ``enhance.vad``, ``enhance.noise``, ``enhance.resynth`` and
+    ``enhance.ola``; each host read of a card value is a ``wait`` span of its
+    own (``enhance.cnt``, ``enhance.latch_rows``, ``enhance.noise_rows``,
+    ``enhance.halve``, ``enhance.t``).
     """
     if blocks.dim() != 2 or blocks.shape[1] != BLOCK_LEN or not blocks.shape[0]:
         raise ValueError(f"blocks must be (Tc, {BLOCK_LEN}) with Tc >= 1, got {tuple(blocks.shape)}")
-    blocks = blocks.contiguous()
-    Tc = blocks.shape[0]
-    prev = torch.cat([state["prev_block"][None], blocks[:-1]])
-    X = frame_transform(torch.cat([prev, blocks], 1), dtype)
-    speech = vad_flags(blocks, dtype)
-    ns, (cnt, avg, latched) = _noise_scan_carry(speech, X.abs(),
-                                                (state["cnt"], state["avg"], state["latched"]))
-    y = gain_and_resynth(X, ns, mode)
-    gidx = int(state["t"]) + torch.arange(Tc, device=blocks.device)
-    tails = torch.cat([state["prev_tail"][None], y[:-1, BLOCK_LEN:]])
-    valid, use_tail = (gidx >= 1)[:, None], gidx >= 2
-    zero = torch.zeros((), dtype=y.dtype, device=y.device)
-    ola = torch.where(valid, y[:, :BLOCK_LEN] + torch.where(use_tail[:, None], tails, zero), zero)
-    out = torch.where(use_tail[:, None], c_short(ola), 0)
-    new_state = {
-        "cnt": cnt,
-        "avg": avg,
-        "latched": latched,
-        "prev_block": blocks[-1].clone(),
-        "prev_tail": y[-1, BLOCK_LEN:].clone(),
-        "t": state["t"] + Tc,
-    }
-    return out, use_tail, new_state
+    with REGISTRY.span("enhance.chunk"):
+        blocks = blocks.contiguous()
+        Tc = blocks.shape[0]
+        with REGISTRY.span("enhance.fft"):
+            prev = torch.cat([state["prev_block"][None], blocks[:-1]])
+            X = frame_transform(torch.cat([prev, blocks], 1), dtype)
+        with REGISTRY.span("enhance.vad"):
+            speech = vad_flags(blocks, dtype)
+        with REGISTRY.span("enhance.noise"):
+            ns, (cnt, avg, latched) = _noise_scan_carry(
+                speech, X.abs(), (state["cnt"], state["avg"], state["latched"]))
+        with REGISTRY.span("enhance.resynth"):
+            y = gain_and_resynth(X, ns, mode)
+        with REGISTRY.span("enhance.ola"):
+            with REGISTRY.span("enhance.t", "wait"):
+                t0 = int(state["t"])
+            gidx = t0 + torch.arange(Tc, device=blocks.device)
+            tails = torch.cat([state["prev_tail"][None], y[:-1, BLOCK_LEN:]])
+            valid, use_tail = (gidx >= 1)[:, None], gidx >= 2
+            zero = torch.zeros((), dtype=y.dtype, device=y.device)
+            ola = torch.where(valid, y[:, :BLOCK_LEN] + torch.where(use_tail[:, None], tails, zero),
+                              zero)
+            out = torch.where(use_tail[:, None], c_short(ola), 0)
+            new_state = {
+                "cnt": cnt,
+                "avg": avg,
+                "latched": latched,
+                "prev_block": blocks[-1].clone(),
+                "prev_tail": y[-1, BLOCK_LEN:].clone(),
+                "t": state["t"] + Tc,
+            }
+        return out, use_tail, new_state

@@ -40,6 +40,7 @@ from jeicyboodsp_tpu_torch.kernels import bnlms as K9
 from jeicyboodsp_tpu_torch.kernels import nlms as K8
 from jeicyboodsp_tpu_torch.utils.cnum import c_short
 from jeicyboodsp_tpu_torch.utils.device import entry_device
+from jeicyboodsp_tpu_torch.utils.metrics import REGISTRY
 from jeicyboodsp_tpu_torch.utils.scan import associative_scan
 
 BLOCK_LEN = 1024  # oracle/nlms.py:34-43
@@ -125,16 +126,27 @@ def nlms_apply(x, ref, state, dtype=torch.float64, compat: bool = True):
     as :func:`nlms_init_state` (with a leading B for (B, N) signals, its
     coefficients in ``dtype``).  Runs on x's device through K8, its f64
     instance or, for ``dtype=float32``, its f32 one.  ``compat=False`` is the
-    corrected update pairing (see ``jeicyboodsp_tpu/ops/nlms.py:nlms_apply``)."""
-    xs, rs, shape = _streams(x, ref)
-    coef, hist = state_to_port(state, xs.device)
-    coef = _coef(coef, dtype)
-    kernel = K8.nlms if dtype == torch.float64 else K8.nlms_f32
-    est, err, new = kernel(xs, rs, (coef.reshape(-1, NLMS_TAPS).contiguous(),
-                                    hist.reshape(-1, NLMS_KEEP).contiguous()), compat=compat)
-    lead = shape[:-1]
-    return (est.reshape(shape), err.reshape(shape),
-            state_to_jax((new[0].reshape(*lead, NLMS_TAPS), new[1].reshape(*lead, NLMS_KEEP))))
+    corrected update pairing (see ``jeicyboodsp_tpu/ops/nlms.py:nlms_apply``).
+
+    While spans are recorded (``utils.metrics``), the call is an
+    ``nlms.apply`` span holding ``nlms.state_in`` (copy), ``nlms.kernel``,
+    ``nlms.drain`` (wait: K8) and ``nlms.state_out`` (copy)."""
+    with REGISTRY.span("nlms.apply"):
+        xs, rs, shape = _streams(x, ref)
+        with REGISTRY.span("nlms.state_in", "copy"):
+            coef, hist = state_to_port(state, xs.device)
+        coef = _coef(coef, dtype)
+        kernel = K8.nlms if dtype == torch.float64 else K8.nlms_f32
+        with REGISTRY.span("nlms.kernel"):
+            est, err, new = kernel(xs, rs, (coef.reshape(-1, NLMS_TAPS).contiguous(),
+                                            hist.reshape(-1, NLMS_KEEP).contiguous()),
+                                   compat=compat)
+        lead = shape[:-1]
+        REGISTRY.drain("nlms.drain", xs.device)
+        with REGISTRY.span("nlms.state_out", "copy"):
+            new = state_to_jax((new[0].reshape(*lead, NLMS_TAPS),
+                                new[1].reshape(*lead, NLMS_KEEP)))
+        return est.reshape(shape), err.reshape(shape), new
 
 
 def bnlms_apply_block(x, ref, state, dtype=torch.float64):

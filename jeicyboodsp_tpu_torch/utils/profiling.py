@@ -2,7 +2,8 @@
 ``jeicyboodsp_tpu/utils/profiling.py``).
 
 - :func:`trace` records a Chrome trace of what runs inside it with
-  ``torch.profiler`` (host activity, and the card's when CUDA is there).
+  ``torch.profiler`` (host activity, and the card's when CUDA is there),
+  and the port's spans beside it on the same clock.
 - :class:`Roofline` places a measured samples/s against the card's roofs,
   with the JAX class's fields, ``bound()`` keys and ``pct_of_roof``; its
   22 models keep the JAX module's names, so that a benchmark annotates one
@@ -29,12 +30,15 @@ partitions (128 lanes a clock per SM; NVIDIA's Hopper white paper) over
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
+
+from jeicyboodsp_tpu_torch.utils.metrics import REGISTRY, clock_offset_ns
 
 HBM_BPS = 3.35e12  # bytes/s of HBM3
 SMS, SM_CLOCK_HZ, SM_LANES_PER_CLOCK = 132, 1.98e9, 128
@@ -45,7 +49,11 @@ PEAKS = {"int8": 1979e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12, "f64": 3
 @contextmanager
 def trace(logdir: str):
     """Record what runs inside the block with ``torch.profiler`` and write
-    it as a Chrome trace (``trace_<pid>_<ms>.json``) under ``logdir``.
+    it as a Chrome trace (``trace_<pid>_<ms>.json``) under ``logdir``, and
+    the port's spans recorded inside it (``utils.metrics``) beside it
+    (``spans_<pid>_<ms>.json``: ``{"clock": "unix_ns", "spans": [...]}``,
+    each span's ``start_ns`` and ``end_ns`` on the profiler's clock, so that
+    a Chrome trace's ``ts`` is ``(ns - baseTimeNanoseconds) / 1000``).
     Host ops are always recorded, the card's kernels when CUDA is
     available.  Yields the profiler (``key_averages()`` and the like)."""
     import torch
@@ -55,10 +63,15 @@ def trace(logdir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    first = len(REGISTRY.spans())
+    with REGISTRY.recording(), profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(
-        os.path.join(logdir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))
+    spans = REGISTRY.take_spans(first)
+    offset = clock_offset_ns()
+    stem = f"{os.getpid()}_{int(time.time() * 1e3)}.json"
+    prof.export_chrome_trace(os.path.join(logdir, "trace_" + stem))
+    with open(os.path.join(logdir, "spans_" + stem), "w") as f:
+        json.dump({"clock": "unix_ns", "spans": [s.as_dict(offset) for s in spans]}, f)
 
 
 def bound(nbytes, ops, unit):

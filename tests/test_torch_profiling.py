@@ -207,8 +207,11 @@ def test_trace_writes_a_chrome_trace_naming_a_torch_op(tmp_path):
     with P.trace(logdir) as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
     assert any(ev.key == "aten::mm" for ev in prof.key_averages())
-    files = os.listdir(logdir)
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(os.path.join(logdir, files[0])) as f:
+    files = sorted(os.listdir(logdir))  # the Chrome trace and the spans beside it
+    assert len(files) == 2 and files[0].startswith("spans_") and files[1].startswith("trace_")
+    assert files[0][len("spans_"):] == files[1][len("trace_"):] and files[1].endswith(".json")
+    with open(os.path.join(logdir, files[1])) as f:
         events = json.load(f)["traceEvents"]
     assert any(ev.get("name") == "aten::mm" for ev in events)
+    with open(os.path.join(logdir, files[0])) as f:
+        assert json.load(f) == {"clock": "unix_ns", "spans": []}
