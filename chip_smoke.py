@@ -16,7 +16,7 @@ of 1024 (2041 segments of 8192; the shared-memory FFT K12 for engines mxu
 and mxu3), the FFT program over 16,384 blocks of 512 (K12 for ``fourstep``), the
 two-kernel f32 enhancement engine ``_enhance_fused`` (K4, K13) at T = 16384,
 the VAD kernel K14 under engines mxu8f and mxu8t; streaming with checkpoints
-(``EnhanceSession`` over the T = 16384 signal, K14 in f32; ``GEQSession``
+(``EnhanceSession`` over the T = 16384 signal, K15 in f64, K14 in f32; ``GEQSession``
 (K6), ``AECSession`` (K8, K9) over one stream each; the ``stream`` CLI killed
 and resumed), the MVDR beamformer over 16,384 stereo blocks, speech
 recognition (GMM training over 25 classes x 512 frames, ``gmm-train`` and
@@ -65,6 +65,11 @@ phases that each print lines and raise on failure:
      signal and on rows at its energy and ZCR thresholds, with the f32
      window and the f64-built w2; engines mxu8f and mxu8t through K14
      bit-equal to the same chain with the VAD as torch ops;
+   - K15 (the f64 stream chunk in one launch) against its plain version, the
+     torch-op chain on the card, over 2048 blocks in chunks of 2 and 64, wiener
+     and specsub, each carrying its own state: written samples within one
+     step (the differing count printed), mask and integer state equal, the
+     float state within 1e-12 of its largest value;
    - the f32 instances of K8 (T = 2048, both pairings, and T = 257 from a
      nonzero state with -0.0 coefficients) and K9 (8 blocks, some gates
      shut) at 1024 streams, bit-equal to their plain f32 versions;
@@ -122,10 +127,10 @@ phases that each print lines and raise on failure:
      ``_enhance_fused`` at T = 16384, each against the port's float64
      oracles (f64 within one step; f32 at the floors of
      tests/test_engine_matrix.py; ``_enhance_fused`` >= 85 dB);
-   - streaming (K6, K8, K9, K14 counted; their launches added to the
-     earlier phases'): ``EnhanceSession`` wiener at T = 16384 in f64 and
-     f32, in chunks of 4 blocks with a checkpoint at the middle restored
-     into a fresh session (the second halves bit-equal) and in ragged
+   - streaming (K6, K8, K9, K14, K15 counted; their launches added to the
+     earlier phases'; K15's equal to the f64 chunks served):
+     ``EnhanceSession`` wiener at T = 16384 in f64 (K15) and f32, in chunks
+     of 4 blocks with a checkpoint at the middle restored into a fresh session (the second halves bit-equal) and in ragged
      chunks; f64 within one step on under 0.1% of ``reference_enhance`` and
      of the one-shot ``run_stream``, f32 >= 95 dB of the one-shot f32
      ``xla`` chain (the differing samples counted); the ``stream`` CLI in
@@ -214,7 +219,9 @@ phases that each print lines and raise on failure:
    device busy time and host share a call); K5 and K13 once more in turns with that core, Wiener
    and spectral subtraction; ``mvdr_blocks`` per engine (ms, samples/s);
    ``EnhanceSession`` ms a chunk, f64 and f32, at 4 and 64 blocks, and one
-   chunk of 4 under ``torch.profiler`` (device busy, idle share);
+   chunk of 4 under ``torch.profiler`` (device busy, idle share); K15 alone
+   at chunks of 2 and 64 beside its plain version, its device time a call
+   under ``torch.profiler``, its bound and its one-SM chain's estimate;
    ``train_classes_batched`` f64 and f32, ``speech_train(mxu3)``, each
    decode form (ms, frames/s, and under ``torch.profiler``), ``gmm-test``
    per file and the ``awgn`` CLI (host clock); the f32 instances of K8 and
@@ -487,6 +494,7 @@ def _port():
 
     from jeicyboodsp_tpu_torch.kernels import enhance_back as K13
     from jeicyboodsp_tpu_torch.kernels import fft_four_step as K12
+    from jeicyboodsp_tpu_torch.kernels import enhance_chunk64 as K15
     from jeicyboodsp_tpu_torch.kernels import vad_flags as K14
     from jeicyboodsp_tpu_torch.ops import fastconv as FC
     from jeicyboodsp_tpu_torch.ops import fft as FT
@@ -500,7 +508,7 @@ def _port():
     return SimpleNamespace(_build=_build, K1=K1, K2=K2, K3=K3, K4=K4, K5=K5, E=E,
                            registry=registry, K6=K6, K7=K7, K8=K8, K9=K9, G=G, N=N,
                            K10=K10, K11=K11, GM=GM, F=F, S=S, cli=cli,
-                           K12=K12, K13=K13, K14=K14, FC=FC, FT=FT, H=H, AW=AW,
+                           K12=K12, K13=K13, K14=K14, K15=K15, FC=FC, FT=FT, H=H, AW=AW,
                            K8f32=K8, K9f32=K9, MV=MV, cnum=cnum)
 
 
@@ -2096,9 +2104,103 @@ def _vad_chunks_vs_plain(P, dev, blocks, sync):
                                f"vad_rows")
 
 
+K15_CHUNKS = (2, 64)  # the live cell's chunk, and the stream CLI's --chunk-blocks here
+K15_CHECK_T = 2048    # blocks of the signal K15 and its plain version run in phase 3
+K15_STATE_RTOL = 1e-12
+
+
+def _n_chunks(n, sizes):
+    """How many chunks _session_run cuts n blocks into."""
+    count, s = 0, 0
+    while s < n:
+        s += sizes[count % len(sizes)]
+        count += 1
+    return count
+
+
+def check_k15(P, x_full, sync):
+    """Phase 3 for K15: the kernel and its plain version (the torch-op chain
+    on the card) over the first K15_CHECK_T blocks of the signal, in chunks
+    of each of K15_CHUNKS, wiener and specsub, each carrying its own state:
+    written samples within one step (the differing count printed), the mask
+    and the integer leaves equal, the float leaves within K15_STATE_RTOL of
+    their largest value with equal NaN masks.  Returns the largest |diff|."""
+    import torch
+
+    E, dev = P.E, torch.device("cuda")
+    blocks = torch.from_numpy(x_full[: K15_CHECK_T * 512].reshape(-1, 512)).to(dev)
+    worst = 0
+    for mode in MODES:
+        for Tc in K15_CHUNKS:
+            ks = E.stream_init_state(torch.float64, dev)
+            ps = E.stream_init_state(torch.float64, dev)
+            flipped, state_err, ok = 0, 0.0, True
+            for s in range(0, K15_CHECK_T, Tc):
+                ko, km, ks = P.K15.enhance_chunk64(ks, blocks[s: s + Tc], mode)
+                po, pm, ps = E.enhance_chunk_ops(ps, blocks[s: s + Tc], mode)
+                d = (ko.long() - po.long()).abs()
+                flipped += int((d > 0).sum())
+                worst = max(worst, int(d.max()))
+                ok &= torch.equal(km, pm) and all(torch.equal(ks[k], ps[k])
+                                                  for k in ("cnt", "t", "prev_block"))
+                for k in ("avg", "latched", "prev_tail"):
+                    g, w = ks[k], ps[k]
+                    ok &= torch.equal(g.isnan(), w.isnan())
+                    scale = max(float(w.nan_to_num(0.0).abs().max()), 1.0)
+                    state_err = max(state_err, float((g - w).nan_to_num(0.0).abs().max()) / scale)
+            sync()
+            print(f"[3 kernel-vs-plain] K15 {mode} chunks of {Tc} over {K15_CHECK_T} blocks: "
+                  f"{flipped} written samples differ (max |diff| {worst}), mask and integer "
+                  f"state equal {ok}, float state within {state_err:.2e} of its largest")
+            if not ok or worst > 1 or state_err > K15_STATE_RTOL:
+                raise RuntimeError(f"K15 {mode} chunks of {Tc}: max |diff| {worst}, state "
+                                   f"{state_err:.2e}, exact parts equal {ok}")
+    return worst
+
+
+def time_k15(P, x_full, card, sync):
+    """Phase 5 for K15, wiener, at each of K15_CHUNKS from a state carried
+    over the signal's first 64 blocks (its noise estimate latched): ms a
+    call back to back (CUDA events) beside its plain version's, its device
+    time a call under torch.profiler (50 calls), its bound and its chain's
+    estimate at the card's clock.  Returns its numbers at the live cell's
+    chunk."""
+    import torch
+
+    E, dev = P.E, torch.device("cuda")
+    blocks = torch.from_numpy(x_full.reshape(-1, 512)).to(dev)
+    state = E.stream_init_state(torch.float64, dev)
+    _, _, state = E.enhance_chunk_ops(state, blocks[:64], "wiener")
+    clock = card_clock_hz()
+    out = {}
+    for Tc in K15_CHUNKS:
+        b = blocks[64: 64 + Tc]
+        kern = lambda b=b: P.K15.enhance_chunk64(state, b, "wiener")  # noqa: E731
+        plain = lambda b=b: E.enhance_chunk_ops(state, b, "wiener")  # noqa: E731
+        ms, plain_ms = median_ms(kern, sync), median_ms(plain, sync)
+        calls = 50
+        before = P.K15.enhance_chunk64.launches
+        wall, busy, kernels, _ = profile_call(lambda: [kern() for _ in range(calls)], sync, top=2)
+        launched = P.K15.enhance_chunk64.launches - before
+        work = PROF.KERNELS["K15"](Tc)
+        b_ms, b_by, b_text = bound_line(work)
+        chain = work.chain_ms(clock)
+        dev_ms = busy / calls
+        print(f"[5 timing] K15 wiener chunk {Tc} on {card}: {ms:.4f} ms a call back to back, "
+              f"device {dev_ms:.4f} ms a call under torch.profiler ({launched} launches for "
+              f"{2 * calls} calls: {[(round(t, 4), c, k[:40]) for t, c, k in kernels]}), plain "
+              f"chain {plain_ms:.3f} ms; {b_text}; one SM's chain {chain:.4f} ms "
+              f"({work.chain_cycles} cycles a row at {clock / 1e9:.2f} GHz)")
+        if Tc == K15_CHUNKS[0]:
+            out = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, chain_ms=chain, library_ms=None)
+    return out
+
+
 def drive_stream(P, dev, x_full, refs, geq, aec, sync):
-    """Phase 4 for streaming with checkpoints, the K6, K8, K9 and K14 counters
-    set to 0 just before and read just after: EnhanceSession at T_FULL in
+    """Phase 4 for streaming with checkpoints, the K6, K8, K9, K14 and K15
+    counters set to 0 just before and read just after (K15's equal to the
+    f64 chunks served): EnhanceSession at T_FULL in
     f64 and f32 (chunks of 4 with a checkpoint at the middle restored into a
     fresh session, and ragged chunks), the CLI's kill-and-resume in
     subprocesses, GEQSession and both AECSessions over one stream each with
@@ -2111,7 +2213,7 @@ def drive_stream(P, dev, x_full, refs, geq, aec, sync):
     from jeicyboodsp_tpu_torch.utils.metrics import snr_db
 
     counted = {"K6": P.K6.geq_cascade_quant, "K8": P.K8.nlms, "K9": P.K9.bnlms,
-               "K14": P.K14.vad_flags}
+               "K14": P.K14.vad_flags, "K15": P.K15.enhance_chunk64}
     work = os.path.join(ROOT, "jeicyboodsp_tpu_torch", "build", "smoke")
     os.makedirs(work, exist_ok=True)
     blocks = x_full.reshape(T_FULL, 512)
@@ -2175,6 +2277,12 @@ def drive_stream(P, dev, x_full, refs, geq, aec, sync):
     sync()
     launches = {k: fn.launches for k, fn in counted.items()}
     print(f"[4 stream] launches {json.dumps(launches)} in {time.perf_counter() - t0:.1f} s")
+    half = T_FULL // 2 // STREAM_CHUNK * STREAM_CHUNK
+    f64_chunks = (_n_chunks(half, [STREAM_CHUNK]) + 2 * _n_chunks(T_FULL - half, [STREAM_CHUNK])
+                  + _n_chunks(T_FULL, STREAM_RAGGED))
+    print(f"[4 stream] K15: {launches['K15']} launches for {f64_chunks} f64 chunks served")
+    if launches["K15"] != f64_chunks:
+        raise RuntimeError(f"K15 launched {launches['K15']} times for {f64_chunks} f64 chunks")
     _vad_chunks_vs_plain(P, dev, blocks, sync)
 
     for name in ("f64", "f32"):
@@ -3394,6 +3502,7 @@ SOURCES = {  # kernel: wrapper name, CUDA source, the TPU wrapper it replaces (f
     "K12": ("fft_pallas", "fft4.cu", "fft_pallas.py:121"),
     "K13": ("enhance_back", "enhance_mxu3.cu", "enhance_pallas.py:837"),
     "K14": ("vad_flags", "vad.cu", "enhance_pallas.py:540"),
+    "K15": ("enhance_chunk64", "enhance_chunk64.cu", None),  # replaces none: XLA ops in JAX
 }
 # the shared device code a kernel's source includes for its main pass
 HEADERS = {"K4": "rfft1024.cuh", "K10": "rfft1024.cuh", "K12": "rfft1024.cuh",
@@ -3444,6 +3553,7 @@ def main() -> int:
     err.update(check_features(P, feat, sync))
     xc, xf = transform_inputs()
     err.update(check_transforms(P, xc, xf, blocks, C, back_ins, sync))
+    err["K15"] = check_k15(P, x_full, sync)
     drive_checks(card)
     cases = {"probe": probe, "full": x_full, "partial": probe[: T_PROBE * 512 - 100],
              "empty": probe[:0]}
@@ -3455,7 +3565,7 @@ def main() -> int:
     launches.update(feat_launches)
     launches.update(drive_transforms(P, xc, xf, x_full, blocks, dev, sync))
     for k, n in drive_stream(P, dev, x_full, refs, geq, aec, sync).items():
-        launches[k] += n  # the stream phase's launches, added to the earlier phases'
+        launches[k] = launches.get(k, 0) + n  # added to the earlier phases'
     drive_mvdr(P, dev, card, sync)
     t_new = time.perf_counter()
     launches.update(drive_aec_fast(P, dev, aec, sync))
@@ -3475,6 +3585,7 @@ def main() -> int:
     times.update(time_features(P, feat, classify, card, sync))
     times.update(time_transforms(P, xc, xf, blocks, C, back_ins, card, sync))
     time_stream(P, dev, x_full, card, sync)
+    times["K15"] = time_k15(P, x_full, card, sync)
     time_speech(P, dev, card, sync, speech_inputs)
     # last: the NCCL world's threads would share the host with the timed phases above
     k14, k10 = drive_parallel(P, dev, x_full, aec, tp, geq, geq_fast, card, sync)
@@ -3487,7 +3598,7 @@ def main() -> int:
         "route": "cuda",
         "source": f"jeicyboodsp_tpu_torch/csrc/{src}",
         **({"header": f"jeicyboodsp_tpu_torch/csrc/{HEADERS[name]}"} if name in HEADERS else {}),
-        "replaces": f"jeicyboodsp_tpu/kernels/{tpu}",
+        "replaces": f"jeicyboodsp_tpu/kernels/{tpu}" if tpu else None,
         "launches": launches[name],
         "max_abs_err": err[name],
         **times[name],

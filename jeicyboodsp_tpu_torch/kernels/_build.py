@@ -74,6 +74,8 @@ ENTRIES = {
     "jb_vad_flags": [_P, _P, _I, _P, _P],
     # re, im (or null), T, n, forward, twiddle tables, out re, out im, stream
     "jb_fft4": [_P, _P, _I, _I, _I] + [_P] * 4,
+    # blocks, Tc, window, twiddles, 6 state in, wiener, out, mask, 6 state out, stream
+    "jb_enhance_chunk64": [_P, _I] + [_P] * 8 + [_I] + [_P] * 9,
 }
 
 _lock = threading.Lock()

@@ -45,6 +45,7 @@ from jeicyboodsp_tpu_torch.io.wav import stale_blocks
 from jeicyboodsp_tpu_torch.kernels.enhance_back import enhance_back
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola3 import enhance_back_ola3
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola8 import enhance_back_ola8
+from jeicyboodsp_tpu_torch.kernels.enhance_chunk64 import enhance_chunk64
 from jeicyboodsp_tpu_torch.kernels.enhance_full8 import (
     enhance_full8, latch_from_rowpack, noise_latch,
 )
@@ -715,44 +716,61 @@ def enhance_chunk(state, blocks, mode: str = "wiener", dtype=torch.float64):
     processing with carried state equals one-shot processing exactly; the
     state dict is what checkpoints persist.
 
+    A float64 chunk on a CUDA card runs as one kernel, K15
+    (:func:`~jeicyboodsp_tpu_torch.kernels.enhance_chunk64.enhance_chunk64`),
+    which reads nothing back to the host; anything else runs the chain as
+    torch ops, :func:`enhance_chunk_ops` (K15's plain version).
+
     While spans are recorded (``utils.metrics``), the call is an
-    ``enhance.chunk`` span holding the stages ``enhance.fft``,
+    ``enhance.chunk`` span holding the stage ``enhance.kernel`` on K15's
+    route, else :func:`enhance_chunk_ops`' spans.
+    """
+    if blocks.dim() != 2 or blocks.shape[1] != BLOCK_LEN or not blocks.shape[0]:
+        raise ValueError(f"blocks must be (Tc, {BLOCK_LEN}) with Tc >= 1, got {tuple(blocks.shape)}")
+    with REGISTRY.span("enhance.chunk"):
+        if blocks.is_cuda and dtype == torch.float64:
+            with REGISTRY.span("enhance.kernel"):
+                return enhance_chunk64(state, blocks.contiguous(), mode)
+        return enhance_chunk_ops(state, blocks, mode, dtype)
+
+
+def enhance_chunk_ops(state, blocks, mode: str = "wiener", dtype=torch.float64):
+    """:func:`enhance_chunk`'s chain as torch ops in ``dtype`` on the
+    blocks' device: its route on the CPU and in float32, and K15's plain
+    version.  While spans are recorded it holds the stages ``enhance.fft``,
     ``enhance.vad``, ``enhance.noise``, ``enhance.resynth`` and
     ``enhance.ola``; each host read of a card value is a ``wait`` span of its
     own (``enhance.cnt``, ``enhance.latch_rows``, ``enhance.noise_rows``,
     ``enhance.halve``, ``enhance.t``).
     """
-    if blocks.dim() != 2 or blocks.shape[1] != BLOCK_LEN or not blocks.shape[0]:
-        raise ValueError(f"blocks must be (Tc, {BLOCK_LEN}) with Tc >= 1, got {tuple(blocks.shape)}")
-    with REGISTRY.span("enhance.chunk"):
-        blocks = blocks.contiguous()
-        Tc = blocks.shape[0]
-        with REGISTRY.span("enhance.fft"):
-            prev = torch.cat([state["prev_block"][None], blocks[:-1]])
-            X = frame_transform(torch.cat([prev, blocks], 1), dtype)
-        with REGISTRY.span("enhance.vad"):
-            speech = vad_flags(blocks, dtype)
-        with REGISTRY.span("enhance.noise"):
-            ns, (cnt, avg, latched) = _noise_scan_carry(
-                speech, X.abs(), (state["cnt"], state["avg"], state["latched"]))
-        with REGISTRY.span("enhance.resynth"):
-            y = gain_and_resynth(X, ns, mode)
-        with REGISTRY.span("enhance.ola"):
-            with REGISTRY.span("enhance.t", "wait"):
-                t0 = int(state["t"])
-            gidx = t0 + torch.arange(Tc, device=blocks.device)
-            tails = torch.cat([state["prev_tail"][None], y[:-1, BLOCK_LEN:]])
-            valid, use_tail = (gidx >= 1)[:, None], gidx >= 2
-            zero = torch.zeros((), dtype=y.dtype, device=y.device)
-            ola = torch.where(valid, y[:, :BLOCK_LEN] + torch.where(use_tail[:, None], tails, zero),
-                              zero)
-            out = torch.where(use_tail[:, None], c_short(ola), 0)
-            new_state = {
-                "cnt": cnt,
-                "avg": avg,
-                "latched": latched,
-                "prev_block": blocks[-1].clone(),
-                "prev_tail": y[-1, BLOCK_LEN:].clone(),
-                "t": state["t"] + Tc,
-            }
-        return out, use_tail, new_state
+    blocks = blocks.contiguous()
+    Tc = blocks.shape[0]
+    with REGISTRY.span("enhance.fft"):
+        prev = torch.cat([state["prev_block"][None], blocks[:-1]])
+        X = frame_transform(torch.cat([prev, blocks], 1), dtype)
+    with REGISTRY.span("enhance.vad"):
+        speech = vad_flags(blocks, dtype)
+    with REGISTRY.span("enhance.noise"):
+        ns, (cnt, avg, latched) = _noise_scan_carry(
+            speech, X.abs(), (state["cnt"], state["avg"], state["latched"]))
+    with REGISTRY.span("enhance.resynth"):
+        y = gain_and_resynth(X, ns, mode)
+    with REGISTRY.span("enhance.ola"):
+        with REGISTRY.span("enhance.t", "wait"):
+            t0 = int(state["t"])
+        gidx = t0 + torch.arange(Tc, device=blocks.device)
+        tails = torch.cat([state["prev_tail"][None], y[:-1, BLOCK_LEN:]])
+        valid, use_tail = (gidx >= 1)[:, None], gidx >= 2
+        zero = torch.zeros((), dtype=y.dtype, device=y.device)
+        ola = torch.where(valid, y[:, :BLOCK_LEN] + torch.where(use_tail[:, None], tails, zero),
+                          zero)
+        out = torch.where(use_tail[:, None], c_short(ola), 0)
+        new_state = {
+            "cnt": cnt,
+            "avg": avg,
+            "latched": latched,
+            "prev_block": blocks[-1].clone(),
+            "prev_tail": y[-1, BLOCK_LEN:].clone(),
+            "t": state["t"] + Tc,
+        }
+    return out, use_tail, new_state

@@ -373,8 +373,12 @@ DOTS = 512 * 512  # MACs of one row through a (512, 512) int8 basis
 # - K9 a block: the estimate's 128 sequential adds (~1024), the energy scan's five
 #   shuffle-adds and the warp totals behind a barrier (~300), four parts' staging of 1/d
 #   behind barriers (~400) and the gradient's 1024 sequential adds (~8192): ~10,000; the
-#   quotients hang off that add chain, each independent of the others.
-CHAIN_CYCLES = {"K6": 67, "K7": 16, "K8": 375, "K9": 10000}
+#   quotients hang off that add chain, each independent of the others;
+# - K15 a row (one block on one SM walks the chunk's rows in order): ~4,000 cycles of that
+#   SM's f64 pipes (64 lanes a clock) for the 1,024 bins' hypot, sqrt, division, atan2, cos
+#   and sin, ~250 f64 instructions a bin, and ten Stockham passes behind barriers, ~130
+#   each: ~5,300.
+CHAIN_CYCLES = {"K6": 67, "K7": 16, "K8": 375, "K9": 10000, "K15": 5300}
 
 
 def _k1(T, hq=True):
@@ -473,11 +477,26 @@ def _k14(N):
                 "bytes: the VAD's 6 operations a sample")
 
 
+# K15's carried state (cnt, avg, latched, prev_block, prev_tail, t), in or out
+_CHUNK_STATE = 4 + 2 * 1024 * 8 + 512 * 2 + 512 * 8 + 4
+# K15's function a row: two 1024-point complex FFTs, the window, the VAD (6 a sample of the
+# block), 16 a bin (|X|, the noise step, the gain, atan2, cos, sin and Y, each function one
+# operation) and the OLA (2 a sample)
+CHUNK_ROW_FLOPS = 2 * 5 * 1024 * 10 + 1024 + 6 * 512 + 16 * 1024 + 2 * 512
+
+
+def _k15(Tc):
+    return Work(Tc * 512 * 2 + 2 * _CHUNK_STATE + 1024 * 8 + 1024 * 2 * 8 + Tc * 512 * 2 + Tc,
+                CHUNK_ROW_FLOPS * Tc, "f64",
+                "the chunk's f64 function, rows in order on one SM: its chain is the bound",
+                CHAIN_CYCLES["K15"], Tc)
+
+
 KERNELS = {
     "K1": _k1, "K2": _k2, "K3": _k3, "K4": _k4, "K5": _k5,
     "K6": _k6, "K6f32": lambda B, T: _k6(B, T, "f32"),
     "K7": _k7,
     "K8": _k8, "K8f32": lambda B, T: _k8(B, T, "f32"),
     "K9": _k9, "K9f32": lambda B, T, n_open: _k9(B, T, n_open, "f32"),
-    "K10": _k10, "K11": _k11, "K12": _k12, "K13": _k13, "K14": _k14,
+    "K10": _k10, "K11": _k11, "K12": _k12, "K13": _k13, "K14": _k14, "K15": _k15,
 }

@@ -74,7 +74,7 @@ def test_peaks_are_the_h100_s():
     assert P.HBM_BPS == 3.35e12
 
 
-KERNEL_NAMES = {f"K{i}" for i in range(1, 15)} | {"K6f32", "K8f32", "K9f32"}
+KERNEL_NAMES = {f"K{i}" for i in range(1, 16)} | {"K6f32", "K8f32", "K9f32"}
 
 
 def test_kernels_cover_k1_to_k14_and_the_f32_instances():
@@ -188,9 +188,24 @@ def test_other_kernels_bytes_are_their_tensors():
     assert P.KERNELS["K14"](N).nbytes == _nbytes(blocks, w, K14.vad_flags(blocks, w))
 
 
+def test_k15_bytes_are_its_tensors_and_its_chain_the_bound():
+    from jeicyboodsp_tpu_torch.kernels import enhance_chunk64 as K15
+    from jeicyboodsp_tpu_torch.ops import enhance as E
+
+    Tc = 3
+    blocks = torch.from_numpy(np.random.default_rng(7).integers(-3000, 3000, (Tc, 512))
+                              .astype(np.int16))
+    state = E.stream_init_state(torch.float64, device="cpu")
+    out, mask, new = K15.enhance_chunk64(state, blocks)
+    w = P.KERNELS["K15"](Tc)
+    assert w.nbytes == _nbytes(blocks, *state.values(), *K15.constants(torch.device("cpu")),
+                               out, mask, *new.values())
+    assert w.unit == "f64" and w.chain_steps == Tc and w.chain_ms() > 100 * w.bound()[0]
+
+
 def test_recursions_carry_a_chain_and_the_others_none():
     for name, args in (("K6", (2, 100)), ("K7", (2, 100)), ("K8", (2, 100)),
-                       ("K9", (2, 2048, 1))):
+                       ("K9", (2, 2048, 1)), ("K15", (2,))):
         w = P.KERNELS[name](*args)
         assert w.chain_cycles == P.CHAIN_CYCLES[name] and w.chain_ms() > 0
     assert P.KERNELS["K8"](1, 100).chain_steps == 100 and P.KERNELS["K6"](1, 100).chain_steps == 112

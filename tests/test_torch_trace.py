@@ -6,8 +6,10 @@ neither jax nor the JAX package, so it runs on a card's host too:
     python -m pytest --noconftest -q tests/test_torch_trace.py
 
 Off, a site records nothing and reads no clock; on, each call's spans form
-the tree below, children inside their parents, one request id a chunk,
-copies and waits apart, the outputs bit-equal to an unrecorded run.  The
+the trees below (on a card a Wiener chunk runs as one kernel, K15, so its
+``enhance.chunk`` holds ``enhance.kernel`` alone), children inside their
+parents, one request id a chunk, copies and waits apart, the outputs
+bit-equal to an unrecorded run.  The
 card tests (skipped without CUDA) hold every synchronising call that torch
 flags inside a ``copy`` or ``wait`` span, and print what the spans cost
 (``-s``), each line naming the card.
@@ -50,6 +52,9 @@ ENHANCE_TREE = [  # (name, kind, parent's name)
     ("session.drain", "wait", "session.process"),  # on a card only
     ("session.out", "copy", "session.process"),
 ]
+# a float64 chunk on a card runs as one kernel, K15 (ops.enhance.enhance_chunk)
+ENHANCE_CARD_TREE = (ENHANCE_TREE[:3] + [("enhance.kernel", "stage", "enhance.chunk")]
+                     + ENHANCE_TREE[-2:])
 APPLY_TREE = [
     ("nlms.apply", "stage", None),
     ("nlms.state_in", "copy", "nlms.apply"),
@@ -113,6 +118,8 @@ class Case:
 
     def expected(self):
         card = self.dev.type == "cuda"
+        if card and self.name == "enhance":
+            return ENHANCE_CARD_TREE
         return [t for t in self.tree if card or t[0] not in CARD_ONLY]
 
 
