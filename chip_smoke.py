@@ -617,20 +617,23 @@ def check_kernels(P, blocks, C, rowpack, speech, sync):
         rel = max(rel_err(got[i], want[i]) for i in planes)
         bit_equal = all(torch.equal(got[i], want[i]) for i in planes)
         flags_diff = int((got[5] != want[5]).sum())
+        nz_diff = int((got[6] != want[6]).sum())
         vad_diff = int(((got[5][:, 0] > 0.5) != speech).sum())
         print(f"[3 kernel-vs-plain] {name} T={T_FULL}: planes bit-equal {bit_equal}, "
               f"max err/rowmax {rel:.2e}, max |err| {err[name]:.3e}, Nyquist max |err| "
               f"{float((got[2] - want[2]).abs().max()):.3e}; speech flags differing from the "
-              f"plain version {flags_diff}, from vad_flags {vad_diff} of {T_FULL}")
-        if flags_diff:
-            raise RuntimeError(f"{name}: {flags_diff} speech flags differ from the plain version")
+              f"plain version {flags_diff}, from vad_flags {vad_diff} of {T_FULL}; frame flags "
+              f"differing {nz_diff}")
+        if flags_diff or nz_diff:
+            raise RuntimeError(f"{name}: {flags_diff} speech flags and {nz_diff} frame flags "
+                               "differ from the plain version")
         if name == "K2" and not bit_equal:
             raise RuntimeError("K2: re/im/|X| planes are not bit-equal to the plain version")
         if name == "K2" and not rel <= F32_RTOL:
             raise RuntimeError(f"{name}: planes differ by {rel:.2e} of the row max > {F32_RTOL}")
         if name == "K4":
             check_k4(P, blocks, got, want, sync)
-        re, im, re_n, mag, mag_n, sp = got
+        re, im, re_n, mag, mag_n, sp, nz = got
         rp = P.E._latch_rowpack(sp[:, 0] > 0.5)
         ns, ns_n = P.K1.noise_latch(rp, mag, mag_n)
         want_ns = P.K1.latch_from_rowpack(rp, torch.cat([mag, mag_n], 1), 64)
@@ -641,7 +644,7 @@ def check_kernels(P, blocks, C, rowpack, speech, sync):
               f"{lrel:.2e}; {int((rp[:, 2] >= 0).sum())} rows latched")
         if not lrel <= LATCH_RTOL:
             raise RuntimeError(f"noise latch differs by {lrel:.2e} > {LATCH_RTOL}")
-        back_ins[name] = (re, im, re_n, ns, ns_n)
+        back_ins[name] = (re, im, re_n, ns, ns_n, nz)
 
     for name, (kernel, plain, fwd) in {
             "K3": (P.K3.enhance_back_ola8, P.K3.enhance_back_ola8_plain, "K2"),
@@ -786,8 +789,8 @@ def gemm_cores(P, blocks, C, back_ins):
     # B operands column-major, the layout cuBLAS's int8 GEMM takes without a copy
     b2 = torch.cat([torch.cat([w8[i], w8[i + 1], w8[i + 4], w8[i + 5]], 1)
                     for i in (0, 2)]).t().contiguous().t()  # (1024, 2048): 16 dots' MACs
-    re, im, re_n, ns, ns_n = back_ins["K2"]
-    g, _ = K1.bin_gain(re, im, re_n[:, 0], ns, ns_n[:, 0], "wiener")
+    re, im, re_n, ns, ns_n, nz = back_ins["K2"]
+    g, _ = K1.bin_gain(re, im, re_n[:, 0], ns, ns_n[:, 0], nz[:, 0], "wiener")
     qre, qim = (K1._quant_row_int8(Y, True) for Y in (re * g, im * g))
     a3 = torch.cat([torch.cat([qre[i], qim[i]], 1) for i in (0, 1, 3)]).to(i8)  # h, l, z2
     u8 = C["back8"].transpose(1, 2)  # [k, s]: Uh Ul Vh Vl
@@ -795,8 +798,8 @@ def gemm_cores(P, blocks, C, back_ins):
                     torch.cat([u8[2], u8[3]], 1)]).t().contiguous().t()  # (1024, 1024)
     frames = P.K4.frames_f32(blocks)
     wcs = torch.cat([C["WC"], C["WS"]], 1)  # (1024, 1024)
-    re, im, re_n, ns, ns_n = back_ins["K4"]
-    g, _ = K1.bin_gain(re, im, re_n[:, 0], ns, ns_n[:, 0], "wiener")
+    re, im, re_n, ns, ns_n, nz = back_ins["K4"]
+    g, _ = K1.bin_gain(re, im, re_n[:, 0], ns, ns_n[:, 0], nz[:, 0], "wiener")
     y5 = torch.stack([re * g, im * g])
     b5 = torch.stack([C["UC512"], C["VS512"]])
     return {"K1": None, "K2": lambda: torch._int_mm(a2, b2), "K3": lambda: torch._int_mm(a3, b3),
@@ -879,10 +882,10 @@ def time_chains(P, blocks, C, card, sync):
         fwd, back = ((P.K2.enhance_fwd_int8_plain, P.K3.enhance_back_ola8_plain)
                      if eng == "mxu8" else
                      (P.K4.enhance_fwd_plain, P.K5.enhance_back_ola3_plain))
-        re, im, re_n, mag, mag_n, sp = fwd(blocks, C)
+        re, im, re_n, mag, mag_n, sp, nz = fwd(blocks, C)
         ns = K1.latch_from_rowpack(E._latch_rowpack(sp[:, 0] > 0.5),
                                    torch.cat([mag, mag_n], 1), 64)
-        return back(re, im, re_n, ns[:, :512].contiguous(), ns[:, 512:].contiguous(), C,
+        return back(re, im, re_n, ns[:, :512].contiguous(), ns[:, 512:].contiguous(), nz, C,
                     "wiener")
 
     for eng in FLOORS:

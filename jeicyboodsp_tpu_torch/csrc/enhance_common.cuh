@@ -68,22 +68,29 @@ __device__ float block_reduce(float v, float* red) {
 }
 
 // Wiener or spectral-subtraction gain of one bin (a, b) and of the
-// Nyquist bin rn, from the noise estimates ns, nsn.  0/0 -> NaN, as the
-// reference.
+// Nyquist bin rn, from the noise estimates ns, nsn.  A bin at exactly 0
+// with its estimate at 0 is 0/0.  In a frame that holds a nonzero sample
+// (nz) its gain is 1, so it contributes its 0, the reference's value: the
+// reference's float64 spectrum has no exactly-zero bin in such a frame,
+// while a quantized or float32 one can.  In an all-zero frame (!nz) it
+// stays NaN, as in the reference, and c_short writes the row and the next
+// as zeros.  Every other bin's gain is the division's.  (The TPU kernels
+// leave every 0/0 NaN.)
 __device__ __forceinline__ void bin_gain(float a, float b, float rn, float ns,
-                                         float nsn, int wiener, float* gk,
+                                         float nsn, int wiener, int nz, float* gk,
                                          float* gn) {
   if (wiener) {
     const float P = a * a + b * b;
-    const float v = ns * ns / P;
+    const float v = (nz && ns == 0.0f && P == 0.0f) ? 0.0f : ns * ns / P;
     *gk = 1.0f - (v >= 1.0f ? 1.0f : v);
-    const float vn = nsn * nsn / (rn * rn);
+    const float Pn = rn * rn;
+    const float vn = (nz && nsn == 0.0f && Pn == 0.0f) ? 0.0f : nsn * nsn / Pn;
     *gn = 1.0f - (vn >= 1.0f ? 1.0f : vn);
   } else {
     const float mag = sqrtf(a * a + b * b);
-    *gk = (mag - ns) / mag;
+    *gk = (nz && ns == 0.0f && mag == 0.0f) ? 1.0f : (mag - ns) / mag;
     const float magn = fabsf(rn);
-    *gn = (magn - nsn) / magn;
+    *gn = (nz && nsn == 0.0f && magn == 0.0f) ? 1.0f : (magn - nsn) / magn;
   }
 }
 
@@ -352,16 +359,21 @@ inline cudaError_t launch_fwd8(const int16_t* x, int T, const int8_t* W, const f
 }
 
 // The Nyquist bin of row t, prev . nyq[:512] + cur . nyq[512:], as a true
-// f32 dot; one block of ROW_THREADS threads.  Every thread gets the sum.
+// f32 dot; one block of ROW_THREADS threads.  Every thread gets the sum,
+// and in *nz whether the frame [x[t-1], x[t]] holds a nonzero sample.
 __device__ __forceinline__ float nyq_row(const int16_t* __restrict__ x,
                                          const float* __restrict__ nyq, int t,
-                                         float* red) {
+                                         float* red, int* nz) {
   float sp = 0.0f, sc = 0.0f;
+  int any = 0;
   for (int k = threadIdx.x; k < N; k += blockDim.x) {
-    const float p = t > 0 ? (float)x[(size_t)(t - 1) * N + k] : 0.0f;
-    sp = sp + p * nyq[k];
-    sc = sc + (float)x[(size_t)t * N + k] * nyq[N + k];
+    const int p = t > 0 ? x[(size_t)(t - 1) * N + k] : 0;
+    const int c = x[(size_t)t * N + k];
+    any |= p | c;
+    sp = sp + (float)p * nyq[k];
+    sc = sc + (float)c * nyq[N + k];
   }
+  *nz = __syncthreads_or(any);
   sp = block_reduce<false>(sp, red);
   sc = block_reduce<false>(sc, red);
   return sp + sc;
@@ -369,7 +381,9 @@ __device__ __forceinline__ float nyq_row(const int16_t* __restrict__ x,
 
 // Per-row epilogue of the forward kernels K2 and K4, one block of
 // ROW_THREADS threads per row t: the Nyquist bin ren, |X| = sqrt(re^2 +
-// im^2) (re null: K2's forward pass wrote it), |ren|, and the VAD flag with
+// im^2) (re null: K2's forward pass wrote it), |ren|, the frame flag nz (1
+// where the frame [x[t-1], x[t]] holds a nonzero sample), and the VAD flag
+// with
 // the semantics of _vad_rows
 // (enhance_pallas.py:57-69): s = c_short(x * w2) (int16 window
 // truncation), energy = sum(s^2)/1024 > 700, ZCR = #{s[i]*x[i+1] < 0}
@@ -385,10 +399,12 @@ __device__ __forceinline__ void rowstat_body(const int16_t* __restrict__ x,
                                              float* __restrict__ ren,
                                              float* __restrict__ mag,
                                              float* __restrict__ magn,
-                                             float* __restrict__ sp) {
+                                             float* __restrict__ sp,
+                                             float* __restrict__ nz) {
   __shared__ float red[32];
   const int t = blockIdx.x;
-  const float rn = nyq_row(x, nyq, t, red);
+  int any;
+  const float rn = nyq_row(x, nyq, t, red, &any);
   const int16_t* xr = x + (size_t)t * N;
   float e = 0.0f, z = 0.0f;
   for (int k = threadIdx.x; k < N; k += blockDim.x) {
@@ -408,22 +424,23 @@ __device__ __forceinline__ void rowstat_body(const int16_t* __restrict__ x,
     ren[t] = rn;
     magn[t] = fabsf(rn);
     sp[t] = (e * (1.0f / 1024.0f) > 700.0f || z < 200.0f) ? 1.0f : 0.0f;
+    nz[t] = any ? 1.0f : 0.0f;
   }
 }
 
 // Gain and per-row two-level int8 quantization of row t, one block of N
-// threads (thread k = bin k): Y = X*g, Yren = ren*gn, then Z = rint(Y *
-// 32512/rowmax) = 256h + l + 128 and (hq) the level-2 residual plane z2;
-// the y512 column.  q8: 6 int8 planes (T, 512): h_re, l_re, z2_re, h_im,
+// threads (thread k = bin k): Y = X*g, Yren = ren*gn (bin_gain, with the
+// row's frame flag nz), then Z = rint(Y * 32512/rowmax) = 256h + l + 128
+// and (hq) the level-2 residual plane z2; the y512 column.  q8: 6 int8 planes (T, 512): h_re, l_re, z2_re, h_im,
 // l_im, z2_im; rowsc[t]: q_re, q2_re, q_im, q2_im, Yren, y512.
 __device__ __forceinline__ void gain_quant_body(
-    float a, float b, float rn, float ns, float nsn,
+    float a, float b, float rn, float ns, float nsn, int nz,
     const float* __restrict__ y512col, int8_t* __restrict__ q8,
     float* __restrict__ rowsc, int T, int wiener, int hq) {
   __shared__ float red[32];
   const int t = blockIdx.x, k = threadIdx.x;
   float gk, gn;
-  bin_gain(a, b, rn, ns, nsn, wiener, &gk, &gn);
+  bin_gain(a, b, rn, ns, nsn, wiener, nz, &gk, &gn);
   const float Y[2] = {a * gk, b * gk};
   const float yren = rn * gn;
   const size_t plane = (size_t)T * N;

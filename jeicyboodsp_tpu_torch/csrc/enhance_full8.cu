@@ -12,7 +12,9 @@
 //   1. fwd8_kernel     int8-split forward rDFT on the tensor cores -> re,
 //                      im planes (the prev row is input row t-1, zeros for
 //                      t = 0; enhance_common.cuh, shared with K2)
-//   2. nyq_kernel      the Nyquist bin as a true f32 dot -> ren
+//   2. nyq_kernel      the Nyquist bin as a true f32 dot -> ren, and the
+//                      frame flag nz (whether [x[t-1], x[t]] holds a
+//                      nonzero sample: bin_gain's 0/0 rule)
 //   3. latch_prefix    per-chunk (L rows) inclusive sums of w_j*|X_j|
 //   4. latch_scan      A0_{c+1} = a_c*A0_c + a_c*S_c over the T/L chunks
 //   5. gain_quant      ns = p_g*(P[g] + A0[chunk(g)]), gain, two-level
@@ -42,10 +44,14 @@ constexpr int LATCH_COLS = 128;  // bins (threads) per block of the latch passes
 
 __global__ void nyq_kernel(const int16_t* __restrict__ x,
                            const float* __restrict__ nyq,
-                           float* __restrict__ ren) {
+                           float* __restrict__ ren, float* __restrict__ nz) {
   __shared__ float red[32];
-  const float v = nyq_row(x, nyq, blockIdx.x, red);
-  if (threadIdx.x == 0) ren[blockIdx.x] = v;
+  int any;
+  const float v = nyq_row(x, nyq, blockIdx.x, red, &any);
+  if (threadIdx.x == 0) {
+    ren[blockIdx.x] = v;
+    nz[blockIdx.x] = any ? 1.0f : 0.0f;
+  }
 }
 
 // 3. inclusive prefix of w_j*m_j within each chunk of L rows, bins k <
@@ -125,15 +131,16 @@ __global__ void latch_gather_kernel(const float* __restrict__ rowpack,
 // 5. of K1: one block of N threads per row.
 __global__ void __launch_bounds__(N) gain_quant_kernel(
     const float* __restrict__ re, const float* __restrict__ im,
-    const float* __restrict__ ren, const float* __restrict__ rowpack,
-    const float* __restrict__ pfx, const float* __restrict__ A0,
-    const float* __restrict__ y512col, int8_t* __restrict__ q8,
-    float* __restrict__ rowsc, int T, int L, int wiener, int hq) {
+    const float* __restrict__ ren, const float* __restrict__ nz,
+    const float* __restrict__ rowpack, const float* __restrict__ pfx,
+    const float* __restrict__ A0, const float* __restrict__ y512col,
+    int8_t* __restrict__ q8, float* __restrict__ rowsc, int T, int L, int wiener,
+    int hq) {
   const int t = blockIdx.x, k = threadIdx.x;
   const float ns = latched(rowpack, pfx, A0, t, k, L);
   const float nsn = latched(rowpack, pfx, A0, t, N, L);
   gain_quant_body(re[(size_t)t * N + k], im[(size_t)t * N + k], ren[t], ns, nsn,
-                  y512col, q8, rowsc, T, wiener, hq);
+                  nz[t] != 0.0f, y512col, q8, rowsc, T, wiener, hq);
 }
 
 __global__ void __launch_bounds__(N) ola_kernel(const float* __restrict__ uv,
@@ -146,7 +153,7 @@ __global__ void __launch_bounds__(N) ola_kernel(const float* __restrict__ uv,
 }  // namespace
 
 // Launches passes 1-7 on `stream`.  Every buffer is allocated by the caller:
-//   re, im (T, 512) f32; ren (T,) f32; pfx (T, 513) f32; A0 (T/L, 513) f32;
+//   re, im (T, 512) f32; ren, nz (T,) f32; pfx (T, 513) f32; A0 (T/L, 513) f32;
 //   q8 (6, T, 512) int8; rowsc (T, 8) f32; uv (2, T, 512) f32;
 //   out (T, 512) int16.
 // T must be a multiple of L and of 8.  Returns cudaGetLastError().
@@ -155,18 +162,18 @@ extern "C" int jb_enhance_full8(
     int emit_all, const int8_t* fwd8, const float* fscales, const float* fcrows,
     const float* nyq, const int8_t* back8, const float* bscales,
     const float* bcrows, const float* u_nyq, const float* y512col, float* re,
-    float* im, float* ren, float* pfx, float* A0, int8_t* q8, float* rowsc,
+    float* im, float* ren, float* nz, float* pfx, float* A0, int8_t* q8, float* rowsc,
     float* uv, int16_t* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int C = T / L;
   const int kb = (NB + LATCH_COLS - 1) / LATCH_COLS;
   cudaError_t e = launch_fwd8(x, T, fwd8, fscales, fcrows, re, im, nullptr, st);
   if (e != cudaSuccess) return (int)e;
-  nyq_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, ren);
+  nyq_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, ren, nz);
   latch_prefix_kernel<false><<<dim3(C, kb), LATCH_COLS, 0, st>>>(re, im, ren, rowpack, pfx,
                                                                L);
   latch_scan_kernel<<<kb, LATCH_COLS, 0, st>>>(pfx, rowpack, A0, C, L);
-  gain_quant_kernel<<<T, N, 0, st>>>(re, im, ren, rowpack, pfx, A0, y512col,
+  gain_quant_kernel<<<T, N, 0, st>>>(re, im, ren, nz, rowpack, pfx, A0, y512col,
                                      q8, rowsc, T, L, wiener, hq);
   e = launch_inv8(q8, T, back8, bscales, bcrows, rowsc, u_nyq, uv, hq, st);
   if (e != cudaSuccess) return (int)e;

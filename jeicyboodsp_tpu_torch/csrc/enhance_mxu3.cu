@@ -7,8 +7,9 @@
 //   1. rfft_fwd_kernel  per frame [x[t-1] | x[t]] (x[-1] = 0) the windowed
 //                       real FFT of rfft1024.cuh: re, im and |X| of bins
 //                       0..511 from its split
-//   2. rowstat_kernel   per row: the Nyquist dot, |ren|, VAD flags (it reads
-//                       only the blocks: re == nullptr)
+//   2. rowstat_kernel   per row: the Nyquist dot, |ren|, VAD flags and the
+//                       frame flags of bin_gain's 0/0 rule (it reads only
+//                       the blocks: re == nullptr)
 // The TPU kernel computes the window-folded DFT as dense GEMMs ([prev, cur]
 // @ WC, @ WS, K = 1024) because its matrix unit was the fast unit.  The same
 // function as a real FFT is about 5.5e8 f32 flops at T = 16384 (0.008 ms at
@@ -107,14 +108,16 @@ __global__ void __launch_bounds__(ROW_THREADS) rowstat_kernel(
     const int16_t* __restrict__ x, const float* __restrict__ nyq,
     const float* __restrict__ w2, const float* __restrict__ re,
     const float* __restrict__ im, float* __restrict__ ren,
-    float* __restrict__ mag, float* __restrict__ magn, float* __restrict__ sp) {
-  rowstat_body(x, nyq, w2, re, im, ren, mag, magn, sp);
+    float* __restrict__ mag, float* __restrict__ magn, float* __restrict__ sp,
+    float* __restrict__ nz) {
+  rowstat_body(x, nyq, w2, re, im, ren, mag, magn, sp, nz);
 }
 
-// bin_gain's gk with the division as div.full.f32 and the square root as
-// sqrt.approx.f32: each within 2 ulp of the IEEE result, 0/0 NaN, x/0
-// infinite and sqrt(0) 0 as there, and without the IEEE forms' slow-path
-// branches, which serialised the chunks' preparation
+// bin_gain's gk (its 0/0 rule with the frame flag nz included) with the
+// division as div.full.f32 and the square root as sqrt.approx.f32: each
+// within 2 ulp of the IEEE result, 0/0 NaN, x/0 infinite and sqrt(0) 0 as
+// there, and without the IEEE forms' slow-path branches, which serialised
+// the chunks' preparation
 __device__ __forceinline__ float div_full(float x, float y) {
   float r;
   asm("div.full.f32 %0, %1, %2;\n" : "=f"(r) : "f"(x), "f"(y));
@@ -125,26 +128,29 @@ __device__ __forceinline__ float sqrt_approx(float x) {
   asm("sqrt.approx.f32 %0, %1;\n" : "=f"(r) : "f"(x));
   return r;
 }
-__device__ __forceinline__ float bin_gain_full(float a, float b, float ns, int wiener) {
+__device__ __forceinline__ float bin_gain_full(float a, float b, float ns, int wiener,
+                                               int nz) {
   if (wiener) {
-    const float v = div_full(ns * ns, a * a + b * b);
+    const float P = a * a + b * b;
+    const float v = (nz && ns == 0.0f && P == 0.0f) ? 0.0f : div_full(ns * ns, P);
     return 1.0f - (v >= 1.0f ? 1.0f : v);
   }
   const float mag = sqrt_approx(a * a + b * b);
-  return div_full(mag - ns, mag);
+  return (nz && ns == 0.0f && mag == 0.0f) ? 1.0f : div_full(mag - ns, mag);
 }
 
 // The Nyquist bin's Y: ren * gn (bin_gain's gn; its other operands fold)
-__device__ __forceinline__ float nyq_y(float rn, float nsn, int wiener) {
+__device__ __forceinline__ float nyq_y(float rn, float nsn, int wiener, int nz) {
   float gk, gn;
-  bin_gain(1.0f, 0.0f, rn, 0.0f, nsn, wiener, &gk, &gn);
+  bin_gain(1.0f, 0.0f, rn, 0.0f, nsn, wiener, nz, &gk, &gn);
   return rn * gn;
 }
 
 // K5 and K13 pass 1: the x3_kernel policy (tf32x3.cuh).  Raw chunks: the
 // re, im and ns rows; prepare turns them into the TF32 halves of Yre = re*g
 // and Yim = im*g (g as bin_gain, but for the last 2 ulp of its division
-// and square root; rows t >= T zero), and the blocks of column block 0,
+// and square root; rows t >= T zero; the frame flags nz as K4 wrote them),
+// and the blocks of column block 0,
 // which see every k of their rows, sum y512 = Yre . ycol[:512] + Yren*ycol[512] on the way; the
 // epilogue adds Yren*u_nyq to u and writes head = u - v, w2 = u + v.
 struct BackOp {
@@ -152,10 +158,11 @@ struct BackOp {
   int T;
   CUtensorMap amap[NA];  // re, im, ns (T, 512)
   CUtensorMap bmap;      // back32: TF32 halves of UC512, VS512 transposed, (2048, 512) [s][k]
-  const float *ren, *nsn, *u_nyq, *ycol;
+  const float *ren, *nsn, *nz, *u_nyq, *ycol;
   float* hw;    // (2, T, 512): head, then w2
   float* y512;  // (T,)
   int wiener;
+  __device__ int frame_nz(int t) const { return nz[t] != 0.0f; }
   struct State {
     float y[2];  // y512 partial sums of this thread's two rows
   };
@@ -170,9 +177,10 @@ struct BackOp {
     const float a[4] = {a4.x, a4.y, a4.z, a4.w}, b[4] = {b4.x, b4.y, b4.z, b4.w};
     const float n[4] = {n4.x, n4.y, n4.z, n4.w};
     float ya[4], yb[4];
+    const int f = t < T && frame_nz(t);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float gk = bin_gain_full(a[e], b[e], n[e], wiener);
+      const float gk = bin_gain_full(a[e], b[e], n[e], wiener, f);
       ya[e] = t < T ? a[e] * gk : 0.0f;
       yb[e] = t < T ? b[e] * gk : 0.0f;
     }
@@ -202,7 +210,8 @@ struct BackOp {
       v = v + __shfl_xor_sync(0xffffffffu, v, 1);
       v = v + __shfl_xor_sync(0xffffffffu, v, 2);
       const int t = t0 + (threadIdx.x >> 2) + 64 * j;
-      if ((threadIdx.x & 3) == 0 && t < T) y512[t] = v + nyq_y(ren[t], nsn[t], wiener) * ycol[N];
+      if ((threadIdx.x & 3) == 0 && t < T)
+        y512[t] = v + nyq_y(ren[t], nsn[t], wiener, frame_nz(t)) * ycol[N];
     }
   }
 
@@ -212,7 +221,7 @@ struct BackOp {
     for (int hr = 0; hr < 2; ++hr) {  // this thread's two rows
       const int t = t0 + x3_row(2 * hr);
       if (t >= T) continue;
-      const float yren = nyq_y(ren[t], nsn[t], wiener);
+      const float yren = nyq_y(ren[t], nsn[t], wiener, frame_nz(t));
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int s = n0 + x3_col(j, 0);
@@ -261,11 +270,11 @@ __global__ void __launch_bounds__(N) ola_hw_kernel(const float* __restrict__ hw,
 
 // K5's and K13's pass 1 on `st`: the policy with its TMA maps, then the launch
 cudaError_t launch_back(const float* re, const float* im, const float* ren, const float* ns,
-                        const float* nsn, int T, int wiener, const float* back32,
-                        const float* u_nyq, const float* y512col, float* hw, float* y512,
-                        cudaStream_t st) {
+                        const float* nsn, const float* nz, int T, int wiener,
+                        const float* back32, const float* u_nyq, const float* y512col,
+                        float* hw, float* y512, cudaStream_t st) {
   BackOp op;
-  op.T = T, op.ren = ren, op.nsn = nsn, op.u_nyq = u_nyq, op.ycol = y512col;
+  op.T = T, op.ren = ren, op.nsn = nsn, op.nz = nz, op.u_nyq = u_nyq, op.ycol = y512col;
   op.hw = hw, op.y512 = y512, op.wiener = wiener;
   const float* planes[3] = {re, im, ns};
   for (int m = 0; m < 3; ++m) {
@@ -280,28 +289,29 @@ cudaError_t launch_back(const float* re, const float* im, const float* ren, cons
 
 // K4.  rfft: (RF_CONSTS,) f32, rfft1024.cuh's constants with the Hamming
 // window.  Outputs from the caller: re, im, mag (T, 512) f32; ren, magn, sp
-// (T,) f32.
+// (T,) f32; nz (T,) f32, the frame flags.
 extern "C" int jb_enhance_fwd(const int16_t* x, int T, const float* rfft, const float* nyq,
                               const float* w2, float* re, float* im, float* ren, float* mag,
-                              float* magn, float* sp, void* stream) {
+                              float* magn, float* sp, float* nz, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = rf_grid(rfft_fwd_kernel, RF_SMEM, (T + RF_FPB - 1) / RF_FPB);
   rfft_fwd_kernel<<<grid, RF_THREADS, RF_SMEM, st>>>(x, T, rfft, re, im, mag);
-  rowstat_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, w2, nullptr, nullptr, ren, mag, magn, sp);
+  rowstat_kernel<<<T, ROW_THREADS, 0, st>>>(x, nyq, w2, nullptr, nullptr, ren, mag, magn, sp,
+                                            nz);
   return (int)cudaGetLastError();
 }
 
 // K5.  back32: (4, 512, 512) f32, the TF32 halves hi, lo of UC512, then of
-// VS512, each transposed, [s][k].  Scratch from the caller: hw (2, T, 512) f32, y512
-// (T,) f32; out (T, 512) int16.
+// VS512, each transposed, [s][k].  nz (T,) f32: K4's frame flags.
+// Scratch from the caller: hw (2, T, 512) f32, y512 (T,) f32; out (T, 512) int16.
 extern "C" int jb_enhance_back_ola3(
     const float* re, const float* im, const float* ren, const float* ns,
-    const float* nsn, int T, int wiener, int emit_all, const float* back32,
+    const float* nsn, const float* nz, int T, int wiener, int emit_all, const float* back32,
     const float* u_nyq, const float* y512col, float* hw, float* y512, int16_t* out,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      launch_back(re, im, ren, ns, nsn, T, wiener, back32, u_nyq, y512col, hw, y512, st);
+      launch_back(re, im, ren, ns, nsn, nz, T, wiener, back32, u_nyq, y512col, hw, y512, st);
   if (e != cudaSuccess) return (int)e;
   ola_hw_kernel<<<(T + OLA_ROWS - 1) / OLA_ROWS, N, 0, st>>>(hw, y512, out, T, emit_all);
   return (int)cudaGetLastError();
@@ -310,9 +320,10 @@ extern "C" int jb_enhance_back_ola3(
 // K13.  As K5's pass 1; outputs from the caller: hw (2, T, 512) f32 (head,
 // then w2), y512 (T,) f32.
 extern "C" int jb_enhance_back(const float* re, const float* im, const float* ren,
-                               const float* ns, const float* nsn, int T, int wiener,
-                               const float* back32, const float* u_nyq,
+                               const float* ns, const float* nsn, const float* nz, int T,
+                               int wiener, const float* back32, const float* u_nyq,
                                const float* y512col, float* hw, float* y512, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)launch_back(re, im, ren, ns, nsn, T, wiener, back32, u_nyq, y512col, hw, y512, st);
+  return (int)launch_back(re, im, ren, ns, nsn, nz, T, wiener, back32, u_nyq, y512col, hw, y512,
+                          st);
 }

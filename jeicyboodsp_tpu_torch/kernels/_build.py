@@ -36,18 +36,19 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argument types of each C entry: every pointer (and the stream) as c_void_p
 ENTRIES = {
-    # x, rowpack, T, L, wiener, hq, emit_all, 9 constants, 9 buffers, stream
-    "jb_enhance_full8": [_P, _P] + [_I] * 5 + [_P] * 19,
+    # x, rowpack, T, L, wiener, hq, emit_all, 9 constants, 10 buffers, stream
+    "jb_enhance_full8": [_P, _P] + [_I] * 5 + [_P] * 20,
     # mag, magn, rowpack, T, L, pfx, A0, ns, nsn, stream
     "jb_noise_latch": [_P, _P, _P, _I, _I] + [_P] * 5,
-    # x, T, fwd8, fscales, fcrows, nyq, w2, re, im, ren, mag, magn, sp, stream
-    "jb_enhance_fwd_int8": [_P, _I] + [_P] * 12,
-    # re, im, ren, ns, nsn, T, wiener, hq, emit_all, 5 constants, q8, rowsc, uv, out, stream
-    "jb_enhance_back_ola8": [_P] * 5 + [_I] * 4 + [_P] * 10,
-    # x, T, rfft, nyq, w2, re, im, ren, mag, magn, sp, stream
-    "jb_enhance_fwd": [_P, _I] + [_P] * 10,
-    # re, im, ren, ns, nsn, T, wiener, emit_all, 3 constants, hw, y512, out, stream
-    "jb_enhance_back_ola3": [_P] * 5 + [_I] * 3 + [_P] * 7,
+    # x, T, fwd8, fscales, fcrows, nyq, w2, re, im, ren, mag, magn, sp, nz, stream
+    "jb_enhance_fwd_int8": [_P, _I] + [_P] * 13,
+    # re, im, ren, ns, nsn, nz, T, wiener, hq, emit_all, 5 constants, q8, rowsc, uv, out,
+    # stream
+    "jb_enhance_back_ola8": [_P] * 6 + [_I] * 4 + [_P] * 10,
+    # x, T, rfft, nyq, w2, re, im, ren, mag, magn, sp, nz, stream
+    "jb_enhance_fwd": [_P, _I] + [_P] * 11,
+    # re, im, ren, ns, nsn, nz, T, wiener, emit_all, 3 constants, hw, y512, out, stream
+    "jb_enhance_back_ola3": [_P] * 6 + [_I] * 3 + [_P] * 7,
     # x, coef, state in, y, state out, B, T, stream (f64, and the f32 instance)
     "jb_geq_cascade_quant": [_P] * 5 + [_I] * 2 + [_P],
     "jb_geq_cascade_quant_f32": [_P] * 5 + [_I] * 2 + [_P],
@@ -68,8 +69,8 @@ ENTRIES = {
     "jb_mfcc_fused": [_P, _P, _I] + [_P] * 3 + [_I] + [_P] * 3,
     # frames, T, lo, out, stream
     "jb_amdf": [_P, _I, _I, _P, _P],
-    # re, im, ren, ns, nsn, T, wiener, 3 constants, head/w2, y512, stream
-    "jb_enhance_back": [_P] * 5 + [_I] * 2 + [_P] * 6,
+    # re, im, ren, ns, nsn, nz, T, wiener, 3 constants, head/w2, y512, stream
+    "jb_enhance_back": [_P] * 6 + [_I] * 2 + [_P] * 6,
     # x, w2, T, flags, stream
     "jb_vad_flags": [_P, _P, _I, _P, _P],
     # re, im (or null), T, n, forward, twiddle tables, out re, out im, stream

@@ -32,35 +32,38 @@ CONSTS = ("back32", "u_nyq", "y512col")  # what the kernel reads
 CHECKED = ("UC512", "VS512", *CONSTS)  # with what the plain version reads
 
 
-def enhance_back_ola3_plain(re, im, re_n, ns, ns_n, C, mode="wiener", emit_all=False):
+def enhance_back_ola3_plain(re, im, re_n, ns, ns_n, nz, C, mode="wiener", emit_all=False):
     """Plain PyTorch version of :func:`enhance_back_ola3` (any device)."""
     ren = re_n[:, 0]
-    g, gn = bin_gain(re, im, ren, ns, ns_n[:, 0], mode)
+    g, gn = bin_gain(re, im, ren, ns, ns_n[:, 0], nz[:, 0], mode)
     Yre, Yim, Yren = re * g, im * g, ren * gn
     u = Yre @ C["UC512"] + Yren[:, None] * C["u_nyq"]
     v = Yim @ C["VS512"]
     return flip_ola(u, v, y512_col(Yre, Yren, C), emit_all)
 
 
-def enhance_back_ola3(re, im, re_n, ns, ns_n, C, mode="wiener", emit_all=False):
+def enhance_back_ola3(re, im, re_n, ns, ns_n, nz, C, mode="wiener", emit_all=False):
     """Spectra + latched noise -> (T, 512) int16, rows t < 2 zero unless
-    ``emit_all``.  T a multiple of 8.
+    ``emit_all``.  T a multiple of 8; ``nz`` the frame flags (T, 1) of
+    :func:`~jeicyboodsp_tpu_torch.kernels.enhance_fwd.enhance_fwd`, which
+    the gain takes (:func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.
+    bin_gain`).
 
     C: constants from ``ops.enhance.enhance_constants``, on re's device.
     CUDA tensors launch ``jb_enhance_back_ola3``; CPU tensors run
     :func:`enhance_back_ola3_plain`.
     """
     check_mode(mode)
-    dev = check_planes(re, im, re_n, ns, ns_n, C, CHECKED)
+    dev = check_planes(re, im, re_n, ns, ns_n, nz, C, CHECKED)
     if dev.type == "cpu":
-        return enhance_back_ola3_plain(re, im, re_n, ns, ns_n, C, mode, emit_all)
+        return enhance_back_ola3_plain(re, im, re_n, ns, ns_n, nz, C, mode, emit_all)
     T = re.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
     hw = torch.empty(2, T, N, **f32)  # head, w2
     y512 = torch.empty(T, **f32)
     out = torch.empty(T, N, dtype=torch.int16, device=dev)
     p = lambda x: x.data_ptr()  # noqa: E731
-    _build.launch("jb_enhance_back_ola3", dev, p(re), p(im), p(re_n), p(ns), p(ns_n), T,
+    _build.launch("jb_enhance_back_ola3", dev, p(re), p(im), p(re_n), p(ns), p(ns_n), p(nz), T,
                   int(mode == "wiener"), int(emit_all), *(p(C[k]) for k in CONSTS),
                   p(hw), p(y512), p(out))
     enhance_back_ola3.launches += 1

@@ -96,19 +96,45 @@ def latch_from_rowpack(rowpack, mags, L: int):
     return torch.where((g >= 0)[:, None], ns, torch.zeros((), dtype=ns.dtype, device=ns.device))
 
 
-def bin_gain(re, im, ren, ns, nsn, mode):
-    """Gain of every bin and of the Nyquist bin (ren, nsn: (T,))."""
+def frame_nonzero(blocks):
+    """(T, 512) int16 blocks -> (T,) bool: whether the frame [x[t-1], x[t]]
+    (zeros before the first block) holds a nonzero sample."""
+    cur = blocks.ne(0).any(1)
+    return cur | torch.cat([cur.new_zeros(1), cur[:-1]])
+
+
+def bin_gain(re, im, ren, ns, nsn, nz, mode):
+    """Gain of every bin and of the Nyquist bin (ren, nsn: (T,)).
+
+    A bin at exactly 0 with its estimate at 0 is 0/0.  Where the frame
+    flag ``nz`` (T,), bool or the forward kernels' 0.0 / 1.0, says the
+    frame holds a nonzero sample, its gain is 1, so it contributes its 0,
+    the reference's value (the reference's float64 spectrum has no
+    exactly-zero bin in such a frame; a quantized or float32 one can).  In
+    an all-zero frame it stays NaN, as in the reference, which then writes
+    the row and the next as zeros.  The JAX package's kernels as written
+    leave every 0/0 NaN."""
+    rows = nz != 0
     if mode == "wiener":
-        v = ns * ns / (re * re + im * im)  # 0/0 -> NaN, as the reference
+        P = re * re + im * im
+        v = _zero_bins(ns * ns / P, ns, P, rows, 0.0)
         g = 1.0 - torch.where(v >= 1.0, 1.0, v)
-        vn = nsn * nsn / (ren * ren)
+        Pn = ren * ren
+        vn = _zero_bins(nsn * nsn / Pn, nsn, Pn, rows, 0.0)
         gn = 1.0 - torch.where(vn >= 1.0, 1.0, vn)
     else:
         mag = torch.sqrt(re * re + im * im)
-        g = (mag - ns) / mag
+        g = _zero_bins((mag - ns) / mag, ns, mag, rows, 1.0)
         magn = ren.abs()
-        gn = (magn - nsn) / magn
+        gn = _zero_bins((magn - nsn) / magn, nsn, magn, rows, 1.0)
     return g, gn
+
+
+def _zero_bins(x, ns, p, rows, value):
+    """x with ``value`` where ns = p = 0 in a frame that holds a nonzero
+    sample (rows, (T,) bool)."""
+    rows = rows[:, None] if x.dim() == 2 else rows
+    return torch.where((ns == 0) & (p == 0) & rows, value, x)
 
 
 def _quant_row_int8(Y, hq: bool):
@@ -157,12 +183,13 @@ def flip_ola(u, v, y512, emit_all):
     return _ola(head, tail, emit_all)
 
 
-def quant8_plain(re, im, ren, ns, nsn, C, mode, hq):
-    """Gain and per-row two-level quantization: the scratch the kernels'
-    gain_quant pass writes for the inverse pass.  q8 (6, T, 512) int8: h,
-    l, z2 of Yre, then of Yim (z2 zero in turbo); rowsc (T, 8) f32: q_re,
-    q2_re, q_im, q2_im, Yren, y512, 0, 0 (q2 zero in turbo)."""
-    g, gn = bin_gain(re, im, ren, ns, nsn, mode)
+def quant8_plain(re, im, ren, ns, nsn, nz, C, mode, hq):
+    """Gain (:func:`bin_gain`, with the frame flags ``nz``) and per-row
+    two-level quantization: the scratch the kernels' gain_quant pass writes
+    for the inverse pass.  q8 (6, T, 512) int8: h, l, z2 of Yre, then of
+    Yim (z2 zero in turbo); rowsc (T, 8) f32: q_re, q2_re, q_im, q2_im,
+    Yren, y512, 0, 0 (q2 zero in turbo)."""
+    g, gn = bin_gain(re, im, ren, ns, nsn, nz, mode)
     Yre, Yim, Yren = re * g, im * g, ren * gn
     zero = torch.zeros_like(Yren)
     planes, cols = [], []
@@ -186,11 +213,12 @@ def inv8_plain(q8, rowsc, C, hq):
     return torch.stack([u, v])
 
 
-def inverse8_plain(re, im, ren, ns, nsn, C, mode, hq, emit_all, return_planes=False):
+def inverse8_plain(re, im, ren, ns, nsn, nz, C, mode, hq, emit_all, return_planes=False):
     """Back half of the int8 chain (K3's function): gain, per-row two-level
-    quantization, int8 inverse, flip, OLA.  ren, nsn: (T,).
+    quantization, int8 inverse, flip, OLA.  ren, nsn, nz: (T,), nz the
+    frame flags (:func:`bin_gain`).
     ``return_planes`` also returns the scratch q8, rowsc and uv."""
-    q8, rowsc = quant8_plain(re, im, ren, ns, nsn, C, mode, hq)
+    q8, rowsc = quant8_plain(re, im, ren, ns, nsn, nz, C, mode, hq)
     uv = inv8_plain(q8, rowsc, C, hq)
     out = flip_ola(uv[0], uv[1], rowsc[:, 5], emit_all)
     return (out, {"q8": q8, "rowsc": rowsc, "uv": uv}) if return_planes else out
@@ -202,8 +230,8 @@ def enhance_full8_plain(blocks, rowpack, C, mode="wiener", hq=True,
     re, im, ren = forward8_plain(blocks, C)
     mags = torch.cat([torch.sqrt(re * re + im * im), ren.abs()[:, None]], 1)
     ns = latch_from_rowpack(rowpack, mags, L)
-    out, planes = inverse8_plain(re, im, ren, ns[:, :N], ns[:, N], C, mode, hq, emit_all,
-                                 return_planes=True)
+    out, planes = inverse8_plain(re, im, ren, ns[:, :N], ns[:, N], frame_nonzero(blocks), C,
+                                 mode, hq, emit_all, return_planes=True)
     return (out, {"re": re, "im": im, **planes}) if return_planes else out
 
 
@@ -263,7 +291,7 @@ def enhance_full8(blocks, rowpack, C, mode="wiener", hq=True, emit_all=False,
     f32 = dict(dtype=torch.float32, device=blocks.device)
     re = torch.empty(T, N, **f32)
     im = torch.empty(T, N, **f32)
-    ren = torch.empty(T, **f32)
+    ren, nz = torch.empty(2, T, **f32)  # the Nyquist bin, the frame flags
     pfx = torch.empty(T, NB, **f32)
     A0 = torch.empty(T // L, NB, **f32)
     q8, rowsc, uv = back8_scratch(T, blocks.device, return_planes)
@@ -272,7 +300,7 @@ def enhance_full8(blocks, rowpack, C, mode="wiener", hq=True, emit_all=False,
     _build.launch(
         "jb_enhance_full8", blocks.device,
         p(blocks), p(rowpack), T, L, int(mode == "wiener"), int(hq), int(emit_all),
-        *(p(C[k]) for k in CONSTS), p(re), p(im), p(ren), p(pfx), p(A0), p(q8), p(rowsc),
+        *(p(C[k]) for k in CONSTS), p(re), p(im), p(ren), p(nz), p(pfx), p(A0), p(q8), p(rowsc),
         p(uv), p(out),
     )
     enhance_full8.launches += 1

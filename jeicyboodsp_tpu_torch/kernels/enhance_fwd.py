@@ -2,7 +2,7 @@
 
 Replaces the Pallas kernel ``jeicyboodsp_tpu/kernels/enhance_pallas.py:
 enhance_fwd_pallas`` (``_fwd_kernel``): (T, 512) int16 blocks -> re, im,
-|X| (T, 512) and re_n, |X_n|, speech flags (T, 1), the outputs of K2: the
+|X| (T, 512) and re_n, |X_n|, speech and frame flags (T, 1), the outputs of K2: the
 windowed real DFT of each frame [x[t-1], x[t]] (zeros for t = 0), bins
 0..511, the Nyquist bin as an f32 dot and the in-kernel VAD.  The TPU
 kernel computes the DFT as GEMMs with the window-folded bases WC, WS; the
@@ -101,7 +101,8 @@ def enhance_fwd_plain(blocks, C):
 
 def enhance_fwd(blocks, C):
     """(T, 512) int16 blocks -> (re, im, re_n, mag, mag_n, speech), the
-    shapes of ``enhance_fwd_pallas``'s outputs.  T a multiple of 8.
+    shapes of ``enhance_fwd_pallas``'s outputs, and the frame flags nz
+    (T, 1) for the back kernels K5 and K13.  T a multiple of 8.
 
     C: constants from ``ops.enhance.enhance_constants``, on blocks' device.
     CUDA tensors launch ``jb_enhance_fwd`` (the FFT pass, then the row pass

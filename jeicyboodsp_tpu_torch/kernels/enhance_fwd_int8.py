@@ -4,7 +4,9 @@ Replaces the Pallas kernel ``jeicyboodsp_tpu/kernels/enhance_pallas.py:
 enhance_fwd_int8_pallas`` (``_fwd8_kernel``): raw (T, 512) int16 blocks ->
 re, im, |X| (T, 512) and re_n, |X_n|, speech flags (T, 1), through the
 16-dot int8-split forward rDFT (the hq form), the Nyquist bin as an f32
-dot and the in-kernel VAD with ``_vad_rows`` semantics.
+dot and the in-kernel VAD with ``_vad_rows`` semantics, and the frame
+flags nz (T, 1) that the back kernel's gain takes (the TPU kernel has no
+such output).
 
 - :func:`enhance_fwd_int8` is the wrapper: on a CUDA tensor it launches the
   hand-written kernels of ``csrc/enhance_mxu8.cu`` (counted in
@@ -21,7 +23,7 @@ import torch
 
 from jeicyboodsp_tpu_torch.kernels import _build
 from jeicyboodsp_tpu_torch.kernels._common import N, aligned16, check, check_rows
-from jeicyboodsp_tpu_torch.kernels.enhance_full8 import forward8_plain
+from jeicyboodsp_tpu_torch.kernels.enhance_full8 import forward8_plain, frame_nonzero
 from jeicyboodsp_tpu_torch.utils.cnum import c_short
 
 CONSTS = ("fwd8", "fscales", "fcrows", "nyq", "w2")
@@ -41,12 +43,15 @@ def vad_rows(blocks, w2):
 
 
 def forward_outputs(blocks, re, im, ren, C):
-    """The six outputs of the forward kernels K2 / K4 from the re, im planes
-    and the Nyquist bin ren (T,): re, im, re_n (T, 1), |X|, |X_n| (T, 1),
-    speech flags (T, 1) as 0.0 / 1.0."""
+    """The seven outputs of the forward kernels K2 / K4 from the re, im
+    planes and the Nyquist bin ren (T,): re, im, re_n (T, 1), |X|, |X_n|
+    (T, 1), speech flags (T, 1) as 0.0 / 1.0 and the frame flags nz (T, 1)
+    as 0.0 / 1.0 (:func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.
+    frame_nonzero`), which the back kernels' gain takes."""
     mag = torch.sqrt(re * re + im * im)
     sp = vad_rows(blocks, C["w2"]).to(torch.float32)[:, None]
-    return re, im, ren[:, None], mag, ren.abs()[:, None], sp
+    nz = frame_nonzero(blocks).to(torch.float32)[:, None]
+    return re, im, ren[:, None], mag, ren.abs()[:, None], sp, nz
 
 
 def enhance_fwd_int8_plain(blocks, C):
@@ -58,7 +63,8 @@ def enhance_fwd_int8_plain(blocks, C):
 def empty_forward_outputs(T, device):
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty(T, N, **f32), torch.empty(T, N, **f32), torch.empty(T, 1, **f32),
-            torch.empty(T, N, **f32), torch.empty(T, 1, **f32), torch.empty(T, 1, **f32))
+            torch.empty(T, N, **f32), torch.empty(T, 1, **f32), torch.empty(T, 1, **f32),
+            torch.empty(T, 1, **f32))
 
 
 def check_blocks(blocks, C, consts):
@@ -70,7 +76,8 @@ def check_blocks(blocks, C, consts):
 
 def enhance_fwd_int8(blocks, C):
     """(T, 512) int16 blocks -> (re, im, re_n, mag, mag_n, speech), the
-    shapes of ``enhance_fwd_int8_pallas``'s outputs.  T a multiple of 8.
+    shapes of ``enhance_fwd_int8_pallas``'s outputs, and the frame flags
+    nz (T, 1) for the back kernel K3.  T a multiple of 8.
 
     C: constants from ``ops.enhance.enhance_constants``, on blocks' device.
     CUDA tensors launch ``jb_enhance_fwd_int8`` (on a copy where the blocks

@@ -28,6 +28,12 @@ Counterpart of ``jeicyboodsp_tpu/ops/enhance.py``, with its
   package): K4, the noise latch, the back kernel K13 and the OLA assembly
   in torch ops.
 
+The fused engines and ``mxu``/``mxu1`` give a bin at exactly 0 whose noise
+estimate is 0 gain 1 in a frame that holds a nonzero sample, so it
+contributes its 0, the reference's value
+(:func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.bin_gain`); the JAX
+package's kernels as written make that gain NaN and zero the row.
+
 The numpy basis functions are copies of the JAX package's (whose module
 imports jax); a CPU test holds them byte-identical.
 
@@ -47,7 +53,7 @@ from jeicyboodsp_tpu_torch.kernels.enhance_back_ola3 import enhance_back_ola3
 from jeicyboodsp_tpu_torch.kernels.enhance_back_ola8 import enhance_back_ola8
 from jeicyboodsp_tpu_torch.kernels.enhance_chunk64 import enhance_chunk64
 from jeicyboodsp_tpu_torch.kernels.enhance_full8 import (
-    enhance_full8, latch_from_rowpack, noise_latch,
+    bin_gain, enhance_full8, frame_nonzero, latch_from_rowpack, noise_latch,
 )
 from jeicyboodsp_tpu_torch.kernels.enhance_fwd import enhance_fwd, rfft_constants
 from jeicyboodsp_tpu_torch.kernels.enhance_fwd_int8 import enhance_fwd_int8
@@ -429,44 +435,52 @@ def _pad_rows(blocks, L):
 
 
 def _enhance_fused_full(blocks, mode, emit_all, hq=True, L=64):
-    """VAD + latch row pack in torch ops, everything else in the K1 port.
+    """VAD (K14) + latch row pack in torch ops, everything else in the K1
+    port.  While spans are recorded: the stages ``enhance.flags`` (the
+    padding and K14), ``enhance.rowpack`` and ``enhance.full8`` (K1's
+    wrapper); the route reads nothing back from the card.
 
     Returns (out (T, 512) int16, write_mask (T,)): rows t < 2 are warm-up.
     """
     T = blocks.shape[0]
-    bp = _pad_rows(blocks, L)
-    rowpack = _latch_rowpack(vad_flags(bp, torch.float32), L=L)
-    out = enhance_full8(bp, rowpack, _constants_on(bp.device), mode=mode, hq=hq,
-                        emit_all=emit_all, L=L)
+    with REGISTRY.span("enhance.flags"):
+        bp = _pad_rows(blocks, L)
+        speech = vad_flags(bp, torch.float32)
+    with REGISTRY.span("enhance.rowpack"):
+        rowpack = _latch_rowpack(speech, L=L)
+    with REGISTRY.span("enhance.full8"):
+        out = enhance_full8(bp, rowpack, _constants_on(bp.device), mode=mode, hq=hq,
+                            emit_all=emit_all, L=L)
     write_mask = torch.arange(T, device=blocks.device) >= 2
     return out[:T], write_mask
 
 
 def _enhance_fused3(blocks, mode, emit_all, int8: bool, hq: bool = True, L: int = 64):
     """Engines mxu8 (``int8``) and mxu3: the forward kernel (K2 or K4) with
-    the in-kernel VAD, the noise latch, then the back kernel (K3 or K5)
-    with the flip, OLA, ``c_short`` and the warm-up mask.
+    the in-kernel VAD and frame flags, the noise latch, then the back kernel
+    (K3 or K5) with the flip, OLA, ``c_short`` and the warm-up mask.
 
     Returns (out (T, 512) int16, write_mask (T,)): rows t < 2 are warm-up.
     """
     T = blocks.shape[0]
     bp = _pad_rows(blocks, L)
     C = _constants_on(bp.device)
-    re, im, re_n, mag, mag_n, sp = (enhance_fwd_int8 if int8 else enhance_fwd)(bp, C)
+    fwd = enhance_fwd_int8 if int8 else enhance_fwd
+    re, im, re_n, mag, mag_n, sp, nz = fwd(bp, C)
     speech = sp[:, 0] > 0.5  # in-kernel VAD (vad_flags semantics)
     ns, ns_n = _noise_latch_parts(speech, (mag, mag_n), chunk=L)
     if int8:
-        out = enhance_back_ola8(re, im, re_n, ns, ns_n, C, mode, hq=hq, emit_all=emit_all)
+        out = enhance_back_ola8(re, im, re_n, ns, ns_n, nz, C, mode, hq=hq, emit_all=emit_all)
     else:
-        out = enhance_back_ola3(re, im, re_n, ns, ns_n, C, mode, emit_all=emit_all)
+        out = enhance_back_ola3(re, im, re_n, ns, ns_n, nz, C, mode, emit_all=emit_all)
     write_mask = torch.arange(T, device=blocks.device) >= 2
     return out[:T], write_mask
 
 
 def _enhance_fused(blocks, mode, emit_all, L: int = 64):
     """The two-kernel f32 engine (JAX ``_enhance_fused``, F = 512): the
-    forward kernel K4 with the in-kernel VAD, the noise latch, the back
-    kernel K13, then the OLA assembly in torch ops: tail = [y512, flip(w2)
+    forward kernel K4 with the in-kernel VAD and frame flags, the noise
+    latch, the back kernel K13, then the OLA assembly in torch ops: tail = [y512, flip(w2)
     [1:]], out[t] = c_short(head[t] + tail[t-1]) for t >= 2 (head alone at
     t = 1, zero at t = 0).  Reached only from tests and ``chip_smoke.py``,
     as in the JAX package.
@@ -477,9 +491,9 @@ def _enhance_fused(blocks, mode, emit_all, L: int = 64):
     T = blocks.shape[0]
     bp = _pad_rows(blocks, L)
     C = _constants_on(bp.device)
-    re, im, re_n, mag, mag_n, sp = enhance_fwd(bp, C)
+    re, im, re_n, mag, mag_n, sp, nz = enhance_fwd(bp, C)
     ns, ns_n = _noise_latch_parts(sp[:, 0] > 0.5, (mag, mag_n), chunk=L)
-    head, w2, y512 = enhance_back(re, im, re_n, ns, ns_n, C, mode)
+    head, w2, y512 = enhance_back(re, im, re_n, ns, ns_n, nz, C, mode)
     tail = torch.cat([y512, w2[:, 1:].flip(1)], 1)
     tail_prev = torch.cat([torch.zeros_like(tail[:1]), tail[:-1]])
     t = torch.arange(bp.shape[0], device=bp.device)[:, None]
@@ -572,9 +586,11 @@ def _frames(blocks):
 def _enhance_fast_mxu(blocks, mode, dtype, emit_all, fft_engine="mxu"):
     """Engines ``mxu`` and ``mxu1`` (JAX ``_enhance_fast_mxu``, its plain
     branch): the 512-aligned matmul DFT with the window folded into the
-    bases, the closed-form noise latch, ratio resynthesis and the
-    symmetry-halved inverse, as torch ops in ``dtype``, every product at the
-    tier of ``fft_engine``; the latch through the
+    bases, the closed-form noise latch, the gain of
+    :func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.bin_gain` (a zero
+    bin of a frame that holds a nonzero sample passes), ratio resynthesis
+    and the symmetry-halved inverse, as torch ops in ``dtype``, every
+    product at the tier of ``fft_engine``; the latch through the
     :func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.noise_latch` wrapper
     in f32."""
     frames = _frames(blocks).to(dtype)  # the window is folded into WC/WS/nyq
@@ -585,20 +601,10 @@ def _enhance_fast_mxu(blocks, mode, dtype, emit_all, fft_engine="mxu"):
 
     re, im = mm(frames, M["WC"]), mm(frames, M["WS"])
     re_n = mm(frames, M["nyq"])  # (T,) Nyquist (im == 0)
-    P512 = re * re + im * im
-    mag512 = torch.sqrt(P512)
-    mag_n = re_n.abs()
+    mag512 = torch.sqrt(re * re + im * im)
     speech = vad_flags(blocks, dtype)
-    ns512, ns_n = _noise_latch_parts(speech, (mag512, mag_n[:, None]))
-    ns_n = ns_n[:, 0]
-    if mode == "wiener":
-        v512 = ns512 * ns512 / P512  # 0/0 -> NaN, as the reference
-        g512 = 1.0 - torch.where(v512 >= 1.0, 1.0, v512)
-        v_n = ns_n * ns_n / (re_n * re_n)
-        g_n = 1.0 - torch.where(v_n >= 1.0, 1.0, v_n)
-    else:
-        g512 = (mag512 - ns512) / mag512
-        g_n = (mag_n - ns_n) / mag_n
+    ns512, ns_n = _noise_latch_parts(speech, (mag512, re_n.abs()[:, None]))
+    g512, g_n = bin_gain(re, im, re_n, ns512, ns_n[:, 0], frame_nonzero(blocks), mode)
     Yre, Yim, Yre_n = re * g512, im * g512, re_n * g_n
     u = mm(Yre, M["UC512"]) + Yre_n[:, None] * M["u_nyq"]
     v = mm(Yim, M["VS512"])
@@ -626,25 +632,30 @@ def enhance_blocks(blocks, mode: str = "wiener", dtype=torch.float64,
     Returns (out, write_mask): out is (T, 512) int16; blocks with
     write_mask False are not part of the reference's output stream
     (warm-up frames t<2).  With ``emit_all`` the warm-up rows are zeros.
+
+    While spans are recorded (``utils.metrics``), the call is an
+    ``enhance.blocks`` span; on the ``mxu8f``/``mxu8t`` route it holds
+    :func:`_enhance_fused_full`'s stages.
     """
     if mode not in ("wiener", "specsub"):
         raise ValueError(mode)
     if fft_engine not in ALL_ENGINES:
         raise ValueError(f"fft_engine must be one of {ALL_ENGINES}, got {fft_engine!r}")
-    if fft_engine.startswith("mxu") and resynth == "ratio":
-        if fft_engine in ("mxu", "mxu1"):
-            return _enhance_fast_mxu(blocks, mode, dtype, emit_all, fft_engine)
-        if fft_engine in ("mxu8f", "mxu8t"):
-            return _enhance_fused_full(blocks, mode, emit_all, hq=(fft_engine == "mxu8f"))
-        return _enhance_fused3(blocks, mode, emit_all, int8=(fft_engine == "mxu8"))
-    X = frame_transform(_frames(blocks), dtype, real_fft=real_fft, fft_engine=fft_engine)
-    mags = X.abs()
-    speech = vad_flags(blocks, dtype)
-    ns = (_noise_assoc_scan if use_assoc_scan else _noise_scan)(speech, mags)
-    y = gain_and_resynth(X, ns, mode, real_fft=real_fft, resynth=resynth,
-                         fft_engine=fft_engine)
-    # overlap-add: out[t] = y[t][:512] + y[t-1][512:]
-    return _ola(y[:, :BLOCK_LEN], y[:, BLOCK_LEN:], emit_all)
+    with REGISTRY.span("enhance.blocks"):
+        if fft_engine.startswith("mxu") and resynth == "ratio":
+            if fft_engine in ("mxu", "mxu1"):
+                return _enhance_fast_mxu(blocks, mode, dtype, emit_all, fft_engine)
+            if fft_engine in ("mxu8f", "mxu8t"):
+                return _enhance_fused_full(blocks, mode, emit_all, hq=(fft_engine == "mxu8f"))
+            return _enhance_fused3(blocks, mode, emit_all, int8=(fft_engine == "mxu8"))
+        X = frame_transform(_frames(blocks), dtype, real_fft=real_fft, fft_engine=fft_engine)
+        mags = X.abs()
+        speech = vad_flags(blocks, dtype)
+        ns = (_noise_assoc_scan if use_assoc_scan else _noise_scan)(speech, mags)
+        y = gain_and_resynth(X, ns, mode, real_fft=real_fft, resynth=resynth,
+                             fft_engine=fft_engine)
+        # overlap-add: out[t] = y[t][:512] + y[t-1][512:]
+        return _ola(y[:, :BLOCK_LEN], y[:, BLOCK_LEN:], emit_all)
 
 
 def run_stream(x, mode: str = "wiener", dtype=torch.float64, use_assoc_scan: bool = False,

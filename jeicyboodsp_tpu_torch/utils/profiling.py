@@ -347,8 +347,9 @@ _CONSTS = {
     "K5": _RFFT + 512 * _F + 513 * _F,
 }
 _CONSTS["K13"] = _CONSTS["K5"]
-_PLANES_FWD = (3 * 512 + 3) * _F  # a forward kernel's planes a row: re, im, |X|, re_n, |X_n|, flag
-_PLANES_BACK = (3 * 512 + 2) * _F  # a back kernel's inputs a row: re, im, ns, re_n, ns_n
+# a forward kernel's planes a row: re, im, |X|, re_n, |X_n|, the speech and the frame flag
+_PLANES_FWD = (3 * 512 + 4) * _F
+_PLANES_BACK = (3 * 512 + 3) * _F  # a back kernel's inputs a row: re, im, ns, re_n, ns_n, nz
 # K4's function a frame through a real FFT: the window (1024), the FFT, |X| (4 per bin), the
 # Nyquist dot (2 per sample), the VAD (6 per sample of a block)
 K4_FRAME_FLOPS = 1024 + _rfft_flops(1024) + 4 * 512 + 2 * 1024 + 6 * 512

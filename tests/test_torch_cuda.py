@@ -22,10 +22,13 @@ from jeicyboodsp_tpu_torch.kernels import enhance_back_ola8 as K3
 from jeicyboodsp_tpu_torch.kernels import enhance_full8 as K
 from jeicyboodsp_tpu_torch.kernels import enhance_fwd as K4
 from jeicyboodsp_tpu_torch.kernels import enhance_fwd_int8 as K2
+from jeicyboodsp_tpu_torch.config import ENGINE_FIDELITY
 from jeicyboodsp_tpu_torch.ops import enhance as E
+from jeicyboodsp_tpu_torch.oracle.cnum import c_short
 from jeicyboodsp_tpu_torch.utils.metrics import snr_db
 
 KERNEL_VS_PLAIN_DB = 90.0
+FIDELITY = {e: ENGINE_FIDELITY[("enhance", e)]["floor"] for e in ("mxu3", "mxu8", "mxu8f", "mxu8t")}
 FWD = {"K2": (K2.enhance_fwd_int8, K2.enhance_fwd_int8_plain),
        "K4": (K4.enhance_fwd, K4.enhance_fwd_plain)}
 BACK = {"K3": (K3.enhance_back_ola8, K3.enhance_back_ola8_plain, "K2"),
@@ -66,23 +69,57 @@ def test_kernel_matches_plain(cuda, mode, hq):
     assert snr_db(want.cpu().numpy(), got.cpu().numpy()) >= KERNEL_VS_PLAIN_DB
 
 
+def _unit_gain_rows(blocks, drop):
+    """The reference's float64 chain (its Hamming window, FFT, OLA and
+    double -> short store) with gain 1 on every bin but ``drop`` and their
+    mirrors, which contribute 0: what the chain writes before the first
+    latch (ns = 0) where those bins of its spectrum are exactly 0.  Rows
+    t >= 2, int16."""
+    x = blocks.cpu().numpy().astype(np.float64)
+    prev = np.vstack([np.zeros((1, 512)), x[:-1]])
+    w = 0.54 - 0.46 * np.cos(2.0 * 3.141592 * np.arange(1024) / 1023)
+    X = np.fft.fft(np.hstack([prev, x]) * w, axis=1)
+    X[:, drop] = 0.0
+    X[:, 1024 - drop] = 0.0
+    y = np.fft.ifft(X, axis=1).real
+    return c_short(y[1:-1, 512:] + y[2:, :512])
+
+
+def _before_latch(rowpack):
+    """The rows before the first latch (ns = 0 on every bin there)."""
+    latched = (rowpack[:, 2] >= 0).nonzero()
+    return int(latched[0]) if len(latched) else rowpack.shape[0]
+
+
+ZERO_BINS = np.arange(100, 110)
+
+
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_zero_bins_give_nan_rows_and_zero_output(device, request):
-    """Bins with re = im = 0 before any latch make the Wiener gain 0/0 =
-    NaN; the NaN row max then poisons the whole row, whose output is
-    c_short(NaN) = 0 -- as in the TPU kernel, whose jnp.max propagates NaN."""
+def test_zero_bins_take_gain_one_and_zero_no_row(device, request):
+    """Bins with re = im = 0 before any latch, in frames that hold nonzero
+    samples: the Wiener gain's 0/0 takes gain 1 there (``bin_gain``), so
+    each such bin contributes its 0 and the rest of the frame passes with
+    gain 1 -- the reference's answer, whose float64 spectrum has no zero
+    bin there.  (The TPU kernel as written makes the gain NaN and zeroes
+    those rows: ROADMAP R23.)  Held against the reference's float64 chain
+    with those bins dropped, at each engine's floor, no row zeroed; on the
+    card, K1 against its plain version."""
     dev = request.getfixturevalue("cuda") if device == "cuda" else torch.device("cpu")
     blocks, rowpack, C = _inputs(dev, n_blocks=64)
     C = dict(C, fscales=C["fscales"].clone(), fcrows=C["fcrows"].clone())
-    C["fscales"][:, 100:110] = 0.0  # re = im = 0 on bins 100..109
-    C["fcrows"][:, 100:110] = 0.0
-    out = K.enhance_full8(blocks, rowpack, C, "wiener", True, emit_all=True)
-    latched = (rowpack[:, 2] >= 0).nonzero()
-    first_latch = int(latched[0]) if len(latched) else 64
-    assert out[: first_latch + 1].eq(0).all()
-    if device == "cuda":
-        want = K.enhance_full8_plain(blocks, rowpack, C, "wiener", True, emit_all=True)
-        assert torch.equal(out.cpu()[: first_latch + 1], want.cpu()[: first_latch + 1])
+    C["fscales"][:, ZERO_BINS] = 0.0  # re = im = 0 on bins 100..109
+    C["fcrows"][:, ZERO_BINS] = 0.0
+    end = _before_latch(rowpack)
+    assert end > 32
+    want = _unit_gain_rows(blocks, ZERO_BINS)[: end - 2]
+    for hq, floor in ((True, FIDELITY["mxu8f"]), (False, FIDELITY["mxu8t"])):
+        out = K.enhance_full8(blocks, rowpack, C, "wiener", hq, emit_all=True)
+        got = out.cpu().numpy()[2:end]
+        assert not (got == 0).all(1).any()
+        assert snr_db(want, got) >= floor
+        if device == "cuda":
+            plain = K.enhance_full8_plain(blocks, rowpack, C, "wiener", hq, emit_all=True)
+            assert snr_db(plain.cpu().numpy(), out.cpu().numpy()) >= KERNEL_VS_PLAIN_DB
 
 
 def test_kernel_emit_all_and_odd_lengths(cuda):
@@ -156,9 +193,9 @@ def _rel(got, want):
 def _back_inputs(fwd_name, blocks, C, L=64):
     """K3 / K5 inputs from a forward kernel's outputs and the noise latch
     (in chunks of L rows: T a multiple of L)."""
-    re, im, re_n, mag, mag_n, sp = FWD[fwd_name][0](blocks, C)
+    re, im, re_n, mag, mag_n, sp, nz = FWD[fwd_name][0](blocks, C)
     ns, ns_n = K.noise_latch(E._latch_rowpack(sp[:, 0] > 0.5, L), mag, mag_n, L)
-    return re, im, re_n, ns, ns_n
+    return re, im, re_n, ns, ns_n, nz
 
 
 @pytest.mark.parametrize("name", sorted(FWD))
@@ -174,7 +211,7 @@ def test_forward_kernels_match_plain(cuda, name):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
-    assert torch.equal(got[5], want[5])
+    assert torch.equal(got[5], want[5]) and torch.equal(got[6], want[6])
     absf = K4.frames_f32(blocks).abs().double()
     scale = torch.maximum(absf @ C["WC"].abs().double(), absf @ C["WS"].abs().double())
     tol = 2.0 ** -16 * scale.amax(1, keepdim=True)  # |X| mixes re and im
@@ -213,7 +250,8 @@ def test_k4_fft_pass_rows_and_offsets(cuda, T, odd):
     """K4's real-FFT pass (8 frames a block) at T = 8, 200 and 16392, on
     blocks that start 16-byte aligned or at an odd 2-byte offset: re, im and
     |X| within 2^-16 of each row's largest sum of |a*b| of the plain
-    version, the flags and the all-zero frame's zeros exact."""
+    version, the speech and frame flags and the all-zero frame's zeros
+    exact."""
     C = E.enhance_constants(cuda)
     blocks = _k4_blocks(T, T).to(cuda)
     if odd:
@@ -225,7 +263,7 @@ def test_k4_fft_pass_rows_and_offsets(cuda, T, odd):
     got, want = K4.enhance_fwd(blocks, C), K4.enhance_fwd_plain(blocks, C)
     torch.cuda.synchronize()
     assert K4.enhance_fwd.launches == before + 1
-    assert torch.equal(got[5], want[5])
+    assert torch.equal(got[5], want[5]) and torch.equal(got[6], want[6])
     tol = 2.0 ** -16 * _k4_row_scale(blocks, C)
     for i in (0, 1, 3):  # re, im, |X|
         err = (got[i].double() - want[i].double()).abs()
@@ -343,7 +381,7 @@ def test_compat_path_on_card(cuda):
 
 def test_noise_latch_kernel_matches_plain(cuda):
     blocks, _, C = _inputs(cuda)
-    _, _, _, mag, mag_n, sp = K2.enhance_fwd_int8(blocks, C)
+    _, _, _, mag, mag_n, sp, _ = K2.enhance_fwd_int8(blocks, C)
     rowpack = E._latch_rowpack(sp[:, 0] > 0.5)
     assert rowpack[:, 2].max() >= 0  # the probe reaches the latch
     before = K.noise_latch.launches
@@ -374,26 +412,34 @@ def test_back_kernels_match_plain(cuda, name, mode, emit_all):
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 @pytest.mark.parametrize("name", sorted(BACK))
-def test_back_zero_bins_give_zero_rows(name, device, request):
-    """Bins with re = im = 0 before any latch make the Wiener gain 0/0 =
-    NaN.  K3's NaN row max zeroes the row; in K5 the NaN crosses the whole
-    row through the inverse GEMM, and c_short(NaN) = 0 per sample."""
+def test_back_zero_bins_take_gain_one_and_zero_no_row(name, device, request):
+    """Bins with re = im = 0 before any latch, with the forward kernel's
+    frame flags: the Wiener gain's 0/0 takes gain 1 in a frame that holds
+    nonzero samples, so each planted bin contributes 0 and the rest of the
+    frame passes with gain 1, the reference's answer (the TPU kernels as
+    written make the gain NaN and the rows zeros: ROADMAP R23).  Held against the reference's float64 chain with
+    those bins dropped, at the engine's floor, no row zeroed; on the card,
+    K3 and K5 against their plain versions."""
     dev = request.getfixturevalue("cuda") if device == "cuda" else torch.device("cpu")
     blocks, _, C = _inputs(dev, n_blocks=64)
     kernel, plain, fwd = BACK[name]
-    re, im, re_n, mag, mag_n, sp = FWD[fwd][1](blocks, C)
+    re, im, re_n, mag, mag_n, sp, nz = FWD[fwd][1](blocks, C)
+    assert nz.eq(1.0).all()
     re, im, mag = re.clone(), im.clone(), mag.clone()
     for plane in (re, im, mag):
-        plane[:, 100:110] = 0.0
+        plane[:, ZERO_BINS] = 0.0
     rowpack = E._latch_rowpack(sp[:, 0] > 0.5)
     ns, ns_n = K.noise_latch(rowpack, mag, mag_n)
-    out = kernel(re, im, re_n, ns, ns_n, C, "wiener", emit_all=True)
-    latched = (rowpack[:, 2] >= 0).nonzero()
-    first_latch = int(latched[0]) if len(latched) else 64
-    assert out[: first_latch + 1].eq(0).all()
+    out = kernel(re, im, re_n, ns, ns_n, nz, C, "wiener", emit_all=True)
+    end = _before_latch(rowpack)
+    assert end > 32
+    got = out.cpu().numpy()[2:end]
+    assert not (got == 0).all(1).any()
+    floor = FIDELITY["mxu8" if name == "K3" else "mxu3"]
+    assert snr_db(_unit_gain_rows(blocks, ZERO_BINS)[: end - 2], got) >= floor
     if device == "cuda":
-        want = plain(re, im, re_n, ns, ns_n, C, "wiener", emit_all=True)
-        assert torch.equal(out.cpu()[: first_latch + 1], want.cpu()[: first_latch + 1])
+        want = plain(re, im, re_n, ns, ns_n, nz, C, "wiener", emit_all=True)
+        assert snr_db(want.cpu().numpy(), out.cpu().numpy()) >= KERNEL_VS_PLAIN_DB
 
 
 @pytest.mark.parametrize("engine", ["mxu8", "mxu3"])
@@ -449,22 +495,24 @@ def test_forward_wrappers_reject(name, bad):
         FWD[name][0](blocks, C)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "width", "rows", "column", "mode", "const",
+@pytest.mark.parametrize("bad", ["dtype", "width", "rows", "column", "flags", "mode", "const",
                                  "noncontig", "device"])
 @pytest.mark.parametrize("name", sorted(BACK))
 def test_back_wrappers_reject(name, bad):
     blocks, _, C = _inputs("cpu", n_blocks=64)
     kernel, _, fwd = BACK[name]
-    re, im, re_n, ns, ns_n = _back_inputs(fwd, blocks, C)
+    re, im, re_n, ns, ns_n, nz = _back_inputs(fwd, blocks, C)
     mode = "wiener"
     if bad == "dtype":
         re = re.double()
     elif bad == "width":
         ns = ns[:, :256]
     elif bad == "rows":
-        re, im, re_n, ns, ns_n = (v[:60] for v in (re, im, re_n, ns, ns_n))
+        re, im, re_n, ns, ns_n, nz = (v[:60] for v in (re, im, re_n, ns, ns_n, nz))
     elif bad == "column":
         ns_n = ns_n[:, 0]
+    elif bad == "flags":
+        nz = nz[:, 0] > 0.5  # (T,) bool instead of the forward's (T, 1) f32
     elif bad == "mode":
         mode = "mmse"
     elif bad == "const":
@@ -474,7 +522,7 @@ def test_back_wrappers_reject(name, bad):
     elif bad == "device":
         re = re.to("meta")
     with pytest.raises(ValueError):
-        kernel(re, im, re_n, ns, ns_n, C, mode)
+        kernel(re, im, re_n, ns, ns_n, nz, C, mode)
 
 
 # ---- the GEQ (K6, K7) and the echo cancellers (K8, K9) ----------------------
@@ -1032,19 +1080,27 @@ def test_enhance_back_kernel_matches_plain(cuda, mode):
 
 
 def test_enhance_back_zero_bins_give_nan(cuda):
-    """re = im = 0 before any latch: the Wiener gain 0/0 = NaN reaches the
-    kernel's outputs where it reaches the plain version's."""
+    """re = im = 0 on bins 100-109 before any latch: a NaN gain (0/0) only
+    in the rows whose frame flag says the frame holds no sample (here
+    every fourth row, flagged so), where the kernel's NaN masks equal the
+    plain version's; in every other row the port gives those bins gain 1
+    and its outputs are finite, where the TPU kernel as written has NaN
+    (ROADMAP R23), within ROW_RTOL of the plain version's."""
     blocks, _, C = _inputs(cuda, n_blocks=64)
-    re, im, re_n, ns, ns_n = _back_inputs("K4", blocks, C)
-    re, im = re.clone(), im.clone()
+    re, im, re_n, ns, ns_n, nz = _back_inputs("K4", blocks, C)
+    re, im, nz = re.clone(), im.clone(), nz.clone()
     re[:, 100:110] = 0.0
     im[:, 100:110] = 0.0
-    got = K13.enhance_back(re, im, re_n, ns, ns_n, C, "wiener")
-    want = K13.enhance_back_plain(re, im, re_n, ns, ns_n, C, "wiener")
+    nz[::4] = 0.0
+    got = K13.enhance_back(re, im, re_n, ns, ns_n, nz, C, "wiener")
+    want = K13.enhance_back_plain(re, im, re_n, ns, ns_n, nz, C, "wiener")
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g.isnan(), w.isnan())
-    assert got[0].isnan().any()
+    _row_check(got, want, "K13 zero bins")
+    nan_rows = torch.cat(got, 1).isnan().any(1).cpu()
+    flagged = torch.zeros(64, dtype=torch.bool)
+    flagged[::4] = True
+    assert torch.equal(nan_rows, flagged & (ns[:, 100:110] == 0).all(1).cpu())
+    assert nan_rows.any()
 
 
 def _row_check(got, want, what):
@@ -1084,8 +1140,8 @@ def test_back_tensor_core_gemm_against_f64(cuda, mode):
     from the gain."""
     blocks, _, C = _inputs(cuda, n_blocks=1024)
     ins = _back_inputs("K4", blocks, C)
-    re, im, re_n, ns, ns_n = ins
-    g, gn = K.bin_gain(re, im, re_n[:, 0], ns, ns_n[:, 0], mode)
+    re, im, re_n, ns, ns_n, nz = ins
+    g, gn = K.bin_gain(re, im, re_n[:, 0], ns, ns_n[:, 0], nz[:, 0], mode)
     Yre, Yim, Yren = (re * g).double(), (im * g).double(), (re_n[:, 0] * gn).double()
     UC, VS, un = C["UC512"].double(), C["VS512"].double(), C["u_nyq"].double()
     ycol = C["y512col"].double()

@@ -324,7 +324,8 @@ def test_k1_plain_planes_rebuild_its_output(probe, hq):
     assert torch.equal(p["re"], re) and torch.equal(p["im"], im)
     mags = torch.cat([torch.sqrt(re * re + im * im), ren.abs()[:, None]], 1)
     ns = K.latch_from_rowpack(rowpack, mags, 16)
-    q8, rowsc = K.quant8_plain(re, im, ren, ns[:, :512], ns[:, 512], C, "wiener", hq)
+    q8, rowsc = K.quant8_plain(re, im, ren, ns[:, :512], ns[:, 512], K.frame_nonzero(blocks), C,
+                               "wiener", hq)
     assert torch.equal(p["q8"], q8) and torch.equal(p["rowsc"], rowsc)
     assert torch.equal(p["uv"], K.inv8_plain(q8, rowsc, C, hq))
     assert torch.equal(K.flip_ola(p["uv"][0], p["uv"][1], rowsc[:, 5], False), out)

@@ -61,6 +61,7 @@ def jax_parts(request):
         "K4": EP.enhance_fwd_pallas(prev, b, M["WC"], M["WS"], M["nyq"], M["w2"], F=F,
                                     interpret=True),
     }
+    nz = [K1.frame_nonzero(torch.from_numpy(x.reshape(-1, 512))).float()[:, None].numpy()]
     back = {}
     for name, (re, im, re_n, mag, mag_n, sp) in fwd.items():
         ns, ns_n = JE._noise_latch_parts(sp[:, 0] > 0.5, (mag, mag_n))
@@ -73,9 +74,9 @@ def jax_parts(request):
                 out = EP.enhance_back_ola3_pallas(*ins, M["UC512"], M["VS512"], M["u_nyq"],
                                                   M["y512col"], J, mode=mode, F=F,
                                                   interpret=True).astype(jnp.int16)
-            back[name, mode] = _np(ins), np.asarray(out)
+            back[name, mode] = _np(ins) + nz, np.asarray(out)
             if name == "K4":
-                back["K13", mode] = _np(ins), _np(EP.enhance_back_pallas(
+                back["K13", mode] = _np(ins) + nz, _np(EP.enhance_back_pallas(
                     *ins, M["UC512"], M["VS512"], M["u_nyq"], M["y512col"], mode=mode, F=F,
                     interpret=True))
     return request.param, x, {k: _np(v) for k, v in fwd.items()}, back
@@ -83,7 +84,7 @@ def jax_parts(request):
 
 def _check_fwd(name, want, got, tol):
     re, im, re_n, mag, mag_n, sp = want
-    gre, gim, gre_n, gmag, gmag_n, gsp = (g.numpy() for g in got)
+    gre, gim, gre_n, gmag, gmag_n, gsp = (g.numpy() for g in got[:6])
     assert gre.shape == re.shape and gre_n.shape == re_n.shape == (re.shape[0], 1)
     np.testing.assert_array_equal(gsp, sp)  # speech flags, exactly
     for w, g, what in ((re, gre, "re"), (im, gim, "im"), (mag, gmag, "mag"),
@@ -125,7 +126,7 @@ def test_k4_plain_vs_jax_interpret(jax_parts):
     re, im, re_n, mag, mag_n, sp = want
     tols = {"re": tol_plane, "im": tol_plane, "mag": tol_plane,
             "re_n": 2.0 ** -16 * abs_n, "mag_n": 2.0 ** -16 * abs_n}
-    gre, gim, gre_n, gmag, gmag_n, gsp = (g.numpy() for g in got)
+    gre, gim, gre_n, gmag, gmag_n, gsp = (g.numpy() for g in got[:6])
     np.testing.assert_array_equal(gsp, sp)
     for w, g, what in ((re, gre, "re"), (im, gim, "im"), (mag, gmag, "mag"),
                        (re_n, gre_n, "re_n"), (mag_n, gmag_n, "mag_n")):
@@ -171,8 +172,8 @@ def test_k3_plain_planes_rebuild_its_output(jax_parts, mode, hq):
     assert torch.equal(out, K3.enhance_back_ola8(*ins, C, mode, hq))
     assert torch.equal(K1.flip_ola(uv[0], uv[1], rowsc[:, 5], False), out)
     assert torch.equal(K1.inv8_plain(q8, rowsc, C, hq), uv)
-    re, im, re_n, ns, ns_n = ins
-    g, gn = K1.bin_gain(re, im, re_n[:, 0], ns, ns_n[:, 0], mode)
+    re, im, re_n, ns, ns_n, nz = ins
+    g, gn = K1.bin_gain(re, im, re_n[:, 0], ns, ns_n[:, 0], nz[:, 0], mode)
     for c, Y in enumerate((re * g, im * g)):
         Z = 256 * q8[3 * c].double() + q8[3 * c + 1].double() + 128
         Yd = Y.double()
@@ -255,7 +256,7 @@ def probe_blocks(request):
 
 def test_noise_latch_wrapper_is_its_plain_version(probe_blocks):
     C = TE.enhance_constants("cpu")
-    _, _, _, mag, mag_n, sp = K2.enhance_fwd_int8(probe_blocks, C)
+    _, _, _, mag, mag_n, sp, _ = K2.enhance_fwd_int8(probe_blocks, C)
     rowpack = TE._latch_rowpack(sp[:, 0] > 0.5)
     before = K1.noise_latch.launches
     ns, ns_n = K1.noise_latch(rowpack, mag, mag_n)
@@ -304,10 +305,40 @@ def test_k13_plain_vs_jax_interpret(jax_parts, mode):
     for what, g, w in zip(("head", "w2", "y512"), got, want):
         assert g.dtype == np.float32 and g.shape == w.shape
         fin = np.isfinite(w)
-        np.testing.assert_array_equal(np.isfinite(g), fin)  # the 0/0 -> NaN rows
+        assert np.isfinite(g).all()  # no 0/0 gain in a frame that holds a sample (R23)
         rel = (np.where(fin, np.abs(g - w), 0) / np.maximum(rowmax, 1e-30)).max()
         print(f"{name} K13 {mode} {what}: max err / row max {rel:.2e}")
         assert rel <= ROW_RTOL, what
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_k13_zero_bins_depart_from_jax(jax_parts, mode):
+    """The port's deliberate departure from JAX's K13 as written (ROADMAP
+    R23), on K4's planes with bins 100-109 planted at re = im = 0: before
+    the latch (ns = 0 there) JAX's gain is 0/0 = NaN and each such row of
+    its outputs NaN; the port's frame flags give those bins gain 1, so its
+    rows are finite.  On the latched rows the two agree, NaN masks
+    included (specsub's 0 * -inf there is P8, unrepaired in both), within
+    ROW_RTOL of each row's max where JAX is finite."""
+    name, _, _, back = jax_parts
+    re, im, re_n, ns, ns_n, nz = (np.array(a) for a in back["K13", mode][0])
+    re[:, 100:110] = 0.0
+    im[:, 100:110] = 0.0
+    M = JE._dft_mats_aligned()
+    want = _np(EP.enhance_back_pallas(
+        *(jnp.asarray(a) for a in (re, im, re_n, ns, ns_n)), M["UC512"], M["VS512"],
+        M["u_nyq"], M["y512col"], mode=mode, F=F, interpret=True))
+    got = [g.numpy() for g in K13.enhance_back(*_t((re, im, re_n, ns, ns_n, nz)),
+                                               TE.enhance_constants("cpu"), mode)]
+    wrow, grow = np.concatenate(want, 1), np.concatenate(got, 1)
+    pre = (ns[:, 100:110] == 0).all(1)
+    print(f"{name} K13 {mode}: {int(pre.sum())} rows before the latch")
+    assert pre.any() and nz.all()
+    assert np.isnan(wrow[pre]).any(1).all() and np.isfinite(grow[pre]).all()
+    np.testing.assert_array_equal(np.isfinite(grow[~pre]), np.isfinite(wrow[~pre]))
+    fin = np.isfinite(wrow).all(1)
+    rowmax = np.abs(wrow[fin]).max(1, keepdims=True)
+    assert (np.abs(grow[fin] - wrow[fin]) <= ROW_RTOL * np.maximum(rowmax, 1e-30)).all()
 
 
 @pytest.fixture(scope="module", params=sorted(PROBES))

@@ -82,7 +82,7 @@ def test_kernels_cover_k1_to_k14_and_the_f32_instances():
 
 
 def test_k5_and_k13_bound_by_their_bytes():
-    for name, mb, ms in (("K5", 117.6, 0.0351), ("K13", 168.0, 0.0501)):
+    for name, mb, ms in (("K5", 117.7, 0.0351), ("K13", 168.0, 0.0502)):
         w = P.KERNELS[name](16384)
         b_ms, by = w.bound()
         assert by == "bytes" and round(w.nbytes / 1e6, 1) == mb and round(b_ms, 4) == ms
@@ -116,7 +116,7 @@ def _enhance_tensors(T=128):
     consts = lambda mod: [C[k] for k in mod.CONSTS]  # noqa: E731
     f2, f4 = K2.enhance_fwd_int8(blocks, C), K4.enhance_fwd(blocks, C)
     ns, ns_n = torch.zeros(T, 512), torch.zeros(T, 1)
-    back = (f4[0], f4[1], f4[2], ns, ns_n)
+    back = (f4[0], f4[1], f4[2], ns, ns_n, f4[6])
     out1 = K1.enhance_full8(blocks, rowpack, C, "wiener", True)
     # K5's and K13's function: a real FFT's table (K4's), not the dense bases their GEMMs read
     assert "back32" in K5.CONSTS and "back32" in K13.CONSTS
