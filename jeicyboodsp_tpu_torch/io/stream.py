@@ -21,15 +21,17 @@ run on ``device``, a CUDA card unless the caller asks for the CPU.
 
 While spans are recorded (``utils.metrics``), each chunk of an AEC or
 enhancement session is a ``session.process`` span with the request id
-(session serial, chunk number), holding ``session.chunk_in`` (copy), the
-op's spans, ``session.drain`` (wait: the queued work, so that the copy
-after it is the transfer alone; not after ``nlms_apply``, which leaves
-nothing queued) and ``session.out`` (copy).
+(session serial, chunk number), holding ``session.chunk_in`` (copy; a
+``stage`` on an enhancement session's card route, whose copy from pinned
+memory does not block), the op's spans, ``session.drain`` (wait: the queued
+work, so that the copy after it is the transfer alone; not after
+``nlms_apply``, which leaves nothing queued) and ``session.out`` (copy).
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 
 import numpy as np
 import torch
@@ -151,26 +153,61 @@ class AECSession:
 
 
 class EnhanceSession:
-    """Chunked Wiener / spectral-subtraction streaming with resume."""
+    """Chunked Wiener / spectral-subtraction streaming with resume.
+
+    A chunk writes its rows whose global block index ``t + row`` is 2 or
+    more (``enhance_chunk``'s mask): a suffix of the chunk, which the session
+    finds from a host mirror of ``state["t"]``.  The mirror holds while
+    ``state["t"]`` is the tensor the last chunk left (or the fresh state's);
+    any other state -- a ``restore``, an assignment to ``state`` -- has its
+    ``t`` read once, counted as ``session.t_reads`` in ``REGISTRY``.
+
+    On a CUDA card a chunk is one copy in from pinned memory, the op, one
+    copy of the written rows into pinned memory and one stream sync (each
+    such chunk counted as ``session.staged``; :class:`_Staging`).  The
+    returned array is a copy, the caller's own.
+    """
 
     def __init__(self, mode: str = "wiener", dtype=None, device="cuda"):
         self._dev = entry_device(device)
         self._mode = mode
         self._dtype = dtype if dtype is not None else torch.float64
         self.state = E.stream_init_state(self._dtype, self._dev)
+        self._t_leaf, self._t = self.state["t"], 0  # the mirror, and the leaf it mirrors
+        self._staging = _Staging(self._dev) if self._dev.type == "cuda" else None
         self._serial, self._chunks = next(_SERIALS), 0
+
+    def _t0(self) -> int:
+        """``state["t"]``: the mirror's, or read once from a state it does
+        not mirror."""
+        t = self.state["t"]
+        if t is not self._t_leaf:
+            REGISTRY.count("session.t_reads")
+            with REGISTRY.span("session.t", "copy"):
+                self._t_leaf, self._t = t, int(t)
+        return self._t
 
     def process(self, blocks) -> np.ndarray:
         """(Tc, 512) int16 in -> the written output samples out."""
+        blocks = _int16(blocks)
+        staging = self._staging
         self._chunks += 1
         with REGISTRY.span("session.process", "stage", self._serial, self._chunks):
-            with REGISTRY.span("session.chunk_in", "copy"):
-                b = torch.from_numpy(_int16(blocks)).to(self._dev)
-            out, mask, self.state = E.enhance_chunk(self.state, b, mode=self._mode,
-                                                    dtype=self._dtype)
+            t0 = self._t0()
+            with REGISTRY.span("session.chunk_in", "copy" if staging is None else "stage"):
+                b = (torch.from_numpy(blocks).to(self._dev) if staging is None
+                     else staging.copy_in(blocks))
+            out, _, state = E.enhance_chunk(self.state, b, mode=self._mode, dtype=self._dtype)
+            first = min(len(blocks), max(0, 2 - t0))
             REGISTRY.drain("session.drain", self._dev)
             with REGISTRY.span("session.out", "copy"):
-                return out[mask].reshape(-1).cpu().numpy()
+                if staging is None:
+                    y = out[first:].reshape(-1).numpy()
+                else:
+                    REGISTRY.count("session.staged")
+                    y = staging.copy_out(out, first)
+        self.state, self._t_leaf, self._t = state, state["t"], t0 + len(blocks)
+        return y
 
     def checkpoint(self, path: str, **extras) -> None:
         """Save the state's leaves (and ``extras`` beside them) to ``path``."""
@@ -183,4 +220,46 @@ class EnhanceSession:
 
     @property
     def sample_offset(self) -> int:
-        return int(self.state["t"]) * E.BLOCK_LEN
+        return self._t0() * E.BLOCK_LEN
+
+
+class _Staging:
+    """A CUDA session's int16 buffers: the chunk in pinned memory and on the
+    card, and its output rows in pinned memory.  They grow to the largest
+    chunk served; their views for the last chunk's shape are kept, so that a
+    chunk of that shape makes no tensor op but its two copies.  Every chunk
+    ends with the stream's sync, so the next may overwrite them."""
+
+    def __init__(self, device):
+        self._dev, self._size, self.shape = device, 0, None
+
+    def _fit(self, shape):
+        n = math.prod(shape)
+        if self.shape is None or n > self._size:
+            self._size = n
+            self._bufs = (torch.empty(n, dtype=torch.int16, pin_memory=True),
+                          torch.empty(n, dtype=torch.int16, device=self._dev),
+                          torch.empty(n, dtype=torch.int16, pin_memory=True))
+        self.shape = shape
+        self.host_in, self.card_in, self.host_out = (b[:n].view(shape) for b in self._bufs)
+        self.in_np, self.out_np = self.host_in.numpy(), self.host_out.numpy()
+
+    def copy_in(self, blocks: np.ndarray) -> torch.Tensor:
+        """``blocks`` on the card: copied into pinned memory, and from there
+        by a copy the stream runs in its turn."""
+        if blocks.shape != self.shape:
+            self._fit(blocks.shape)
+        np.copyto(self.in_np, blocks)
+        return self.card_in.copy_(self.host_in, non_blocking=True)
+
+    def copy_out(self, out: torch.Tensor, first: int) -> np.ndarray:
+        """Rows ``first:`` of the chunk's ``out`` -> a host array of the
+        caller's own: one copy and the stream's sync (the sync alone when no
+        row is written)."""
+        if first == len(self.out_np):
+            torch.cuda.current_stream(self._dev).synchronize()
+        elif first:
+            self.host_out[first:].copy_(out[first:])
+        else:
+            self.host_out.copy_(out)  # blocking: the copy, then the stream's sync
+        return self.out_np[first:].flatten()

@@ -12,7 +12,9 @@ table's twiddles, the VAD on integers, the per-bin noise step, the gain, the
 OLA), row by row as the kernel walks them, against the plain chain.  On a
 card (skipped without CUDA): the kernel against the plain chain on the card
 over streams built with numpy, in both modes and chunks of 1, 2, 3 and 17
-blocks, from a checkpoint restored mid-stream, its launches counted.
+blocks, from a checkpoint restored mid-stream, its launches counted, and a
+session's pinned staging (three device activities a chunk, the buffers
+reused and grown).
 """
 
 import numpy as np
@@ -399,8 +401,9 @@ def test_k15_resumes_from_a_checkpoint_mid_stream(cuda, mode, tmp_path):
 
 def test_k15_session_launches_under_the_profiler(cuda):
     """20 chunks of a card session under torch.profiler: K15 once a chunk
-    (its counter and the trace agree), at most 10 device activities a chunk
-    (the copy in, K15, ``out[mask]``'s work, the copy out)."""
+    (its counter and the trace agree), and exactly three device activities a
+    chunk: the copy in from pinned memory, K15 and the copy out into pinned
+    memory; no ``nonzero``, cub or gather kernel.  Each chunk staged."""
     from torch.profiler import ProfilerActivity, profile
 
     blocks = stream_blocks()
@@ -409,14 +412,41 @@ def test_k15_session_launches_under_the_profiler(cuda):
         sess.process(blocks[s: s + 2])
     torch.cuda.synchronize()
     before = K15.enhance_chunk64.launches
+    staged = ST.REGISTRY.counters["session.staged"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for s in range(8, 48, 2):
             sess.process(blocks[s: s + 2])
         torch.cuda.synchronize()
     assert K15.enhance_chunk64.launches == before + 20
+    assert ST.REGISTRY.counters["session.staged"] == staged + 20
     acts = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    k15 = [e for e in acts if "chunk64" in e.name]
-    print(f"\n[K15 session] {len(acts) / 20:.2f} device activities a chunk; "
-          f"{sorted({e.name[:40] for e in acts})}")
-    assert len(k15) == 20
-    assert len(acts) / 20 <= 10
+    names = sorted({e.name for e in acts})
+    print(f"\n[K15 session] {len(acts) / 20:.2f} device activities a chunk; {names}")
+    kinds = [[e for e in acts if key in e.name] for key in ("HtoD", "chunk64", "DtoH")]
+    assert [len(k) for k in kinds] == [20, 20, 20] and len(acts) == 60, names
+    assert all("Pinned" in e.name for e in kinds[0] + kinds[2]), names
+
+
+@pytest.mark.parametrize("lead", [(2,), (1, 2), (3,)])
+def test_k15_session_reuses_its_pinned_input_safely(cuda, lead):
+    """A card session whose first chunks are ``lead`` (two blocks at t = 0
+    write nothing; a block at t = 1, or three at t = 0, write part of the
+    chunk), then chunks cycling through 1, 2 and 5 blocks, so that its
+    buffers are reused, grown and cut to other shapes: every chunk's output
+    within one step of a CPU session's and as long, the differing samples'
+    count printed."""
+    blocks = stream_blocks()
+    cpu, card = ST.EnhanceSession("wiener", device="cpu"), ST.EnhanceSession("wiener", device=cuda)
+    sizes = list(lead) + [(1, 2, 5)[i % 3] for i in range(len(blocks))]
+    s, flipped = 0, 0
+    for n in sizes:
+        if s >= len(blocks):
+            break
+        got, want = card.process(blocks[s: s + n]), cpu.process(blocks[s: s + n])
+        assert got.shape == want.shape == (max(0, min(s + n, len(blocks)) - max(s, 2)) * 512,)
+        d = np.abs(got.astype(np.int64) - want)
+        assert not len(d) or d.max() <= 1, (s, n)
+        flipped += int((d > 0).sum())
+        s += n
+    print(f"\n[K15 session, staged, lead {lead}] {flipped} samples differ from the CPU session "
+          f"over {len(blocks) - 2} written blocks")

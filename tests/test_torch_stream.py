@@ -91,6 +91,62 @@ def test_checkpoint_resume(blocks, tmp_path, dtype):
     np.testing.assert_array_equal(sess2.process(blocks[13:]), a2)
 
 
+def _counts():
+    return {k: TS.REGISTRY.counters[k] for k in ("session.t_reads", "session.staged")}
+
+
+def _by_mask(state, chunk):
+    """``enhance_chunk``'s rows under its own write mask, and the state after."""
+    out, mask, state = TE.enhance_chunk(state, torch.from_numpy(chunk.copy()))
+    return out[mask].reshape(-1).numpy(), state
+
+
+@pytest.mark.parametrize("t0", [0, 1, 2, 3])
+@pytest.mark.parametrize("chunk", [1, 2, 3, 4, 5, 6, 7])
+def test_written_rows_from_the_mirror_equal_the_mask_rule(blocks, chunk, t0):
+    """A session that has served ``t0`` blocks, then chunks of ``chunk``:
+    each output byte-identical to ``out[mask]`` from the same state; every
+    returned array writable and unchanged by later chunks; no read of ``t``
+    and nothing staged on the CPU."""
+    sess = TS.EnhanceSession("wiener", device="cpu")
+    state, got, want = TE.stream_init_state(torch.float64, device="cpu"), [], []
+    before, x = _counts(), blocks[:24]
+    for s, e in [(0, t0)] * bool(t0) + [(s, s + chunk) for s in range(t0, 24, chunk)]:
+        got.append(sess.process(x[s:e]))
+        w, state = _by_mask(state, x[s:e])
+        want.append(w)
+        assert got[-1].flags.writeable and np.array_equal(got[-1], w), (s, e)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))  # none changed since
+    assert _counts() == before
+    assert sess.sample_offset == 24 * 512 and _counts() == before
+
+
+@pytest.mark.parametrize("how", ["restore", "assign"])
+def test_mirror_follows_a_state_put_in_its_place(blocks, tmp_path, how):
+    """After a ``restore`` or an assignment to ``state`` (an earlier state,
+    as a frozen session's fault puts back), the next chunks follow that state,
+    not the mirror (at t = 1 the next chunk of 2 writes one row, not two):
+    ``t`` read once, then none a chunk."""
+    sess = TS.EnhanceSession("wiener", device="cpu")
+    sess.process(blocks[:1])
+    earlier = sess.state
+    sess.checkpoint(str(tmp_path / "ck.npz"))
+    for s in range(1, 12, 3):
+        sess.process(blocks[s: s + 3])
+    before = _counts()
+    if how == "restore":
+        sess.restore(str(tmp_path / "ck.npz"))
+    else:
+        sess.state = earlier
+    assert sess.sample_offset == 512
+    state = {k: v.clone() for k, v in earlier.items()}
+    for s in range(1, 24, 2):
+        w, state = _by_mask(state, blocks[s: s + 2])
+        np.testing.assert_array_equal(sess.process(blocks[s: s + 2]), w)
+    assert _counts() == {"session.t_reads": before["session.t_reads"] + 1,
+                         "session.staged": before["session.staged"]}
+
+
 @pytest.mark.parametrize("split", [1, 2, 9, 10, 11, 14, 17, 30])
 def test_noise_scan_from_mid_run_equals_one_shot(blocks, split):
     """The scan carried across a cut at ``split`` (inside the first noise

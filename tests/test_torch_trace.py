@@ -7,7 +7,8 @@ neither jax nor the JAX package, so it runs on a card's host too:
 
 Off, a site records nothing and reads no clock; on, each call's spans form
 the trees below (on a card a Wiener chunk runs as one kernel, K15, so its
-``enhance.chunk`` holds ``enhance.kernel`` alone), children inside their
+``enhance.chunk`` holds ``enhance.kernel`` alone, and its copy in from
+pinned memory is a ``stage``), children inside their
 parents, one request id a chunk, copies and waits apart, the outputs
 bit-equal to an unrecorded run.  The
 card tests (skipped without CUDA) hold every synchronising call that torch
@@ -52,8 +53,10 @@ ENHANCE_TREE = [  # (name, kind, parent's name)
     ("session.drain", "wait", "session.process"),  # on a card only
     ("session.out", "copy", "session.process"),
 ]
-# a float64 chunk on a card runs as one kernel, K15 (ops.enhance.enhance_chunk)
-ENHANCE_CARD_TREE = (ENHANCE_TREE[:3] + [("enhance.kernel", "stage", "enhance.chunk")]
+# a float64 chunk on a card runs as one kernel, K15 (ops.enhance.enhance_chunk), and
+# its copy in, from pinned memory, does not block
+ENHANCE_CARD_TREE = (ENHANCE_TREE[:1] + [("session.chunk_in", "stage", "session.process")]
+                     + ENHANCE_TREE[2:3] + [("enhance.kernel", "stage", "enhance.chunk")]
                      + ENHANCE_TREE[-2:])
 APPLY_TREE = [
     ("nlms.apply", "stage", None),
