@@ -10,7 +10,7 @@ quirks).
 
 ``ENGINE_FIDELITY`` holds each engine's SNR floor in dB against the f64
 reference on the standard speech+noise probe, the floors the JAX package's
-tests assert, which the port's tests and ``chip_smoke.py`` hold it to, and
+tests assert, which the port's CPU and card tests hold it to, and
 ``typ``, the JAX package's value on that probe.  ``("enhance", "mxu1")``
 has no floor: that engine sits below the 60 dB bar and no CLI reaches it;
 ``utils.gpu_checks.run_checks`` flags it should it ever reach the bar.

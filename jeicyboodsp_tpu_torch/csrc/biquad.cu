@@ -49,7 +49,8 @@
 // subtraction -> + b0*x0 -> the truncating conversion and the sign extension
 // -> the conversion back, ~65 cycles in f64 by my count, 49,164 steps a
 // call, at one warp per SMSP with nothing to hide its latency behind
-// (profile_recursions.py: ~113 cycles a step at 2048 streams, 116 at 16).
+// (timed alone on the H100 at the redesign, as PERF.md's history records:
+// ~113 cycles a step at 2048 streams, 116 at 16).
 // c_short's range compares are off it: a launch checks sum |coef| * 32768 <
 // 2^30 for every band (the same in every thread, so the choice is uniform);
 // then every acc lies well inside int32 and the conversion alone gives
@@ -62,7 +63,8 @@
 // its band chain, s0 -> y -> c3*y -> the subtraction -> + s1, is ~16 cycles
 // a step by my count, and a warp issues ~15 instructions a step around it (9
 // f32 operations, the shuffle, the tile's read, lane 6's store, the loop);
-// profile_recursions.py reads ~54 cycles a step on the H100.  Reading the
+// timed alone at the redesign, it reads ~54 cycles a step on the H100 (PERF.md's
+// history).  Reading the
 // tile on every lane and selecting took K7 from ~61 cycles a step (lane 0
 // alone reading, its address arithmetic predicated every step) to ~54; a
 // skew of 3, which puts the shuffle two steps ahead, read ~72.

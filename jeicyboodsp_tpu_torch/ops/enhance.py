@@ -24,9 +24,9 @@ Counterpart of ``jeicyboodsp_tpu/ops/enhance.py``, with its
   in-kernel VAD, the noise latch
   (:func:`~jeicyboodsp_tpu_torch.kernels.enhance_full8.noise_latch`) and a
   back kernel (int8 K3 or f32 K5) with the flip, OLA and ``c_short``;
-- ``_enhance_fused`` (tests and ``chip_smoke.py`` only, as in the JAX
-  package): K4, the noise latch, the back kernel K13 and the OLA assembly
-  in torch ops.
+- ``_enhance_fused`` (tests only, as in the JAX package; on the card
+  ``tests/test_torch_cuda.py``): K4, the noise latch, the back kernel K13
+  and the OLA assembly in torch ops.
 
 The fused engines and ``mxu``/``mxu1`` give a bin at exactly 0 whose noise
 estimate is 0 gain 1 in a frame that holds a nonzero sample, so it
@@ -482,8 +482,8 @@ def _enhance_fused(blocks, mode, emit_all, L: int = 64):
     forward kernel K4 with the in-kernel VAD and frame flags, the noise
     latch, the back kernel K13, then the OLA assembly in torch ops: tail = [y512, flip(w2)
     [1:]], out[t] = c_short(head[t] + tail[t-1]) for t >= 2 (head alone at
-    t = 1, zero at t = 0).  Reached only from tests and ``chip_smoke.py``,
-    as in the JAX package.
+    t = 1, zero at t = 0).  Reached only from tests, as in the JAX
+    package.
 
     Returns (out (T, 512) int16, write_mask (T,)): rows t < 2 are warm-up,
     zero unless ``emit_all``.

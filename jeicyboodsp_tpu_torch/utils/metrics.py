@@ -3,7 +3,7 @@
 
 :class:`Metrics` collects named counters, gauges and host-clock timers into
 one JSON report; :data:`REGISTRY` is the process-wide instance.
-:func:`snr_db` is the SNR shared by the port's tests and ``chip_smoke.py``.
+:func:`snr_db` is the SNR the port's tests share.
 
 The port also records **spans** in :data:`REGISTRY`: named, nested host
 intervals of the session and op layers (:meth:`Metrics.span`), each of one

@@ -354,8 +354,8 @@ def test_timeparallel_drifts_as_jax_over_a_long_session():
     assert abs(dbs[0] - dbs[1]) <= 0.5
 
 
-def test_timeparallel_over_the_smoke_session_as_jax():
-    """chip_smoke.py's time-parallel session (tp_inputs: 1024 blocks of the
+def test_timeparallel_over_the_tp_inputs_session_as_jax():
+    """The time-parallel session of torch_inputs.tp_inputs (1024 blocks of the
     benchmark's tiled signal and room) on the CPU: the port's op within one
     step on under 1% of the samples of JAX's (jitted), and both error
     signals' dB against JAX's f64 sequential path (which
@@ -364,10 +364,9 @@ def test_timeparallel_over_the_smoke_session_as_jax():
     the formulation's own (ROADMAP R20)."""
     import jax
 
-    sys.path.insert(0, ROOT)
-    import chip_smoke
+    from torch_inputs import tp_inputs
 
-    far, near = chip_smoke.tp_inputs("cpu")
+    far, near = tp_inputs("cpu")
     got = TN.bnlms_apply_timeparallel(far, near)
     fj, nj = jnp.asarray(far.numpy()), jnp.asarray(near.numpy())
     want = jax.jit(lambda a, b: jnl.bnlms_apply_timeparallel(a, b, dtype=jnp.float32))(fj, nj)

@@ -2,14 +2,13 @@
 registry: ``jeicyboodsp_tpu_torch.config`` and
 ``jeicyboodsp_tpu_torch.utils.metrics.Metrics`` / ``REGISTRY`` against
 ``jeicyboodsp_tpu.config`` and ``jeicyboodsp_tpu.utils.metrics``, and the
-floors ``chip_smoke.py`` and the port's tests read from the copy."""
+floors the port's tests read from the copy."""
 
 import dataclasses
 import json
 
 import pytest
 
-import chip_smoke
 from jeicyboodsp_tpu import config as JC
 from jeicyboodsp_tpu.utils import metrics as JM
 from jeicyboodsp_tpu_torch import config as TC
@@ -76,11 +75,12 @@ def test_metrics_dump_and_registry(tmp_path):
     assert isinstance(TM.REGISTRY, TM.Metrics) and TM.REGISTRY is not JM.REGISTRY
 
 
-def test_smoke_and_tests_read_the_floors_from_the_copy():
+def test_card_and_cpu_tests_read_the_floors_from_the_copy():
+    import test_torch_cuda
     import test_torch_fused3
 
-    assert chip_smoke.FLOORS == {e: JC.ENGINE_FIDELITY["enhance", e]["floor"]
-                                 for e in ("mxu8f", "mxu8t", "mxu8", "mxu3")}
-    assert chip_smoke.MFCC_PIPE_DB == JC.ENGINE_FIDELITY["mfcc", "mxu3"]["floor"]
+    assert test_torch_cuda.FIDELITY == {e: JC.ENGINE_FIDELITY["enhance", e]["floor"]
+                                        for e in ("mxu8f", "mxu8t", "mxu8", "mxu3")}
+    assert test_torch_cuda.MFCC_PIPE_DB == JC.ENGINE_FIDELITY["mfcc", "mxu3"]["floor"]
     assert test_torch_fused3.FLOOR == {e: JC.ENGINE_FIDELITY["enhance", e]["floor"]
                                        for e in ("mxu8", "mxu3")}

@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import k4_f64_bases, make_signal
 from jeicyboodsp_tpu_torch.kernels import _build
 from jeicyboodsp_tpu_torch.kernels import enhance_back_ola3 as K5
 from jeicyboodsp_tpu_torch.kernels import enhance_back_ola8 as K3
@@ -26,6 +25,7 @@ from jeicyboodsp_tpu_torch.config import ENGINE_FIDELITY
 from jeicyboodsp_tpu_torch.ops import enhance as E
 from jeicyboodsp_tpu_torch.oracle.cnum import c_short
 from jeicyboodsp_tpu_torch.utils.metrics import snr_db
+from torch_inputs import F32_RTOL, k4_f64_bases, make_signal
 
 KERNEL_VS_PLAIN_DB = 90.0
 FIDELITY = {e: ENGINE_FIDELITY[("enhance", e)]["floor"] for e in ("mxu3", "mxu8", "mxu8f", "mxu8t")}
@@ -277,7 +277,7 @@ def test_k4_fft_pass_against_f64(cuda):
     window-folded bases, within 2^-18 of each row's largest sum of |a*b|:
     the f32 FFT keeps about 2^-21 of it, and a wrong twiddle or a lost term
     of the split would miss by orders of magnitude.  re, im and |X| within
-    1e-5 of each plane's row max of the f64 values (chip_smoke.F32_RTOL)."""
+    1e-5 of each plane's row max of the f64 values (F32_RTOL)."""
     C = E.enhance_constants(cuda)
     blocks = _k4_blocks(1024, 21).to(cuda)
     WC, WS = k4_f64_bases(cuda)
@@ -291,7 +291,7 @@ def test_k4_fft_pass_against_f64(cuda):
         assert (err <= tol).all(), (i, float((err / tol.clamp_min(1e-30)).max()))
     exact += (torch.sqrt(exact[0] ** 2 + exact[1] ** 2),)
     for i, w in zip((0, 1, 3), exact):
-        assert _rel(got[i].double(), w) <= 1e-5, i
+        assert _rel(got[i].double(), w) <= F32_RTOL, i
 
 
 @pytest.mark.parametrize("T", [64, 192, 200, 16384])
@@ -353,7 +353,7 @@ def test_int8_engines_equal_their_cpu_runs(cuda, engine):
     (the tail that each row's first sample adds) and, in K1, the Nyquist
     bin, which feeds the gain of the row.
     On the card this probe gives 0 (mxu8, mxu8f) and 1 (mxu8t) differing
-    samples; chip_smoke.py prints the q8 bytes that differ at T = 16384."""
+    samples."""
     blocks = torch.from_numpy(_signal(192, 5).reshape(-1, 512))
     kw = dict(resynth="ratio", fft_engine=engine)
     out, mask = E.enhance_blocks(blocks.to(cuda), "wiener", **kw)
@@ -814,12 +814,13 @@ def test_recursion_wrappers_reject(name, bad):
 
 # ---- the speech features: MFCC (K10) and the AMDF (K11) ---------------------
 
-from chip_smoke import class_models, class_signal, reference_mfcc, speech_signal  # noqa: E402
 from jeicyboodsp_tpu_torch.kernels import amdf as K11  # noqa: E402
 from jeicyboodsp_tpu_torch.kernels import mfcc_fused as K10  # noqa: E402
 from jeicyboodsp_tpu_torch.models import gmm as GM  # noqa: E402
 from jeicyboodsp_tpu_torch.ops import features as F  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.mfcc import reference_mfcc  # noqa: E402
 from jeicyboodsp_tpu_torch.pipelines import speech as S  # noqa: E402
+from torch_inputs import class_models, class_signal, speech_signal  # noqa: E402
 
 
 def _feature_rows(n_blocks, seed, silent=None):
@@ -1000,15 +1001,16 @@ def test_amdf_wrapper_rejects(bad):
 
 # ---- K12 (the FFT), K13 (the f32 back half), K14 (the VAD) ----
 
-from chip_smoke import vad_threshold_rows  # noqa: E402
 from jeicyboodsp_tpu_torch.kernels import enhance_back as K13  # noqa: E402
 from jeicyboodsp_tpu_torch.kernels import fft_four_step as K12  # noqa: E402
 from jeicyboodsp_tpu_torch.kernels import vad_flags as K14  # noqa: E402
 from jeicyboodsp_tpu_torch.ops import fastconv as FC  # noqa: E402
 from jeicyboodsp_tpu_torch.ops import fft as FT  # noqa: E402
+from torch_inputs import vad_threshold_rows  # noqa: E402
 
 FFT_RTOL = 1e-5   # K12 against its plain version and numpy: of max |X|
 ROW_RTOL = 1e-5   # K13 against its plain version: of each frame row's max
+FFT_FULL_T = {8192: 2041, 512: 16384}  # the frames of a fastconv call / an FFT-program call
 
 
 @pytest.mark.parametrize("forward", [True, False], ids=["forward_real", "inverse_complex"])
@@ -1016,12 +1018,12 @@ ROW_RTOL = 1e-5   # K13 against its plain version: of each frame row's max
 def test_fft4_kernel_matches_plain(cuda, n, forward):
     """K12 against its plain version (cuBLAS f32 matmuls, TF32 off) and a
     float64 numpy FFT, within 1e-5 of max |X|: T = 37 (a last block that
-    several small frames do not fill), T = 1 and T = 9.  n = 96 (8 x 12)
-    and 384 (16 x 24) take the plan's odd radix 3, 16384 is the largest
-    frame.  Each call is one counted launch that allocates its two outputs
-    and no scratch."""
+    several small frames do not fill), T = 1 and T = 9, and the full-size
+    calls (2041, 8192) and (16384, 512).  n = 96 (8 x 12) and 384 (16 x 24)
+    take the plan's odd radix 3, 16384 is the largest frame.  Each call is
+    one counted launch that allocates its two outputs and no scratch."""
     rng = np.random.default_rng(n + forward)
-    for T in (37, 1, 9):
+    for T in (37, 1, 9, *([FFT_FULL_T[n]] if n in FFT_FULL_T else [])):
         xr, xi = (torch.from_numpy(rng.normal(0, 100, (T, n)).astype(np.float32)).to(cuda)
                   for _ in range(2))
         xi = None if forward else xi
@@ -1045,6 +1047,33 @@ def test_fft4_kernel_matches_plain(cuda, n, forward):
         for what, want in (("plain", pr.cpu().double().numpy() + 1j * pi.cpu().double().numpy()),
                            ("numpy", np.fft.fft(z) if forward else np.fft.ifft(z) * n)):
             assert np.abs(got - want).max() <= FFT_RTOL * np.abs(want).max(), (what, T)
+
+
+def _fft_pair(got, want):
+    """K12's (re, im) within FFT_RTOL of the plain version's max |X|."""
+    err = torch.sqrt((got[0] - want[0]) ** 2 + (got[1] - want[1]) ** 2)
+    scale = float(torch.sqrt(want[0] ** 2 + want[1] ** 2).max())
+    assert float(err.max()) <= FFT_RTOL * scale, float(err.max()) / scale
+
+
+def test_fft4_kernel_matches_plain_on_the_transform_signals(cuda):
+    """K12 against its plain version at the full-size calls of its two
+    users, on their signals (torch_inputs.transform_inputs), within 1e-5 of
+    max |X|: at (2041, 8192) forward on the fastconv call's segments, then
+    inverse on their spectra times the filter's (the mxu engine's
+    inverse); at (16384, 512) forward on the FFT program's blocks and
+    inverse on their spectra."""
+    xc, xf = transform_inputs()
+    segs = FC._segments(FC._warm(torch.from_numpy(xc.reshape(FC_T, 1024)).to(cuda),
+                                 torch.float32), FC_T)
+    Hr, Hi = (torch.from_numpy(a).to(cuda) for a in FC.filter_spectrum(dtype=torch.float32))
+    fb = torch.from_numpy(xf.reshape(FFT_T, 512)).to(cuda).float()
+    for n, x, filt in ((8192, segs, (Hr, Hi)), (512, fb, None)):
+        X = K12.fft_pallas(x, None, n, True)
+        _fft_pair(X, K12.fft_four_step(x, None, n, True))
+        if filt:
+            X = (X[0] * filt[0] - X[1] * filt[1], X[0] * filt[1] + X[1] * filt[0])
+        _fft_pair(K12.fft_pallas(*X, n, False), K12.fft_four_step(*X, n, False))
 
 
 def test_fft4_paths_launch_k12(cuda):
@@ -1361,8 +1390,8 @@ def test_train_classes_batched_on_the_card(cuda):
     iteration counts equal; alpha within rtol 1e-6, the projected mean
     (signs aligned: cuSOLVER's eigenvectors differ from LAPACK's) 1e-5, cov
     1e-4, the top-4 |eigenvector dots| within 1e-5 of 1."""
-    from chip_smoke import synth_class
     from jeicyboodsp_tpu_torch.models import gmm as G
+    from torch_inputs import synth_class
 
     feats = torch.from_numpy(np.stack([synth_class(1000 + c, 512) for c in range(25)]))
     masks = torch.ones(25, 512, dtype=torch.bool)
@@ -1393,8 +1422,8 @@ def test_viterbi_forms_on_the_card(cuda, T):
     compat (f64 packed HMM, NaN and held-state observations), corrected and
     viterbi_assoc (the f64 decode model), viterbi_batched (16 ragged
     utterances): paths equal, scores within 1e-12 relative, NaN equal."""
-    from chip_smoke import bench_hmm
     from jeicyboodsp_tpu_torch.models import hmm as H
+    from torch_inputs import bench_hmm
 
     (vf, va, vm, vc, ve, vt), (states, trans, obs, obs0) = bench_hmm(np.random.default_rng(T))
     hmm = H.hmm_to_port(*(np.stack([s[i] for s in states]) for i in range(4)), trans, "cpu")
@@ -1533,3 +1562,1203 @@ def test_run_checks_on_the_card(cuda):
     assert res["all_ok"], res
     assert set(launched) == {"K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9", "K11", "K14"}
     assert all(n > 0 for n in launched.values()), launched
+
+
+# ---- the port's paths at full size on the card, against the f64 references ----
+#
+# The tests above hold each kernel against its plain version; the CPU tests hold the
+# plain versions and the torch-op paths against the oracles.  These run on the card what
+# no other test runs there: the torch-op engines (fastconv, the FFT program, pitch 1/3,
+# the f64 MFCC, MVDR, LPC, geq_apply_fast, GMM training and scoring, AWGN), the CLIs
+# in subprocesses, the enhancement file pipelines and sessions and the f32 echo
+# cancellers at full size, each at the benchmark's size against the port's float64
+# oracles (numpy only).  tests/test_torch_cuda_one_rank.py runs the sharded paths in
+# a world of one NCCL rank.
+
+import contextlib  # noqa: E402
+import functools  # noqa: E402
+import io  # noqa: E402
+import re  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+
+from jeicyboodsp_tpu_torch import cli  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.enhance import reference_enhance  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.fastconv import reference_fastconv  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.fftprog import reference_fft_roundtrip  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.geq import reference_geq_linear  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.gmm import (  # noqa: E402
+    PCA_TEST, PCA_TRAIN, reference_read_models, reference_score, reference_score_file,
+    reference_train_class,
+)
+from jeicyboodsp_tpu_torch.oracle.lpc import reference_lpc  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.mvdr import reference_mvdr  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.pitch import reference_pitch, reference_pitch_frames  # noqa: E402
+from jeicyboodsp_tpu_torch.oracle.viterbi import (  # noqa: E402
+    reference_forward, reference_hmm_decode,
+)
+from jeicyboodsp_tpu_torch.pipelines import registry  # noqa: E402
+from torch_inputs import (  # noqa: E402
+    AEC_B, AEC_T, FC_T, FFT_T, GEQ_B, GEQ_T, HMM_T, LPC_F32_LOST, LPC_F32_MEDIAN,
+    MFCC_T, PITCH_T, SCORE_RTOL, SEED, T_FULL, T_PROBE, bench_hmm, chain_signals,
+    feature_inputs, lpc_signal, make_aec_streams, make_geq_streams, make_stereo,
+    probe_signals, synth_class, tp_inputs, transform_inputs,
+)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COMPAT_FLIPPED = 1e-3  # f64 against the reference: one step, on under 0.1% of the samples
+MFCC_PIPE_DB = ENGINE_FIDELITY["mfcc", "mxu3"]["floor"]  # the mfcc pipeline vs the reference
+MFCC_FULL_DB = 85.0   # mfcc_blocks(mxu3) at full size vs the f64 reference: the TPU kernel's level
+CLASSES = 25          # class models gmm_train trains (jeicyboodsp_tpu/pipelines/registry.py:159)
+TRAIN_BLOCKS, UTT_BLOCKS = 64, 32  # blocks of 1024 behind a class model / in an utterance
+
+
+def _flip_count(got, want, share):
+    """int16 outputs at most one step apart on under ``share`` of the samples."""
+    assert got.shape == want.shape, (got.shape, want.shape)
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert d.max(initial=0) <= 1 and int((d > 0).sum()) < share * max(len(want), 1), (
+        int(d.max(initial=0)), int((d > 0).sum()))
+
+
+def _write_probe(work, name, x):
+    """x behind a 44-byte header, which the pipelines that read a header skip."""
+    path = os.path.join(work, f"{name}.wav")
+    np.concatenate([np.arange(22, dtype=np.int16), x]).tofile(path)
+    return path
+
+
+def test_engines_mxu8f_mxu8t_through_k14_equal_the_torch_vad_chain(cuda):
+    """Engines mxu8f and mxu8t on the full-size chain signal (T = 16384):
+    the int16 output through K14 equal to the same chain with the VAD as
+    torch ops (``vad_rows``), and the same from blocks at an odd offset."""
+    blocks = torch.from_numpy(chain_signals()[1].reshape(T_FULL, 512)).to(cuda)
+    C = E.enhance_constants(cuda)
+    odd = torch.empty(blocks.numel() + 1, dtype=blocks.dtype, device=cuda)[1:].view(blocks.shape)
+    odd.copy_(blocks)
+    for eng, hq in (("mxu8f", True), ("mxu8t", False)):
+        new = E.enhance_blocks(blocks, "wiener", fft_engine=eng, resynth="ratio")[0]
+        rowpack = E._latch_rowpack(K2.vad_rows(blocks, E._vad_window(cuda)))
+        assert torch.equal(new, K.enhance_full8(blocks, rowpack, C, "wiener", hq)), eng
+        assert torch.equal(E.enhance_blocks(odd, "wiener", fft_engine=eng, resynth="ratio")[0],
+                           new), eng
+
+
+def _finite_db(got, want, floor):
+    """SNR over the finite features at or above ``floor``, the NaN and
+    infinity masks (with signs) equal."""
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    fin = np.isfinite(w)
+    inf = ~fin & ~np.isnan(w)
+    assert g.shape == w.shape and np.array_equal(np.isnan(g), np.isnan(w))
+    assert np.array_equal(np.isinf(g), np.isinf(w)) and np.array_equal(g[inf], w[inf])
+    err = g[fin] - w[fin]
+    db = 10 * np.log10(np.sum(w[fin] ** 2) / max(np.sum(err ** 2), 1e-300))
+    assert db >= floor, db
+
+
+def _pitch_lines(text):
+    """(lag, value, f0) arrays from the pitch pipeline's printed lines."""
+    rows = [line.split() for line in text.splitlines() if line.startswith("Estimation arg")]
+    return (np.array([int(r[2]) for r in rows], np.int64), np.array([float(r[5]) for r in rows]),
+            np.array([float(r[7]) for r in rows]))
+
+
+def test_feature_pipelines_and_ops_at_full_size(cuda, tmp_path):
+    """The ``pitch1``-``pitch3`` pipelines in f64, ``pitch2`` through K11 in
+    f64 and from the CLI with ``--fast --engine mxu`` on a speech probe with
+    a silent stretch, a partial last block and an empty payload (lags equal;
+    f64 values and f0 equal, to 1e-9 for method 1's FFT); the ``mfcc``
+    pipeline in f64 and f32 xla/mxu3 (at the mxu3 floor); at full size
+    ``mfcc_blocks(mxu3)`` (K10, >= 85 dB), ``speech_classify(mxu3)`` of 25
+    utterances against 25 class models built from the reference's features
+    (every argmax the class, scores within SCORE_RTOL) and
+    ``pitch_frames(method=2, mxu)`` (K11; 256 sampled frames: f64 equal, f32
+    lags equal up to f32 ties, the silent frame's lag 101); each against the
+    port's float64 oracles."""
+    work, dev = str(tmp_path), cuda
+    rng = np.random.default_rng(SEED + 4)
+    probe = speech_signal(40 * 512 + 300, rng, silent=(4096, 8192))  # partial last blocks
+    cases = {"probe": probe, "empty": probe[:0]}
+    paths = {c: _write_probe(work, f"feat_{c}", x) for c, x in cases.items()}
+    mfcc_runs = {"f64 xla": (torch.float64, "xla"), "f32 xla": (torch.float32, "xla"),
+                 "f32 mxu3": (torch.float32, "mxu3")}
+    lists = {}
+    for r in mfcc_runs:  # the probe first: its first frame is the run's, skipped
+        tag = r.replace(" ", "_")
+        lists[r] = os.path.join(work, f"mfcc_{tag}.list")
+        with open(lists[r], "w") as f:
+            f.writelines(f"{paths[c]} {os.path.join(work, f'{c}_{tag}.mfc')}\n" for c in cases)
+    x, rows, frames = feature_inputs(dev)
+    train = [class_signal(c, TRAIN_BLOCKS * 1024, rng) for c in range(CLASSES)]
+    utts = [class_signal(c, UTT_BLOCKS * 1024, rng) for c in range(CLASSES)]
+    model = class_models([reference_mfcc(t, skip_first=False) for t in train])
+    tmodel = GM.model_to_port(*model, dev)
+    printed = {}
+    for c in cases:
+        for m in (1, 2, 3):
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                registry.pitch(paths[c], m, dtype=torch.float64, device=dev)
+            printed[f"pitch{m} f64 xla", c] = out.getvalue()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            registry.pitch(paths[c], 2, dtype=torch.float64, fft_engine="mxu", device=dev)
+        printed["pitch2 f64 mxu (K11)", c] = out.getvalue()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cli.main(["pitch2", paths[c], "--fast", "--engine", "mxu", "--device", str(dev)])
+        printed["cli pitch2 --fast --engine mxu (K11)", c] = out.getvalue()
+    for r, (dtype, eng) in mfcc_runs.items():
+        registry.mfcc(lists[r], dtype=dtype, fft_engine=eng, device=dev)
+    mel_m, dct_m = F.mel_dct(torch.float32, dev)
+    feats_full = F.mfcc_blocks(rows[1:].reshape(MFCC_T, 1024), mel_m, dct_m, dtype=torch.float32,
+                               fft_engine="mxu3")
+    scores = [S.speech_classify(torch.from_numpy(u.reshape(-1, 1024)).to(dev), *tmodel,
+                                dtype=torch.float32, fft_engine="mxu3") for u in utts]
+    lag64, val64, f064 = F.pitch_frames(frames, method=2, dtype=torch.float64, fft_engine="mxu")
+    lag32, val32, _ = F.pitch_frames(frames, method=2, dtype=torch.float32, fft_engine="mxu")
+    torch.cuda.synchronize()
+
+    for (run, c), text in printed.items():
+        m = int(run.split("pitch")[1][0])
+        want, got = reference_pitch(cases[c], m), _pitch_lines(text)
+        assert np.array_equal(got[0], want[0]), (run, c)
+        if "--fast" not in run:  # f64: values and f0 too
+            if m == 1:  # the FFTs' last bits differ between libraries
+                np.testing.assert_allclose(got[1], want[1], rtol=1e-9, atol=0)
+            else:  # exact integer sums and one IEEE division
+                assert np.array_equal(got[1], want[1]), (run, c)
+            assert np.array_equal(got[2], want[2]), (run, c)
+    for r in mfcc_runs:
+        for first, (c, x_c) in zip((True, False), cases.items()):
+            got = np.fromfile(os.path.join(work, f"{c}_{r.replace(' ', '_')}.mfc"), "<f8")
+            want = reference_mfcc(x_c, skip_first=first).reshape(-1)
+            if not len(want):
+                assert not len(got), (r, c)
+                continue
+            _finite_db(got, want, MFCC_PIPE_DB)
+    _finite_db(feats_full.cpu(), reference_mfcc(x, skip_first=False), MFCC_FULL_DB)
+    for c, u in enumerate(utts):
+        f = reference_mfcc(u, skip_first=False)
+        want = np.array([reference_score(f, *(m[j] for m in model)) for j in range(CLASSES)])
+        got = scores[c].cpu().numpy()
+        assert int(np.argmax(got)) == int(np.argmax(want)) == c
+        assert np.max(np.abs(got - want) / np.abs(want)) <= SCORE_RTOL
+    idx = np.linspace(0, PITCH_T - 1, 256).astype(np.int64)
+    idx[1] = 1_000_000 // 512 + 2  # a frame inside the silent stretch
+    wl, wv, wf = reference_pitch_frames(frames[torch.from_numpy(idx).to(dev)].cpu().numpy(), 2)
+    gl, gv, gf = (v.cpu().numpy()[idx] for v in (lag64, val64, f064))
+    assert np.array_equal(gl, wl) and np.array_equal(gv, wv) and np.array_equal(gf, wf)
+    l32, v32 = lag32.cpu().numpy()[idx], val32.cpu().numpy()[idx]
+    ties = np.flatnonzero(l32 != wl)  # an f32 tie with a smaller lag is allowed
+    assert all(np.float32(wv[i]) == v32[i] for i in ties) and gl[1] == 101
+
+
+FC_FLOORS = {"xla": 88.0, "gemm": 95.0, "gemm8": 70.0, "gemm8hq": 85.0, "mxu": 88.0,
+             "mxu3": 88.0, "auto": 85.0}  # f32 fastconv (tests/test_engine_matrix.py:134-163)
+FC_SPARSE_DB = 95.0    # fastconv_blocks_sparse in f32 (tests/test_engine_matrix.py:153-160)
+FC_F64_FLIPPED = 3e-3  # f64 fastconv: one int16 step on under 0.3% (tests/test_fastconv.py:16-25)
+FFT_FLOORS = {"radix2": 65.0, "xla": 68.0, "fourstep": 65.0}  # f32 roundtrip (:166-176)
+FFT_F64_DB = 70.0      # f64 radix2: one step at most, >= 70 dB (tests/test_fft_awgn.py:12-24)
+FUSED_DB = 85.0        # _enhance_fused against the reference: the mxu3 floor
+
+
+def _fc_verdict(got, want, floor=None):
+    """One fastconv output against the f64 reference: f64 (floor None) within
+    one step on under FC_F64_FLIPPED of the samples, f32 at its floor."""
+    assert got.shape == want.shape, (got.shape, want.shape)
+    if not len(want):
+        return
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    if floor is None:
+        assert d.max() <= 1 and (d > 0).mean() < FC_F64_FLIPPED, (int(d.max()), (d > 0).mean())
+    else:
+        assert snr_db(want, got) >= floor
+
+
+def test_fastconv_fft_and_enhance_fused_at_full_size(cuda, tmp_path):
+    """The ``fastconv`` pipeline of every engine (f64 xla, f32 xla, gemm,
+    gemm8, gemm8hq, mxu, mxu3, auto) and the ``fft`` pipeline (f64 radix2,
+    ``--verbose`` lines) on probe files with a partial last block, an empty
+    payload and (fastconv) T <= 7; every fastconv engine and
+    ``fastconv_blocks_sparse`` at 2048 blocks, ``roundtrip_blocks`` f32
+    radix2 / xla / fourstep and f64 radix2 at 16,384 blocks and
+    ``_enhance_fused`` at T = 16384, each against the port's float64
+    oracles (f64 within one step; f32 at the floors of
+    tests/test_engine_matrix.py; ``_enhance_fused`` >= 85 dB)."""
+    work, dev = str(tmp_path), cuda
+    xc, xf = transform_inputs()
+    x_enh = chain_signals()[1]
+    blocks = torch.from_numpy(x_enh.reshape(T_FULL, 512)).to(dev)
+    probe = make_signal(40 * 1024 + 300, np.random.default_rng(SEED + 6))
+    fc_cases = {"probe": probe, "short": probe[: 5 * 1024 + 7], "empty": probe[:0]}
+    fft_cases = {"probe": probe[: 30 * 512 + 77], "empty": probe[:0]}
+    fc_runs = {"f64 xla": (torch.float64, "xla", None),
+               **{f"f32 {e}": (torch.float32, e, FC_FLOORS[e]) for e in FC_FLOORS}}
+    for c, x in fc_cases.items():
+        path = _write_probe(work, f"fc_{c}", x)
+        for run, (dtype, eng, floor) in fc_runs.items():
+            out = os.path.join(work, f"fc_{c}_{run.replace(' ', '_')}.pcm")
+            registry.fastconv(path, out, dtype=dtype, fft_engine=eng, device=dev)
+            _fc_verdict(np.fromfile(out, "<i2"), reference_fastconv(x), floor)
+    for c, x in fft_cases.items():
+        out = os.path.join(work, f"fft_{c}.pcm")
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            registry.fft_roundtrip(_write_probe(work, f"fft_{c}", x), out, verbose=True, device=dev)
+        got, want, printed = np.fromfile(out, "<i2"), reference_fft_roundtrip(x), text.getvalue()
+        d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        assert got.shape == want.shape and d.max(initial=0) <= 1, c
+        lines = printed.count("512-point FFT Calculation add 2304 multiply 2048")
+        assert lines == 2 * len(want) // 512, c
+        assert printed.endswith("Break! The buffer is insufficient.\nProcessing End\n"), c
+    ref_fc = reference_fastconv(xc)
+    for run, (dtype, eng, floor) in fc_runs.items():
+        _fc_verdict(FC.run_stream(xc, dtype=dtype, fft_engine=eng, device=dev), ref_fc, floor)
+    cb = torch.from_numpy(xc.reshape(FC_T, 1024)).to(dev)
+    sparse = FC.fastconv_blocks_sparse(cb, torch.float32).reshape(-1).cpu().numpy()
+    _fc_verdict(sparse, ref_fc, FC_SPARSE_DB)
+    fb = torch.from_numpy(xf.reshape(FFT_T, 512)).to(dev)
+    ref_fft = reference_fft_roundtrip(xf)
+    rts = {e: FT.roundtrip_blocks(fb, torch.float32, e).reshape(-1).cpu().numpy()
+           for e in FFT_FLOORS}
+    for eng, got in rts.items():
+        assert snr_db(ref_fft, got) >= FFT_FLOORS[eng], eng
+    got = FT.run_stream(xf, device=dev)  # f64 radix2
+    assert snr_db(ref_fft, got) >= FFT_F64_DB
+    assert np.abs(got.astype(np.int64) - ref_fft.astype(np.int64)).max() <= 1
+    fused, mask = E._enhance_fused(blocks, "wiener", False)
+    got = fused[mask].reshape(-1).cpu().numpy()
+    ref_enh = reference_enhance(x_enh, "wiener")
+    assert got.shape == ref_enh.shape and snr_db(ref_enh, got) >= FUSED_DB
+
+
+def _cli_stream(*args):
+    """The port's ``stream`` command in a subprocess on the card; its exit code."""
+    cmd = [sys.executable, "-m", "jeicyboodsp_tpu_torch.cli", "stream", *args, "--device", "cuda"]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert res.returncode in (0, 137), res.stderr[-2000:]
+    return res.returncode
+
+
+def test_stream_cli_killed_twice_and_resumed_on_the_card(cuda, tmp_path):
+    """The ``stream`` CLI on the card over the full-size chain signal, in
+    subprocesses with ``--chunk-blocks 64``: killed twice by
+    ``--crash-after 50`` (checkpoints every 8 chunks) and finished, its
+    output byte-identical to an uninterrupted run, which is within one step
+    on under 0.1% of ``reference_enhance``."""
+    x_full = chain_signals()[1]
+    inp, whole = str(tmp_path / "in.pcm"), str(tmp_path / "whole.pcm")
+    killed, ck = str(tmp_path / "killed.pcm"), str(tmp_path / "ck.npz")
+    x_full.tofile(inp)
+    chunk = ("--chunk-blocks", "64")
+    rcs = [_cli_stream(inp, whole, "wiener", *chunk)]
+    common = (inp, killed, "wiener", *chunk, "--ckpt", ck, "--ckpt-every", "8")
+    rcs += [_cli_stream(*common, "--crash-after", "50") for _ in range(2)]
+    rcs.append(_cli_stream(*common))
+    assert rcs == [0, 137, 137, 0]
+    np.testing.assert_array_equal(np.fromfile(killed, "<i2"), np.fromfile(whole, "<i2"))
+    _flip_count(np.fromfile(whole, "<i2"), reference_enhance(x_full, "wiener"), COMPAT_FLIPPED)
+
+
+def test_mvdr_blocks_at_full_size_on_the_card(cuda):
+    """``mvdr_blocks`` (torch ops, no kernel) over 16,384 stereo blocks
+    against ``reference_mvdr``: f64 xla and ``steering_delay(0.3)`` within
+    one step on under 1% of the samples (tests/test_mvdr.py); f32 xla and
+    mxu3 with ``collapse=False`` >= 60 dB; the mxu3 collapse within one step
+    on under 1% and >= 90 dB."""
+    from jeicyboodsp_tpu_torch.ops import mvdr as MV
+
+    xl, xr = make_stereo(T_FULL * 512, np.random.default_rng(SEED + 3))
+    dt = MV.steering_delay(0.3)
+    refs = {0.0: reference_mvdr(xl, xr), dt: reference_mvdr(xl, xr, d_time=dt)}
+    bl, br = (torch.from_numpy(x.reshape(T_FULL, 512)).to(cuda) for x in (xl, xr))
+    cases = {  # name: (dtype, engine, collapse, d_time)
+        "f64 xla": (torch.float64, "xla", True, 0.0),
+        "f32 xla": (torch.float32, "xla", True, 0.0),
+        "f32 mxu3 collapse=False": (torch.float32, "mxu3", False, 0.0),
+        "f32 mxu3 (collapse)": (torch.float32, "mxu3", True, 0.0),
+        "f64 xla steering 0.3": (torch.float64, "xla", True, dt),
+    }
+    for name, (dtype, eng, col, d) in cases.items():
+        out, mask = MV.mvdr_blocks(bl, br, d, dtype=dtype, fft_engine=eng, collapse=col)
+        got, ref = out[mask].reshape(-1).cpu().numpy(), refs[d]
+        assert got.shape == ref.shape and not np.isnan(snr_db(ref, got)), name
+        if dtype == torch.float64 or col and eng == "mxu3":
+            _flip_count(got, ref, 0.01)
+        if dtype == torch.float32:
+            assert snr_db(ref, got) >= (90.0 if col and eng == "mxu3" else 60.0), name
+
+
+# tests/test_gmm.py:25-41, :136, :406: the training, compat and corrected decode bounds
+ALPHA_RTOL, MEAN_TOL, COV_TOL, DOT_TOL = 1e-6, 1e-5, 1e-4, 1e-5
+VIT_RTOL = 1e-9
+ASSOC_RTOL, ASSOC_ATOL = 1e-5, 1e-2
+PRINTED_ATOL = 5e-7       # half a unit of %f's last digit
+F32_TIE_ULPS = 4          # an f32 decode may pick another state where two states' f64 values
+                          # differ by this few f32 spacings of the score (2^-8 at T = 4096): its
+                          # partial sums round there (seen: up to 1.42 on the CPU, three seeds)
+GMM_C, GMM_F = 25, 512    # classes x frames of the training corpus (bench/all_configs.py:938)
+GMM_TEST_FILES, GMM_TEST_FRAMES = 2, 128  # a class's test files (the benchmark's 4 x 128, :990)
+VIT_U, VIT_T = 512, 512   # the corpus decode: utterances x frames (:904)
+
+
+def _c_argmax(scores):
+    """GMMAlgorithm_Test_Auto_ver2.cpp:117-124: strict <, first wins, a NaN
+    keeps the incumbent."""
+    pred, best = 0, scores[0]
+    for u in range(1, len(scores)):
+        if best < scores[u]:
+            best, pred = scores[u], u
+    return pred
+
+
+def _check_trained(got, refs):
+    """A PCA export (numpy, per class) against reference_train_class at
+    tests/test_gmm.py's bounds, the eigenvectors' signs aligned first
+    (cuSOLVER's differ from LAPACK's)."""
+    for c, ref in enumerate(refs):
+        a, m, cv, e = (x[c] for x in got)
+        s = np.sign(np.sum(e * ref.eigvec, axis=1))
+        s[s == 0] = 1.0
+        m = m.copy()
+        m[:, :PCA_TRAIN] *= s
+        assert np.max(np.abs(a - ref.alpha) / np.abs(ref.alpha)) <= ALPHA_RTOL, c
+        assert np.max(np.abs(m - ref.mean) / (1 + np.abs(ref.mean))) <= MEAN_TOL, c
+        assert np.max(np.abs(cv - ref.cov) / (1 + np.abs(ref.cov))) <= COV_TOL, c
+        assert np.max(np.abs(np.abs(np.sum(e * ref.eigvec, axis=1))[:, :4] - 1)) <= DOT_TOL, c
+
+
+def _same_value(got, want, rtol, atol=0.0):
+    return (np.isnan(got) and np.isnan(want)) or abs(got - want) <= atol + rtol * abs(want)
+
+
+def test_speech_recognition_on_the_card(cuda, tmp_path):
+    """Speech recognition on the card against the port's float64 oracles
+    (``oracle/gmm.py``, ``oracle/viterbi.py``):
+
+    - ``train_classes_batched`` in f64 over 25 classes x 512 frames of
+      synth_class and the ``gmm-train`` CLI's model file at
+      tests/test_gmm.py's bounds; ``gmm-test`` on that file through the CLI
+      (the reference's misaligned read) and the pipeline aligned, every
+      printed decision that of reference_score_file;
+    - ``speech_train(mxu3, f32, K10)`` over 25 x 64 blocks of class_signal,
+      then ``speech_classify(mxu3)`` of an utterance a class with the models
+      in f64: every decision that of reference_score_file on the f64 MFCC,
+      NaN scores in the same places, the finite models' scores within
+      SCORE_RTOL;
+    - ``viterbi(compat=True)`` on the benchmark's packed HMM at T = 4096 (its
+      observation, and state 0 held) against reference_hmm_decode (paths
+      equal, scores and per-time values within 1e-9, NaN equal), the
+      ``viterbi --verbose`` CLI's lines within %f's rounding; the corrected
+      decode against ``viterbi_assoc`` in f64, both in f32 against the f64
+      decode (paths equal but at f32 ties); ``viterbi_batched`` over 512 x
+      512 against single decodes of 8 utterances;
+    - the ``awgn`` CLI at 16,384 blocks: the noise recovered through the wrap
+      has |mean| < 0.5 and 8.5 < std < 11.5, a 32760 stretch wraps negative,
+      whiteness_ratio below 0.25 after the first block and within 1e-9 of a
+      numpy f64 autocorrelation."""
+    from jeicyboodsp_tpu_torch.models import hmm as H
+    from jeicyboodsp_tpu_torch.ops import awgn as AW
+
+    work, dev = str(tmp_path), cuda
+    rng = np.random.default_rng(SEED + 7)
+    feats = np.stack([synth_class(1000 + c, GMM_F) for c in range(GMM_C)])
+    refs = [reference_train_class([feats[c]]) for c in range(GMM_C)]
+    lists = []
+    for c in range(GMM_C):
+        p = os.path.join(work, f"c{c}.mfc")
+        feats[c].astype("<f8").tofile(p)
+        lists.append(os.path.join(work, f"c{c}.lst"))
+        with open(lists[-1], "w") as f:
+            f.write(p)  # no trailing whitespace: the reference's fscanf loop
+    train_list, model = os.path.join(work, "train.lst"), os.path.join(work, "model.bin")
+    with open(train_list, "w") as f:
+        f.write("\n".join(lists))
+    r2 = np.random.default_rng(555)
+    test_lists, test_files = [], []
+    for c in range(GMM_C):
+        paths = []
+        for j in range(GMM_TEST_FILES):
+            fr = (feats[c][r2.integers(0, GMM_F, GMM_TEST_FRAMES)]
+                  + r2.normal(0, 0.3, (GMM_TEST_FRAMES, 12)))
+            paths.append(os.path.join(work, f"t{c}_{j}.mfc"))
+            fr.astype("<f8").tofile(paths[-1])
+            test_files.append(fr)
+        test_lists.append(os.path.join(work, f"t{c}.lst"))
+        with open(test_lists[-1], "w") as f:
+            f.write("\n".join(paths))
+    test_list = os.path.join(work, "test.lst")
+    with open(test_list, "w") as f:
+        f.write("\n".join(test_lists))
+    train = [class_signal(c, TRAIN_BLOCKS * 1024, rng) for c in range(CLASSES)]
+    utts = [class_signal(c, UTT_BLOCKS * 1024, rng) for c in range(CLASSES)]
+    audio = torch.from_numpy(np.stack(train).reshape(CLASSES, TRAIN_BLOCKS, 1024)).to(dev)
+    (vf, va, vm, vc, ve, vt), (hstates, htrans, hobs, hobs0) = bench_hmm(rng)
+    hmm_path, obs_path = os.path.join(work, "hmm.bin"), os.path.join(work, "obs.mfc")
+    with open(hmm_path, "wb") as f:
+        for a, m, cv, ev in hstates:
+            f.write(b"".join(np.asarray(x, "<f8").tobytes() for x in (a, m, cv, ev)))
+        f.write(np.asarray(htrans, "<f8").tobytes())
+    hobs.astype("<f8").tofile(obs_path)
+    obs_list = os.path.join(work, "obs.lst")
+    with open(obs_list, "w") as f:
+        f.write(obs_path)
+    dec32 = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (vf, va, vm, vc, ve, vt)]
+    hmm64 = H.hmm_to_port(*(np.stack([s[i] for s in hstates]) for i in range(4)), htrans, dev)
+    corpus = torch.from_numpy(rng.normal(0, 1.0, (VIT_U, VIT_T, 12)).astype(np.float32)).to(dev)
+    lengths = torch.full((VIT_U,), VIT_T, dtype=torch.int64, device=dev)
+    awgn_x = make_signal(T_FULL * 512, rng)
+    awgn_x[: 20 * 512] = 32760
+    awgn_in, awgn_out = _write_probe(work, "awgn_in", awgn_x), os.path.join(work, "awgn_out.pcm")
+
+    ft = torch.from_numpy(feats).to(dev)
+    trained = GM.train_classes_batched(ft, torch.ones(GMM_C, GMM_F, dtype=torch.bool, device=dev))
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["gmm-train", train_list, model])  # the card: the CLI's default device
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        cli.main(["gmm-test", test_list, model])
+    printed_mis = out.getvalue()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        registry.gmm_test(test_list, model, emulate_layout_mismatch=False)
+    printed_al = out.getvalue()
+    s_model = S.speech_train(audio, dtype=torch.float32, fft_engine="mxu3")
+    s_model64 = [x.double() for x in s_model[:3]] + [s_model[3][..., :4].double()]
+    s_scores = [S.speech_classify(torch.from_numpy(u.reshape(-1, 1024)).to(dev), *s_model64,
+                                  dtype=torch.float32, fft_engine="mxu3")
+                for u in utts]  # the f32 features scored in f64
+    compat_runs = [H.viterbi(torch.from_numpy(o).to(dev), *hmm64, compat=True, full=True)
+                   for o in (hobs, hobs0)]
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        cli.main(["viterbi", obs_list, hmm_path, "--verbose"])
+    printed_vit = out.getvalue()
+    dec64 = [t.double() for t in dec32]
+    corrected = {dt: (H.viterbi(*d, compat=False), H.viterbi_assoc(*d))
+                 for dt, d in (("f64", dec64), ("f32", dec32))}
+    paths_b, scores_b = H.viterbi_batched(corpus, lengths, *dec32[1:], compat=False)
+    cli.main(["awgn", awgn_in, awgn_out])
+    torch.cuda.synchronize()
+
+    # training, and gmm-test on the trained file
+    _check_trained([x.cpu().numpy() for x in trained], refs)
+    with open(model, "rb") as f:
+        raw = np.frombuffer(f.read(), "<f8").reshape(GMM_C, -1)
+    _check_trained([raw[:, :4], raw[:, 4:52].reshape(-1, 4, 12),
+                    raw[:, 52:628].reshape(-1, 4, 12, 12), raw[:, 628:].reshape(-1, 4, 12, 8)],
+                   refs)
+    for printed, pca in ((printed_mis, PCA_TEST), (printed_al, PCA_TRAIN)):
+        stride = 8 * (4 + 48 + 576 + 48 * pca)  # bytes of a GMMParameter struct
+        models = reference_read_models(model, GMM_C, stride, pca)
+        want = [f"{i // GMM_TEST_FILES + 1} -th result "
+                f"{_c_argmax([reference_score_file(fr, *m) for m in models]) + 1}"
+                for i, fr in enumerate(test_files)]
+        assert printed.splitlines() == want, pca
+    # speech_train(mxu3) through K10 and speech_classify
+    model64 = [x.cpu().numpy() for x in s_model64]
+    ref_models = [(model64[0][c], model64[1][c], np.stack([np.diag(v)[:4] for v in model64[2][c]]),
+                   model64[3][c]) for c in range(CLASSES)]
+    finite = np.isfinite(model64[0]).all(1) & np.isfinite(model64[3]).all((1, 2, 3))
+    assert finite.any()
+    for c, u in enumerate(utts):
+        f = reference_mfcc(u, skip_first=False)
+        want = np.array([reference_score_file(f, *m) for m in ref_models])
+        got = s_scores[c].cpu().numpy()
+        assert _c_argmax(got.tolist()) == _c_argmax(want.tolist()), c
+        assert np.array_equal(np.isnan(got), np.isnan(want)), c
+        assert _c_argmax(got[finite].tolist()) == _c_argmax(want[finite].tolist()), c
+        assert np.max(np.abs(got[finite] - want[finite]) / np.abs(want[finite])) <= SCORE_RTOL
+    # decodes
+    states4 = [(a, m, np.stack([np.diag(c)[:4] for c in cv]), e) for a, m, cv, e in hstates]
+    for o, (path_c, score_c, bests_c) in zip((hobs, hobs0), compat_runs):
+        bests = []
+        rpath, rscore = reference_hmm_decode(o, states4, htrans, bests)
+        assert np.array_equal(path_c.cpu().numpy(), rpath)
+        assert _same_value(float(score_c), rscore, VIT_RTOL)
+        assert all(_same_value(g, w, VIT_RTOL) for g, w in zip(bests_c.cpu().numpy()[1:][::-1],
+                                                                 bests))
+        if o is hobs:
+            ref_bests, ref_path = bests, rpath
+    vals = [float(v) for v in re.findall(r"max accumulated prob (\S+)", printed_vit)]
+    assert len(vals) == HMM_T - 1
+    assert all(_same_value(g, w, VIT_RTOL, PRINTED_ATOL) for g, w in zip(vals, ref_bests))
+    assert printed_vit.splitlines()[-1] == "".join("%d ," % d for d in ref_path)
+    assert "decoding result ! " in printed_vit
+    (path_s, score_s), (path_a, score_a) = corrected["f64"]
+    assert torch.equal(path_s, path_a)
+    assert abs(float(score_s) - float(score_a)) <= ASSOC_ATOL + ASSOC_RTOL * abs(float(score_a))
+    f32_rtol = HMM_T * 2.0 ** -24  # a sum of HMM_T f32 terms, rounded at every step
+    P64 = reference_forward(*(t.cpu().numpy().astype(np.float64) for t in dec32))
+    p64 = path_s.cpu().numpy()
+    for p32, s32 in corrected["f32"]:
+        diff = np.flatnonzero(p32.cpu().numpy() != p64)
+        a, b = p32.cpu().numpy()[diff], p64[diff]
+        ulps = np.abs(P64[diff, a] - P64[diff, b]) / np.spacing(np.float32(abs(float(score_s))))
+        assert (ulps <= F32_TIE_ULPS).all()
+        assert abs(float(s32) - float(score_s)) <= f32_rtol * abs(float(score_s))
+    for u in np.linspace(0, VIT_U - 1, 8).astype(int):
+        p1, s1 = H.viterbi(corpus[u], *dec32[1:], compat=False)
+        assert torch.equal(p1, paths_b[u])
+        assert abs(float(s1) - float(scores_b[u])) / abs(float(s1)) <= ASSOC_RTOL
+    # awgn
+    got = np.fromfile(awgn_out, "<i2")
+    noise = (got.astype(np.int32) - awgn_x[: len(got)]).astype(np.int16)
+    n = noise.astype(np.float64)
+    assert len(got) == T_FULL * 512 and abs(n.mean()) < 0.5 and 8.5 < n.std() < 11.5
+    assert np.all(got[: 20 * 512][n[: 20 * 512] > 7] < 0)  # the 32760 stretch wraps
+    ratios = AW.whiteness_ratio(torch.from_numpy(noise.reshape(-1, 512)).to(dev)).cpu().numpy()
+    u = noise.reshape(-1, 512).astype(np.float64)
+    frames = np.concatenate([np.concatenate([np.zeros((1, 512)), u[:-1]]), u], 1)
+    X = np.fft.fft(frames, axis=1)
+    ac = np.fft.ifft(X.real ** 2 + X.imag ** 2, axis=1).real[:, :512]
+    want_r = np.abs(ac[:, 1:]).max(1) / np.maximum(ac[:, 0], 1e-30)
+    assert ratios[1:].max() < 0.25 and np.allclose(ratios, want_r, rtol=1e-9, atol=0)
+
+
+LPC_F64_RTOL = 1e-9   # lpc solve f64 against reference_lpc, of the largest coefficient
+
+
+def test_lpc_run_at_full_size_on_the_card(cuda):
+    """``lpc_run`` over LPC_T frames of 512 on the card: ``solve`` in f64
+    within 1e-9 of reference_lpc's largest coefficient; ``levinson`` in f32
+    finite, its per-frame error median and count of frames above 1e-2
+    within LPC_F32_MEDIAN and LPC_F32_LOST, 4x JAX's f32 op on these frames
+    (tests/test_torch_lpc.py holds these limits to JAX's reading)."""
+    x = lpc_signal()
+    want = reference_lpc(x)
+    got64 = F.lpc_run(x, dtype=torch.float64, solver="solve", device=cuda)
+    got32 = F.lpc_run(x, dtype=torch.float32, solver="levinson", device=cuda)
+    assert got64.shape == got32.shape == want.shape
+    assert np.abs(got64 - want).max() / np.abs(want).max() <= LPC_F64_RTOL
+    e32 = np.abs(got32 - want).max(1) / np.abs(want).max(1)
+    assert np.isfinite(got32).all() and np.median(e32) <= LPC_F32_MEDIAN
+    assert int((e32 > 1e-2).sum()) <= LPC_F32_LOST
+
+
+GEQ_FAST_FLIPS = 1e-3  # c_short(geq_apply_fast f64) against reference_geq_linear: share of
+                       # samples one step off (the scan groups its f64 sums otherwise)
+
+
+def test_geq_apply_fast_at_full_size_on_the_card(cuda):
+    """``geq_apply_fast`` in f64 over 2048 x 49,152 in one call on the card,
+    finite, against reference_geq_linear on a wrap-stress stream and a tone:
+    c_short of the output one step off on under GEQ_FAST_FLIPS of the
+    samples."""
+    from jeicyboodsp_tpu_torch.utils.cnum import c_short as t_c_short
+
+    geq = make_geq_streams(GEQ_B, GEQ_T, cuda)
+    b, a = G.geq_coefficients()
+    y = G.geq_apply_fast(geq, b, a, dtype=torch.float64)
+    assert bool(torch.isfinite(y).all())
+    for s in (0, GEQ_B - 1):
+        want = reference_geq_linear(geq[s].cpu().numpy(), b, a)
+        d = np.abs(t_c_short(y[s]).cpu().numpy().astype(np.int64) - want.astype(np.int64))
+        assert d.max() <= 1 and (d != 0).mean() <= GEQ_FAST_FLIPS, (s, int(d.max()))
+
+
+ENHANCE_MODES = ("wiener", "specsub")
+COMPAT_F32 = {"xla": 95.0, "mxu": 90.0}  # f32 with the log-depth scan (test_engine_matrix.py:39-55)
+
+
+@functools.lru_cache(maxsize=1)
+def _chain_cases():
+    """The chain's probe (T_PROBE blocks), its full-size signal (T_FULL
+    blocks), the probe less its last 100 samples and an empty payload, and
+    ``reference_enhance`` of each in each mode."""
+    probe, x_full = chain_signals()
+    cases = {"probe": probe, "full": x_full, "partial": probe[: T_PROBE * 512 - 100],
+             "empty": probe[:0]}
+    return cases, {(c, m): reference_enhance(x, m) for c, x in cases.items() for m in ENHANCE_MODES}
+
+
+def test_file_pipelines_of_the_int8_engines_at_their_floors(cuda, tmp_path):
+    """The ``wiener`` and ``specsub`` file pipelines of engines mxu8f, mxu8t,
+    mxu8 and mxu3 on the chain's probe, full-size, partial and empty cases
+    (:func:`_chain_cases`), each against ``reference_enhance`` at the
+    engine's floor (the empty payload gives 0 samples); K1-K5, the noise
+    latch and K14 each launched."""
+    cases, refs = _chain_cases()
+    counted = {"K1": K.enhance_full8, "K2": K2.enhance_fwd_int8, "K3": K3.enhance_back_ola8,
+               "K4": K4.enhance_fwd, "K5": K5.enhance_back_ola3, "latch": K.noise_latch,
+               "K14": K14.vad_flags}
+    before = {k: fn.launches for k, fn in counted.items()}
+    for c, x in cases.items():
+        inp = str(tmp_path / f"{c}.pcm")
+        x.tofile(inp)
+        for mode in ENHANCE_MODES:
+            want = refs[c, mode]
+            for eng, floor in FIDELITY.items():
+                out = str(tmp_path / f"{c}_{mode}_{eng}.pcm")
+                getattr(registry, mode)(inp, out, fft_engine=eng, device=cuda)
+                got = np.fromfile(out, "<i2")
+                assert got.shape == want.shape, (c, mode, eng)
+                if len(want):
+                    assert snr_db(want, got) >= floor, (c, mode, eng)
+    torch.cuda.synchronize()
+    assert [k for k, fn in counted.items() if fn.launches == before[k]] == []
+
+
+def test_compat_cli_at_full_size_on_the_card(cuda, tmp_path):
+    """The ``wiener`` and ``specsub`` CLI's default command (float64 ``xla``:
+    torch ops, no kernel) on the card on each of :func:`_chain_cases`, within
+    one step of ``reference_enhance`` on under 0.1% of the samples; on the
+    probe, f32 ``xla`` >= 95 dB and ``mxu`` >= 90 dB with the log-depth scan,
+    and ``wiener --fast --engine mxu8f`` from the CLI at mxu8f's floor; K1,
+    the noise latch and K14 launched."""
+    cases, refs = _chain_cases()
+    counted = {"K1": K.enhance_full8, "latch": K.noise_latch, "K14": K14.vad_flags}
+    before = {k: fn.launches for k, fn in counted.items()}
+    out = {}
+    for c, x in cases.items():
+        inp = str(tmp_path / f"{c}.pcm")
+        x.tofile(inp)
+        for mode in ENHANCE_MODES:
+            path = str(tmp_path / f"{c}_{mode}_compat.pcm")
+            cli.main([mode, inp, path, "--device", str(cuda)])
+            out[c, mode] = np.fromfile(path, "<i2")
+    f32 = {(mode, eng): E.run_stream(cases["probe"], mode, dtype=torch.float32,
+                                     use_assoc_scan=True, fft_engine=eng, device=cuda)
+           for mode in ENHANCE_MODES for eng in COMPAT_F32}
+    fast = str(tmp_path / "probe_wiener_fast_mxu8f.pcm")
+    cli.main(["wiener", str(tmp_path / "probe.pcm"), fast, "--fast", "--engine", "mxu8f",
+              "--device", str(cuda)])
+    torch.cuda.synchronize()
+    assert [k for k, fn in counted.items() if fn.launches == before[k]] == []
+    for key, got in out.items():
+        _flip_count(got, refs[key], COMPAT_FLIPPED)
+    for (mode, eng), got in f32.items():
+        assert snr_db(refs["probe", mode], got) >= COMPAT_F32[eng], (mode, eng)
+    assert snr_db(refs["probe", "wiener"], np.fromfile(fast, "<i2")) >= FIDELITY["mxu8f"]
+
+
+STREAM_CHUNK = 4                     # blocks per chunk: JAX's default (stream --chunk-blocks)
+STREAM_RAGGED = (1, 3, 5, 7, 4, 11)  # chunk sizes in turn
+
+
+def _session_run(sess, blocks, sizes):
+    """Blocks through an EnhanceSession in chunks cycling through sizes: the
+    output and the number of chunks."""
+    outs, s, i = [], 0, 0
+    while s < len(blocks):
+        k = sizes[i % len(sizes)]
+        outs.append(sess.process(blocks[s: s + k]))
+        s, i = s + k, i + 1
+    return np.concatenate(outs), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_enhance_sessions_at_full_size_on_the_card(cuda, dtype, tmp_path):
+    """EnhanceSession ``wiener`` over the full-size chain signal (T_FULL
+    blocks) on the card, in chunks of 4 with a checkpoint at the middle
+    block restored into a fresh session, and in ragged chunks: the restored
+    session's second half equal to the first session's.  f64: both runs and
+    the one-shot ``run_stream`` within one step on under 0.1% of
+    ``reference_enhance``, the chunks of 4 so of the one-shot run too, one
+    K15 launch a chunk.  f32: both runs equal to the one-shot f32
+    ``run_stream``, no K15 launch."""
+    from jeicyboodsp_tpu_torch.io import stream as ST
+    from jeicyboodsp_tpu_torch.kernels import enhance_chunk64 as K15
+
+    x_full = chain_signals()[1]
+    blocks = x_full.reshape(T_FULL, 512)
+    half = T_FULL // 2 // STREAM_CHUNK * STREAM_CHUNK
+    ck = str(tmp_path / "ck.npz")
+
+    def make():
+        return ST.EnhanceSession("wiener", dtype=dtype, device=cuda)
+
+    one = E.run_stream(x_full, "wiener", dtype=dtype, device=cuda)
+    before = K15.enhance_chunk64.launches
+    sess = make()
+    first, n_first = _session_run(sess, blocks[:half], [STREAM_CHUNK])
+    sess.checkpoint(ck)
+    second, n_second = _session_run(sess, blocks[half:], [STREAM_CHUNK])
+    fresh = make()
+    fresh.restore(ck)
+    assert fresh.sample_offset == half * 512
+    again, n_again = _session_run(fresh, blocks[half:], [STREAM_CHUNK])
+    ragged, n_ragged = _session_run(make(), blocks, STREAM_RAGGED)
+    torch.cuda.synchronize()
+    launches = K15.enhance_chunk64.launches - before
+    np.testing.assert_array_equal(again, second)
+    out = np.concatenate([first, second])
+    if dtype == torch.float64:
+        assert launches == n_first + n_second + n_again + n_ragged
+        want = reference_enhance(x_full, "wiener")
+        _flip_count(out, want, COMPAT_FLIPPED)
+        _flip_count(ragged, want, COMPAT_FLIPPED)
+        _flip_count(out, one, COMPAT_FLIPPED)
+    else:
+        assert launches == 0
+        np.testing.assert_array_equal(out, one)
+        np.testing.assert_array_equal(ragged, one)
+
+
+AEC_SNR_FLOORS = (60.0, 40.0)  # est, err dB against the f64 references (tests/test_nlms.py:24-26)
+AEC_SAMPLED = (0, AEC_B - 1)   # an echo stream and a double-talk stream
+
+
+def _aec_floors(pairs):
+    """(f64 reference, f32 output) of est and err at AEC_SNR_FLOORS."""
+    s = [snr_db(w, g) for w, g in pairs]
+    assert s[0] >= AEC_SNR_FLOORS[0] and s[1] >= AEC_SNR_FLOORS[1], s
+
+
+def test_f32_aec_at_full_size_against_the_f64_references(cuda, tmp_path):
+    """``nlms_apply`` and ``bnlms_apply`` in f32 (K8's and K9's f32
+    instances) over AEC_B x AEC_T streams, 64 blocks of 1024 a stream: an
+    echo stream and a double-talk stream, every block, against
+    reference_nlms_blocks / reference_bnlms_blocks at 60 dB (est) and 40 dB
+    (err), the states f32; the ``nlms`` and ``bnlms`` CLI with ``--fast`` on
+    the echo probe against reference_nlms at the same floors; the ``nlms
+    --verbose`` CLI's lines equal to the reference's coefficient trajectory
+    under %f, its estimate int16-equal; both f32 kernels launched."""
+    from jeicyboodsp_tpu_torch.oracle.cnum import stale_blocks
+    from jeicyboodsp_tpu_torch.oracle.nlms import (
+        reference_bnlms_blocks, reference_nlms, reference_nlms_blocks,
+    )
+
+    work, f32 = str(tmp_path), torch.float32
+    px, pr = probe_signals()[1]["echo"]
+    inp = _write_probe(work, "aec_in", px)
+    refp = os.path.join(work, "aec_ref.pcm")
+    pr.astype("<i2").tofile(refp)
+    outs = {k: os.path.join(work, f"aec_{k}.pcm") for k in ("n_est", "n_err", "b_est", "b_err",
+                                                            "v_est", "v_err")}
+    x, r = make_aec_streams(AEC_B, AEC_T, cuda)
+    nz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in TN.nlms_init_state(f32).items()}
+    bz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in TN.bnlms_init_state(f32).items()}
+    n8, n9 = K8.nlms_f32.launches, K9.bnlms_f32.launches
+    e8, r8, s8 = TN.nlms_apply(x, r, nz, dtype=f32)
+    e9, r9, s9 = TN.bnlms_apply(x.reshape(AEC_B, -1, 1024), r.reshape(AEC_B, -1, 1024), bz,
+                                dtype=f32)
+    cli.main(["nlms", inp, refp, outs["n_est"], outs["n_err"], "--fast", "--device", str(cuda)])
+    cli.main(["bnlms", inp, refp, outs["b_est"], outs["b_err"], "--fast", "--device", str(cuda)])
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        cli.main(["nlms", inp, refp, outs["v_est"], outs["v_err"], "--verbose",
+                  "--device", str(cuda)])
+    torch.cuda.synchronize()
+    assert K8.nlms_f32.launches > n8 and K9.bnlms_f32.launches > n9
+    assert s8["coeff"].dtype == s9["coeff"].dtype == f32
+    xs, rs = x[list(AEC_SAMPLED)].cpu().numpy(), r[list(AEC_SAMPLED)].cpu().numpy()
+    for i, s in enumerate(AEC_SAMPLED):
+        xb, rb = xs[i].reshape(-1, 1024), rs[i].reshape(-1, 1024)
+        _aec_floors(zip([v.reshape(-1) for v in reference_nlms_blocks(xb, rb)],
+                        (e8[s].cpu(), r8[s].cpu())))
+        _aec_floors(zip([v.reshape(-1) for v in reference_bnlms_blocks(xb, rb)[:2]],
+                        (e9[s].reshape(-1).cpu(), r9[s].reshape(-1).cpu())))
+    for kind, tag in (("nlms", "n"), ("bnlms", "b")):
+        want = reference_nlms(px, pr, bnlms=kind == "bnlms")[:2]
+        _aec_floors(zip(want, [np.fromfile(outs[f"{tag}_{k}"], "<i2") for k in ("est", "err")]))
+    traj = []
+    nb = -(-len(px) // 1024)
+    ve, _ = reference_nlms_blocks(stale_blocks(px, 1024)[:nb], stale_blocks(pr, 1024)[:nb], traj)
+    want = "".join("rgsdCoefficient[0] %f, rgsdCoefficient[1] %f, rgsdCoefficient[2] %f \n" % c
+                   for c in traj)
+    assert out.getvalue() == want
+    np.testing.assert_array_equal(np.fromfile(outs["v_est"], "<i2"), ve[1:].reshape(-1))
+
+
+GEQ_LINEAR_DB = 55.0  # K7's f32 cascade against a float64 one (tests/test_pallas_kernels.py:17)
+
+
+def test_recursion_pipelines_and_ops_at_full_size(cuda, tmp_path):
+    """The GEQ, NLMS and BNLMS paths on the card against the port's float64
+    oracles: the ``geq`` pipeline (f64) byte-identical to reference_geq and
+    ``geq --fast`` from the CLI to reference_geq_f32 on the probe, a partial
+    and an empty payload; the ``nlms`` and ``bnlms`` pipelines int16-equal to
+    reference_nlms on the echo, partial, shut-gate and empty probes; at full
+    size K7 >= 55 dB of a float64 linear cascade on a wrap-stress stream and
+    a tone; ``geq_apply`` (f64 and the f32 default) over GEQ_B x GEQ_T,
+    ``nlms_apply`` and ``bnlms_apply`` over AEC_B x AEC_T, each as one call
+    and as two chained with state, equal; sampled streams equal to the
+    references (GEQ's wrap-stress stream and tone, f64 and f32; every block
+    of an echo and a double-talk stream, est and err), and ``geq_apply`` at
+    B = 3072 too; the BNLMS gates (float64 FFT) equal to the direct float64
+    sums on the probes and on every block of 8 full-size double-talk
+    streams; K6-K9 each launched."""
+    from jeicyboodsp_tpu_torch.oracle.cnum import stale_blocks
+    from jeicyboodsp_tpu_torch.oracle.geq import reference_geq, reference_geq_f32
+    from jeicyboodsp_tpu_torch.oracle.nlms import (
+        _double_talk, reference_bnlms_blocks, reference_nlms, reference_nlms_blocks,
+    )
+
+    work, dev = str(tmp_path), cuda
+    geq, (x, r) = make_geq_streams(GEQ_B, GEQ_T, dev), make_aec_streams(AEC_B, AEC_T, dev)
+    counted = {"K6": K6.geq_cascade_quant, "K7": K7.geq_cascade, "K8": K8.nlms, "K9": K9.bnlms}
+    b, a = G.geq_coefficients()
+    c32 = torch.from_numpy(K7.pack_coefficients(b, a)).to(dev)
+    gprobe, pairs = probe_signals()
+    geq_cases = {"probe": gprobe, "partial": gprobe[: 5 * 512 + 300], "empty": gprobe[:0]}
+    hdr = np.arange(22, dtype=np.int16)  # 44 header bytes, skipped by geq and for IN
+    for c, v in geq_cases.items():
+        np.concatenate([hdr, v]).tofile(os.path.join(work, f"geq_{c}.wav"))
+    for c, (xp, rp) in pairs.items():
+        np.concatenate([hdr, xp]).tofile(os.path.join(work, f"aec_{c}_in.wav"))
+        rp.tofile(os.path.join(work, f"aec_{c}_ref.pcm"))
+    zeros = {"xh": torch.zeros(GEQ_B, 2, dtype=torch.int32),
+             "yh": torch.zeros(GEQ_B, 7, 2, dtype=torch.int32)}
+    half = GEQ_T // 2
+    before = {k: fn.launches for k, fn in counted.items()}
+    out = {}
+    for c in geq_cases:
+        path = os.path.join(work, f"geq_{c}.pcm")
+        registry.geq(os.path.join(work, f"geq_{c}.wav"), path, device=dev)
+        out["geq", c] = np.fromfile(path, "<i2")
+        path = os.path.join(work, f"geq_fast_{c}.pcm")  # K6's f32 instance, from the CLI
+        cli.main(["geq", os.path.join(work, f"geq_{c}.wav"), path, "--fast", "--device", str(dev)])
+        out["geq --fast", c] = np.fromfile(path, "<i2")
+    for prog in ("nlms", "bnlms"):
+        for c in pairs:
+            est, errp = (os.path.join(work, f"{prog}_{c}_{k}.pcm") for k in ("est", "err"))
+            getattr(registry, prog)(os.path.join(work, f"aec_{c}_in.wav"),
+                                    os.path.join(work, f"aec_{c}_ref.pcm"), est, errp, device=dev)
+            out[prog, c] = (np.fromfile(est, "<i2"), np.fromfile(errp, "<i2"))
+    yl = K7.geq_cascade(geq.float(), c32)
+    f64 = torch.float64
+    yw, sw = G.geq_apply(geq, b, a, zeros, dtype=f64)
+    y1, s1 = G.geq_apply(geq[:, :half], b, a, zeros, dtype=f64)
+    y2, s2 = G.geq_apply(geq[:, half:], b, a, s1, dtype=f64)
+    fw, fsw = G.geq_apply(geq, b, a, zeros)  # the op's default, f32: K6's f32 instance
+    f1, fs1 = G.geq_apply(geq[:, :half], b, a, zeros)
+    f2, fs2 = G.geq_apply(geq[:, half:], b, a, fs1)
+    nz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in TN.nlms_init_state().items()}
+    ew, rw, nw = TN.nlms_apply(x, r, nz)
+    e1, r1, ns = TN.nlms_apply(x[:, :AEC_T // 2], r[:, :AEC_T // 2], nz)
+    e2, r2, ns = TN.nlms_apply(x[:, AEC_T // 2:], r[:, AEC_T // 2:], ns)
+    bz = {k: v.expand(AEC_B, *v.shape).contiguous() for k, v in TN.bnlms_init_state().items()}
+    xb, rb = x.reshape(AEC_B, -1, 1024), r.reshape(AEC_B, -1, 1024)
+    nb2 = xb.shape[1] // 2
+    bw, bew, bsw = TN.bnlms_apply(xb, rb, bz)
+    b1, be1, bs = TN.bnlms_apply(xb[:, :nb2], rb[:, :nb2], bz)
+    b2, be2, bs = TN.bnlms_apply(xb[:, nb2:], rb[:, nb2:], bs)
+    g3 = geq.repeat(-(-3072 // len(geq)), 1)[:3072, :2048]  # B = 3072: the streams repeated
+    z3 = {k: torch.zeros(3072, *v.shape[1:], dtype=v.dtype) for k, v in zeros.items()}
+    y3, _ = G.geq_apply(g3, b, a, z3, dtype=f64)
+    torch.cuda.synchronize()
+    assert [k for k, fn in counted.items() if fn.launches == before[k]] == []
+
+    for c, v in geq_cases.items():
+        np.testing.assert_array_equal(out["geq", c], reference_geq(v, b, a), err_msg=c)
+        np.testing.assert_array_equal(out["geq --fast", c], reference_geq_f32(v, b, a), err_msg=c)
+    for i in (0, GEQ_B - 1):  # a wrap-stress stream and a tone
+        want = reference_geq_linear(geq[i].cpu().numpy(), b, a)
+        assert snr_db(want, c_short(yl[i].cpu().numpy())) >= GEQ_LINEAR_DB, i
+    for prog in ("nlms", "bnlms"):
+        for c, (xp, rp) in pairs.items():
+            for g, w in zip(out[prog, c], reference_nlms(xp, rp, bnlms=prog == "bnlms")):
+                np.testing.assert_array_equal(g, w, err_msg=f"{prog} {c}")
+    gdiff = 0  # the gate: the port's float64 FFT against the direct float64 sums
+    for c, (xp, rp) in pairs.items():
+        nb = -(-min(len(xp), len(rp)) // 1024)
+        if nb == 0:
+            continue
+        xs = torch.from_numpy(stale_blocks(xp, 1024)[:nb].reshape(1, -1)).to(dev)
+        rs = torch.from_numpy(stale_blocks(rp, 1024)[:nb].reshape(1, -1)).to(dev)
+        keep = torch.zeros(1, 127, dtype=torch.int16, device=dev)
+        got = K9.bnlms_gates(xs, rs, keep, keep)[0, 1:].tolist()  # the written blocks
+        gdiff += sum(g != w for g, w in zip(got, reference_nlms(xp, rp, bnlms=True)[2][1:]))
+    n_dt = 8  # full-size double-talk streams whose every gate is checked
+    keep = torch.zeros(n_dt, 127, dtype=torch.int16, device=dev)
+    xs8, rs8 = x[-n_dt:].contiguous(), r[-n_dt:].contiguous()
+    got8 = K9.bnlms_gates(xs8, rs8, keep, keep).cpu().numpy()
+    for i in range(n_dt):
+        u = np.concatenate([np.zeros(127), xs8[i].cpu().numpy().astype(np.float64)])
+        v = np.concatenate([np.zeros(127), rs8[i].cpu().numpy().astype(np.float64)])
+        for k in range(AEC_T // 1024):
+            want = not _double_talk(u[k * 1024:k * 1024 + 1151], v[k * 1024:k * 1024 + 1151])
+            gdiff += int(bool(got8[i, k]) != want)
+    assert gdiff == 0
+    assert torch.equal(torch.cat([y1, y2], 1), yw) and all(torch.equal(s2[k], sw[k]) for k in sw)
+    assert torch.equal(torch.cat([f1, f2], 1), fw) and all(torch.equal(fs2[k], fsw[k]) for k in fsw)
+    assert torch.equal(torch.cat([e1, e2], 1), ew) and torch.equal(torch.cat([r1, r2], 1), rw)
+    assert all(torch.equal(ns[k], nw[k]) for k in nw)
+    assert torch.equal(torch.cat([b1, b2], 1), bw) and torch.equal(torch.cat([be1, be2], 1), bew)
+    assert all(torch.equal(bs[k], bsw[k]) for k in bsw)
+    sampled = {
+        "geq stream 0 (wrap stress)": (yw[0], reference_geq(geq[0].cpu().numpy(), b, a)),
+        f"geq stream {GEQ_B - 1} (tone)": (yw[-1], reference_geq(geq[-1].cpu().numpy(), b, a)),
+        "geq f32 stream 0 (wrap stress)": (fw[0], reference_geq_f32(geq[0].cpu().numpy(), b, a)),
+    }
+    for i in (0, 2047, 2048, 3071):
+        sampled[f"geq B=3072 stream {i}"] = (y3[i], reference_geq(g3[i].cpu().numpy(), b, a))
+    for i in (0, AEC_B - 1):  # every block of an echo stream and of a double-talk stream
+        xi, ri = (v[i].cpu().numpy().reshape(-1, 1024) for v in (x, r))
+        ref_n, ref_b = reference_nlms_blocks(xi, ri), reference_bnlms_blocks(xi, ri)
+        sampled[f"nlms stream {i}"] = (torch.cat([ew[i], rw[i]]),
+                                       np.concatenate([ref_n[0].reshape(-1), ref_n[1].reshape(-1)]))
+        sampled[f"bnlms stream {i}"] = (torch.cat([bw[i].reshape(-1), bew[i].reshape(-1)]),
+                                        np.concatenate([ref_b[0].reshape(-1), ref_b[1].reshape(-1)]))
+    for what, (got, want) in sampled.items():
+        np.testing.assert_array_equal(got.cpu().numpy(), want, err_msg=what)
+
+
+def test_recursion_sessions_at_full_size_against_the_references(cuda, tmp_path):
+    """GEQSession over one GEQ_T stream (three quarters of a tone, then a
+    wrap-stress stream's last quarter) in chunks of 512 with a checkpoint at
+    the middle, and AECSession ``nlms`` over an echo stream and ``bnlms``
+    over a double-talk stream of AEC_T samples in chunks of 1024 with a
+    checkpoint at the middle, each on the card: with the checkpoint,
+    uninterrupted, and restored into a fresh session, equal to reference_geq
+    / reference_nlms_blocks / reference_bnlms_blocks, the restored session's
+    second half equal to the first session's; K6, K8 and K9 launched."""
+    from jeicyboodsp_tpu_torch.io import stream as ST
+    from jeicyboodsp_tpu_torch.oracle.geq import reference_geq
+    from jeicyboodsp_tpu_torch.oracle.nlms import reference_bnlms_blocks, reference_nlms_blocks
+
+    work, dev = str(tmp_path), cuda
+    geq, aec = make_geq_streams(GEQ_B, GEQ_T, dev), make_aec_streams(AEC_B, AEC_T, dev)
+    counted = {"K6": K6.geq_cascade_quant, "K8": K8.nlms, "K9": K9.bnlms}
+    b, a = G.geq_coefficients()
+    gx = np.concatenate([geq[GEQ_B // 8, : 3 * GEQ_T // 4].cpu().numpy(),
+                         geq[0, 3 * GEQ_T // 4:].cpu().numpy()])  # a tone, then wrap stress
+    ax, ar = aec[0][0].cpu().numpy(), aec[1][0].cpu().numpy()  # an echo
+    bx, br = aec[0][-1].cpu().numpy(), aec[1][-1].cpu().numpy()  # double talk
+    before = {k: fn.launches for k, fn in counted.items()}
+    g1 = ST.GEQSession(device=dev)
+    ya = np.concatenate([g1.process(gx[s: s + 512]) for s in range(0, GEQ_T // 2, 512)])
+    g1.checkpoint(os.path.join(work, "geq_session.npz"))
+    yb = np.concatenate([g1.process(gx[s: s + 512]) for s in range(GEQ_T // 2, GEQ_T, 512)])
+    g2 = ST.GEQSession(device=dev)
+    g2.restore(os.path.join(work, "geq_session.npz"))
+    geq_runs = [np.concatenate([ya, yb]), g2.process(gx[GEQ_T // 2:]), yb,
+                ST.GEQSession(device=dev).process(gx)]
+    aec_runs = {}
+    for variant, (xv, rv) in (("nlms", (ax, ar)), ("bnlms", (bx, br))):
+        s1 = ST.AECSession(variant, device=dev)
+        half = AEC_T // 2
+        pa = [s1.process(xv[s: s + 1024], rv[s: s + 1024]) for s in range(0, half, 1024)]
+        s1.checkpoint(os.path.join(work, f"{variant}_session.npz"))
+        pb = [s1.process(xv[s: s + 1024], rv[s: s + 1024]) for s in range(half, AEC_T, 1024)]
+        s2 = ST.AECSession(variant, device=dev)
+        s2.restore(os.path.join(work, f"{variant}_session.npz"))
+        aec_runs[variant] = ([np.concatenate([p[i] for p in pa + pb]) for i in (0, 1)],
+                             s2.process(xv[half:], rv[half:]),
+                             [np.concatenate([p[i] for p in pb]) for i in (0, 1)],
+                             ST.AECSession(variant, device=dev).process(xv, rv))
+    torch.cuda.synchronize()
+    assert [k for k, fn in counted.items() if fn.launches == before[k]] == []
+    want_geq = reference_geq(gx, b, a)
+    np.testing.assert_array_equal(geq_runs[0], want_geq)
+    np.testing.assert_array_equal(geq_runs[1], want_geq[GEQ_T // 2:])
+    np.testing.assert_array_equal(geq_runs[3], want_geq)
+    np.testing.assert_array_equal(geq_runs[1], geq_runs[2])
+    wants = {"nlms": reference_nlms_blocks(ax.reshape(-1, 1024), ar.reshape(-1, 1024)),
+             "bnlms": reference_bnlms_blocks(bx.reshape(-1, 1024), br.reshape(-1, 1024))}
+    for variant, want in wants.items():
+        whole_run, again, cont, uninterrupted = aec_runs[variant]
+        for i in (0, 1):  # est, err
+            ref = want[i].reshape(-1)
+            np.testing.assert_array_equal(whole_run[i], ref, err_msg=variant)
+            np.testing.assert_array_equal(uninterrupted[i], ref, err_msg=variant)
+            np.testing.assert_array_equal(again[i], cont[i], err_msg=variant)
+
+
+@pytest.mark.parametrize("n", sorted({STREAM_CHUNK, *STREAM_RAGGED}))
+def test_k14_in_the_stream_chunk_sizes_bit_equal_to_vad_rows(cuda, n):
+    """K14 at the row counts an EnhanceSession gives it: the full-size chain
+    signal (T_FULL blocks) cut into chunks of ``n`` rows, each chunk's flags
+    from the wrapper bit-equal to ``vad_rows`` on the same rows (the f32
+    window the stream's VAD reads)."""
+    w = E._vad_window(cuda)
+    blocks = torch.from_numpy(chain_signals()[1].reshape(T_FULL, 512)).to(cuda)
+    cuts = range(0, T_FULL, n)
+    got = torch.cat([K14.vad_flags(blocks[s: s + n], w) for s in cuts])
+    want = torch.cat([K2.vad_rows(blocks[s: s + n], w) for s in cuts])
+    assert torch.equal(got, want), (got != want).nonzero()[:10, 0].tolist()
+
+
+TP_LSB, TP_DB = 2, 60.0   # time-parallel against the f64 sequential path (tests/test_nlms.py:39-65)
+TP_HEAD = 16              # blocks held to those bounds: the linearized recursion drifts after
+                          # them (ROADMAP R20)
+
+
+def test_timeparallel_session_at_full_size_on_the_card(cuda):
+    """``bnlms_apply_timeparallel`` (f32) over the TP_T blocks of
+    torch_inputs.tp_inputs on the card: its first 16 blocks within 2 steps of
+    the f64 sequential path (the gates and K9 f64, int16-equal to the
+    reference) and its error signal there >= 60 dB of the sequential one,
+    as JAX's benchmark checks it (bench/all_configs.py:542-559); the whole
+    session within one step on under 1% of the samples of the same op on the
+    CPU."""
+    x, r = tp_inputs(cuda)
+    est, err = TN.bnlms_apply_timeparallel(x, r)
+    e_seq, r_seq, _ = TN.bnlms_apply(x, r, TN.bnlms_init_state())
+    d_e = (e_seq.to(torch.int64) - est.to(torch.int64)).abs()
+    d_r = (r_seq.to(torch.int64) - err.to(torch.int64)).double()
+    a = r_seq.double()[:TP_HEAD]
+    db = float(10 * torch.log10((a ** 2).sum().clamp_min(1e-30)
+                                / (d_r[:TP_HEAD] ** 2).sum().clamp_min(1e-30)))
+    assert int(d_e[:TP_HEAD].max()) <= TP_LSB and int(d_r[:TP_HEAD].abs().max()) <= TP_LSB
+    assert db >= TP_DB, db
+    c_est, c_err = TN.bnlms_apply_timeparallel(x.cpu(), r.cpu())
+    for g, w in ((est, c_est), (err, c_err)):
+        d = (g.cpu().to(torch.int64) - w.to(torch.int64)).abs()
+        assert int(d.max()) <= 1 and float((d != 0).double().mean()) < 0.01
+
+
+K4_F64_TOL = 2.0 ** -18   # K4's re/im vs f64 products: of each row's largest sum of |a*b|
+K4_PLAIN_TOL = 2.0 ** -16  # K4 vs its plain version: of each row's largest sum of |a*b|
+LATCH_RTOL = 1e-6
+
+
+def _inverse_bit_equal(pk, C, hq):
+    """The int8 inverse pass (K1's and K3's): uv bit-equal to the plain
+    inverse of the kernel's own q8 and rowsc."""
+    want = K.inv8_plain(pk["q8"], pk["rowsc"], C, hq)
+    assert torch.equal(pk["uv"].view(torch.int32), want.view(torch.int32))
+
+
+def test_enhance_kernels_against_plain_on_the_full_chain_signal(cuda):
+    """K1-K5, K13, K14 and the noise latch against their plain versions on the chain's
+    full-size signal (T_FULL blocks): K1 in both modes, hq and turbo, >= 90
+    dB, its forward planes bit-equal and its inverse's uv bit-equal to the
+    plain inverse of its own q8 and rowsc; K2's re/im/|X| bit-equal, K4's
+    within 2^-16 of each row's largest sum of |a*b| of the plain version and,
+    against float64 products with the f64 bases, within 1e-5 of each
+    plane's row max and 2^-18 of that sum; both forward kernels' speech and
+    frame flags equal; the noise latch over each one's planes within 1e-6
+    of the plain latch's max; K3 (on K2's planes) and K5 (on K4's) >= 90 dB
+    in both modes, K3's inverse uv bit-equal, hq and turbo; K13 on K4's
+    planes within 1e-5 of each frame row's max, NaN masks equal; K14's flags
+    on the signal's rows and the threshold rows equal to ``vad_rows`` with
+    the f32 window and the f64-built w2, the same at an odd offset."""
+    blocks = torch.from_numpy(chain_signals()[1].reshape(T_FULL, 512)).to(cuda)
+    C = E.enhance_constants(cuda)
+    rowpack = E._latch_rowpack(E.vad_flags(blocks, torch.float32))
+    for mode in ENHANCE_MODES:
+        for hq in (True, False):
+            got, pk = K.enhance_full8(blocks, rowpack, C, mode, hq, return_planes=True)
+            want, pp = K.enhance_full8_plain(blocks, rowpack, C, mode, hq, return_planes=True)
+            assert torch.equal(pk["re"], pp["re"]) and torch.equal(pk["im"], pp["im"]), (mode, hq)
+            assert snr_db(want.cpu().numpy(), got.cpu().numpy()) >= KERNEL_VS_PLAIN_DB, (mode, hq)
+            _inverse_bit_equal(pk, C, hq)
+    back_ins = {}
+    for name, (kernel, plain) in FWD.items():
+        got, want = kernel(blocks, C), plain(blocks, C)
+        assert torch.equal(got[5], want[5]) and torch.equal(got[6], want[6]), name
+        if name == "K2":
+            assert all(torch.equal(got[i], want[i]) for i in (0, 1, 3))
+        else:
+            WC, WS = k4_f64_bases(cuda)
+            frames = K4.frames_f32(blocks).double()
+            scale = _k4_row_scale(blocks, C, (WC, WS)).clamp_min(1e-30)
+            exact = (frames @ WC, frames @ WS)
+            exact += (torch.sqrt(exact[0] ** 2 + exact[1] ** 2),)
+            for i, w in zip((0, 1, 3), exact):
+                assert float(((got[i].double() - want[i].double()).abs() / scale).max()) \
+                    <= K4_PLAIN_TOL, i
+                assert _rel(got[i].double(), w) <= F32_RTOL, i
+            for i in (0, 1):
+                assert float(((got[i].double() - exact[i]).abs() / scale).max()) <= K4_F64_TOL, i
+        re, im, re_n, mag, mag_n, sp, nz = got
+        rp = E._latch_rowpack(sp[:, 0] > 0.5)
+        ns, ns_n = K.noise_latch(rp, mag, mag_n)
+        want_ns = K.latch_from_rowpack(rp, torch.cat([mag, mag_n], 1), 64)
+        assert float((torch.cat([ns, ns_n], 1) - want_ns).abs().max()
+                     / want_ns.abs().max().clamp_min(1e-30)) <= LATCH_RTOL, name
+        back_ins[name] = (re, im, re_n, ns, ns_n, nz)
+    for name, (kernel, plain, fwd) in BACK.items():
+        for mode in ENHANCE_MODES:
+            got, want = kernel(*back_ins[fwd], C, mode), plain(*back_ins[fwd], C, mode)
+            assert snr_db(want.cpu().numpy(), got.cpu().numpy()) >= KERNEL_VS_PLAIN_DB, (name, mode)
+    for hq in (True, False):
+        got, pk = K3.enhance_back_ola8(*back_ins["K2"], C, "wiener", hq, return_planes=True)
+        want = K3.enhance_back_ola8_plain(*back_ins["K2"], C, "wiener", hq)
+        assert snr_db(want.cpu().numpy(), got.cpu().numpy()) >= KERNEL_VS_PLAIN_DB, hq
+        _inverse_bit_equal(pk, C, hq)
+    for mode in ENHANCE_MODES:
+        _row_check(K13.enhance_back(*back_ins["K4"], C, mode),
+                   K13.enhance_back_plain(*back_ins["K4"], C, mode), f"K13 {mode}")
+    for w2 in (E._vad_window(cuda), C["w2"]):
+        rows = torch.cat([blocks, torch.from_numpy(vad_threshold_rows(w2.cpu().numpy())).to(cuda)])
+        got = K14.vad_flags(rows, w2)
+        assert torch.equal(got, K2.vad_rows(rows, w2))
+        assert got[-6:].tolist() == [False, False, True, True, False, False]
+        odd = torch.empty(rows.numel() + 1, dtype=rows.dtype, device=cuda)[1:].view(rows.shape)
+        odd.copy_(rows)  # K14's 2-byte-load variant
+        assert torch.equal(K14.vad_flags(odd, w2), got)
+
+
+PLAIN_T = {"K6": 4096, "K7": 4096, "K8": 2048, "K9": 8 * 1024}  # samples of the plain loops
+
+
+def _bit_equal(pairs):
+    """Every (kernel, plain) pair of tensors equal."""
+    assert all(torch.equal(g, w) for g, w in pairs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_recursion_kernels_against_plain_at_the_benchmark_streams(cuda, dtype):
+    """K6-K9 (``dtype`` f64, or their f32 instances) against their plain
+    versions, bit for bit, on the benchmark's streams (GEQ_B x GEQ_T GEQ
+    streams, AEC_B x AEC_T echo and double-talk streams) cut to the plain
+    loops' lengths: K6 at 2048 x 4096 and at B = 3072 x 512 (f64), K7 at
+    2048 x 4096 (f64 only: it is f32), K8 both update pairings at 1024 x
+    2048 and at T = 257 from a nonzero state (the 255 far-end samples
+    before it as history, small coefficients, every fifth -0.0), K9 over 8
+    blocks of 1024 streams with every third stream's odd gates shut; the
+    outputs and the carried state."""
+    f64 = dtype == torch.float64
+    geq, aec = make_geq_streams(GEQ_B, GEQ_T, cuda), make_aec_streams(AEC_B, AEC_T, cuda)
+    b, a = G.geq_coefficients()
+    coef = torch.from_numpy(K7.pack_coefficients(b, a, np.float64 if f64 else np.float32)).to(cuda)
+    x = geq[:, :PLAIN_T["K6"]].contiguous()
+    _bit_equal(zip(K6.geq_cascade_quant(x, coef),
+                   K6.geq_cascade_quant_plain(x, coef, K6.init_state(len(x), cuda))))
+    if f64:
+        x3 = geq.repeat(-(-3072 // len(geq)), 1)[:3072, :512].contiguous()
+        _bit_equal(zip(K6.geq_cascade_quant(x3, coef),
+                       K6.geq_cascade_quant_plain(x3, coef, K6.init_state(len(x3), cuda))))
+        c32 = torch.from_numpy(K7.pack_coefficients(b, a)).to(cuda)
+        xf = geq[:, :PLAIN_T["K7"]].float().contiguous()
+        _bit_equal([(K7.geq_cascade(xf, c32), K7.geq_cascade_plain(xf, c32))])
+    nlms, nlms_plain = (K8.nlms, K8.nlms_plain) if f64 else (K8.nlms_f32, K8.nlms_f32_plain)
+
+    def state_pairs(got, want):  # f64: the values; f32: the coefficients' bits
+        if f64:
+            return list(zip(got, want))
+        return [(got[0].view(torch.int32), want[0].view(torch.int32)), (got[1], want[1])]
+
+    xa, ra = (v[:, :PLAIN_T["K8"]].contiguous() for v in aec)
+    for compat in (True, False):
+        got = nlms(xa, ra, compat=compat)
+        want = nlms_plain(xa, ra, *K8.init_state(len(xa), cuda, dtype), compat=compat)
+        _bit_equal(list(zip(got[:2], want[:2])) + state_pairs(got[2], want[2]))
+    t0 = PLAIN_T["K8"]
+    xa, ra = (v[:, t0:t0 + 257].contiguous() for v in aec)
+    hist = aec[0][:, t0 - 255:t0].contiguous()
+    g = torch.Generator(device=cuda).manual_seed(SEED + (2 if f64 else 3))
+    c0 = 1e-3 * torch.randn(len(xa), 256, generator=g, dtype=dtype, device=cuda)
+    c0[:, ::5] = -0.0
+    bits = torch.int64 if f64 else torch.int32
+    for compat in ((True, False) if f64 else (True,)):
+        got = nlms(xa, ra, (c0, hist), compat=compat)
+        want = nlms_plain(xa, ra, c0, hist, compat=compat)
+        pairs = list(zip(got[:2], want[:2])) + [(got[2][0].view(bits), want[2][0].view(bits))]
+        _bit_equal(pairs + ([(got[2][1], want[2][1])] if f64 else []))
+    xa, ra = (v[:, :PLAIN_T["K9"]].contiguous() for v in aec)
+    keep = torch.zeros(len(xa), 127, dtype=torch.int16, device=cuda)
+    gates = K9.bnlms_gates(xa, ra, keep, keep)
+    gates[::3, 1::2] = False  # random audio opens every gate: shut some for the other path
+    bnlms, bnlms_plain = (K9.bnlms, K9.bnlms_plain) if f64 else (K9.bnlms_f32, K9.bnlms_f32_plain)
+    got = bnlms(xa, ra, gates)
+    want = bnlms_plain(xa, ra, gates, *K9.init_state(len(xa), cuda, dtype))
+    _bit_equal(list(zip(got[:2], want[:2])) + state_pairs(got[2], want[2]))
+
+
+AMDF_LO = 96  # K11's first lag on the pitch path
+
+
+def test_feature_kernels_against_plain_on_the_feature_inputs(cuda):
+    """K10 and K11 against their plain versions on the speech features'
+    full-size inputs (torch_inputs.feature_inputs): K10 over 16,384 frames
+    >= 90 dB over the finite features, the NaN and infinity masks equal;
+    K11 in f64 bit-equal over PITCH_T frames at lo = 96 and lo = 0, and over
+    PITCH_T frames of random full-scale extremes (sums past 2^24, where an
+    f32 sum would round) at lo = 96."""
+    _, rows, frames = feature_inputs(cuda)
+    _finite_db(K10.mfcc_fused(rows[:-1], rows[1:]).cpu(),
+               K10.mfcc_fused_plain(rows[:-1], rows[1:]).cpu(), KERNEL_VS_PLAIN_DB)
+    rng = np.random.default_rng(SEED + 6)
+    extremes = torch.from_numpy(np.where(rng.random((PITCH_T, 1024)) < 0.5, -32768, 32767)
+                                .astype(np.int16)).to(cuda)
+    for x, lo in ((frames, AMDF_LO), (frames, 0), (extremes, AMDF_LO)):
+        got, want = K11.amdf(x, lo), K11.amdf_plain(x, lo)
+        assert got.dtype == torch.float64 and torch.equal(got, want), lo

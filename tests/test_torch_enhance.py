@@ -4,8 +4,7 @@ Seeded numpy inputs go through the JAX function and its port; the JAX side
 runs on the CPU as the JAX package's own tests run it (the fused kernel in
 interpret mode).  On CPU tensors the port's kernel wrapper runs its plain
 PyTorch version, so these tests hold the plain version's arithmetic; the
-CUDA kernel is held against the plain version in tests/test_torch_cuda.py
-and by chip_smoke.py.
+CUDA kernel is held against the plain version in tests/test_torch_cuda.py.
 """
 
 import os
@@ -331,9 +330,9 @@ def test_k1_plain_planes_rebuild_its_output(probe, hq):
     assert torch.equal(K.flip_ola(p["uv"][0], p["uv"][1], rowsc[:, 5], False), out)
 
 
-def test_chip_smoke_reference_matches_oracle():
+def test_port_enhance_reference_matches_oracle():
     """The port's own numpy reference (``jeicyboodsp_tpu_torch.oracle``, which
-    chip_smoke.py holds the port to: it may not import the JAX package)
+    the card tests hold the port to: they may not import the JAX package)
     must equal the JAX package's oracle byte for byte."""
     from jeicyboodsp_tpu_torch.oracle import enhance as port_oracle
 

@@ -12,9 +12,10 @@ table's twiddles, the VAD on integers, the per-bin noise step, the gain, the
 OLA), row by row as the kernel walks them, against the plain chain.  On a
 card (skipped without CUDA): the kernel against the plain chain on the card
 over streams built with numpy, in both modes and chunks of 1, 2, 3 and 17
-blocks, from a checkpoint restored mid-stream, its launches counted, and a
-session's pinned staging (three device activities a chunk, the buffers
-reused and grown).
+blocks, over the first 2048 blocks of the enhancement chain's signal in
+chunks of 2 and 64, and from a checkpoint restored mid-stream, its launches
+counted; and a session's pinned staging (three device activities a chunk,
+the buffers reused and grown).
 """
 
 import numpy as np
@@ -332,7 +333,30 @@ def test_k15_matches_the_plain_chain_on_the_card(cuda, mode, chunk):
     cnt, t and prev_block exact, avg, latched and prev_tail within 1e-12 of
     their largest value, NaN where the plain chain has NaN; one launch a
     chunk."""
-    blocks = stream_blocks()
+    ks = _k15_against_the_plain_chain(cuda, stream_blocks(), mode, chunk)
+    assert np.isnan(_host(ks)["prev_tail"]).sum() == 0  # the NaN rows are behind it
+
+
+LONG_BLOCKS = 2048       # blocks of the chain's full-size signal
+LONG_CHUNKS = (2, 64)    # the live cell's chunk and the stream CLI's --chunk-blocks
+
+
+@pytest.mark.parametrize("chunk", LONG_CHUNKS)
+@pytest.mark.parametrize("mode", MODES)
+def test_k15_matches_the_plain_chain_over_2048_blocks(cuda, mode, chunk):
+    """As the test above, over the first 2048 blocks of the enhancement
+    chain's full-size signal (torch_inputs.chain_signals) in chunks of 2
+    and of 64, at the same limits."""
+    from torch_inputs import chain_signals
+
+    blocks = chain_signals()[1][: LONG_BLOCKS * 512].reshape(LONG_BLOCKS, 512)
+    _k15_against_the_plain_chain(cuda, blocks, mode, chunk)
+
+
+def _k15_against_the_plain_chain(cuda, blocks, mode, chunk):
+    """K15 and the plain chain over ``blocks`` in chunks of ``chunk``, each
+    from its own state, compared chunk by chunk (:func:`_compare`); one
+    launch a chunk.  Returns the kernel's last state."""
     ks = E.stream_init_state(torch.float64, device=cuda)
     ps = E.stream_init_state(torch.float64, device=cuda)
     flipped, chunks = 0, 0
@@ -348,7 +372,7 @@ def test_k15_matches_the_plain_chain_on_the_card(cuda, mode, chunk):
     assert K15.enhance_chunk64.launches == before + chunks
     print(f"\n[K15 {mode} chunks of {chunk}] {flipped} written samples differ from the plain "
           f"chain over {len(blocks)} blocks")
-    assert np.isnan(_host(ks)["prev_tail"]).sum() == 0  # the NaN rows are behind it
+    return ks
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -3,8 +3,7 @@ fastconv``) with the JAX package and the oracle.
 
 Seeded numpy inputs of 12-16 blocks of 1024 go through the JAX op and its
 port.  On CPU tensors the four-step engines run K12's plain version; the
-CUDA kernel is held against it in tests/test_torch_cuda.py and by
-chip_smoke.py.
+CUDA kernel is held against it in tests/test_torch_cuda.py.
 """
 
 import os
@@ -218,9 +217,9 @@ def test_run_stream_needs_a_card_unless_asked_for_the_cpu():
         FC.run_stream(_signal())
 
 
-def test_chip_smoke_reference_matches_oracle():
+def test_port_fastconv_reference_matches_oracle():
     """The port's own float64 overlap-save (``jeicyboodsp_tpu_torch.oracle``,
-    which chip_smoke.py holds the port to) equals oracle/fastconv.run byte
+    which the card tests hold the port to) equals oracle/fastconv.run byte
     for byte."""
     from jeicyboodsp_tpu_torch.oracle import fastconv as port_oracle
 

@@ -4,12 +4,9 @@ the JAX package and the f64 oracles.
 
 On CPU tensors the kernel wrappers run their plain PyTorch versions, so these
 tests hold the plain versions' arithmetic; the CUDA kernels are held against
-the plain versions in tests/test_torch_cuda.py and by chip_smoke.py.  The JAX
+the plain versions in tests/test_torch_cuda.py.  The JAX
 side runs its Pallas kernels in interpret mode, as its own tests do.
 """
-
-import os
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,9 +31,7 @@ from jeicyboodsp_tpu_torch.oracle import mfcc as port_omfcc
 from jeicyboodsp_tpu_torch.oracle import pitch as port_opitch
 from jeicyboodsp_tpu_torch.pipelines.speech import speech_classify
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-import chip_smoke  # noqa: E402
+from torch_inputs import SCORE_RTOL, class_models, class_signal, speech_signal
 
 
 def _speech(n, seed=0, f0=123.0):
@@ -523,16 +518,16 @@ def test_features_entry_points_default_to_the_card():
         tf.mfcc_run(np.zeros(600, np.int16))
 
 
-# ---- the port's own references (jeicyboodsp_tpu_torch.oracle) and chip_smoke.py's data ----
+# ---- the port's own references (jeicyboodsp_tpu_torch.oracle) and the tests' inputs ----
 
 
 @pytest.mark.parametrize("skip_first", [True, False])
-def test_chip_smoke_mfcc_reference_matches_oracle(skip_first):
-    """The port carries its own float64 MFCC reference (chip_smoke.py may not
-    import the JAX package); it equals the oracle to 1e-9 with the oracle's
+def test_port_mfcc_reference_matches_oracle(skip_first):
+    """The port carries its own float64 MFCC reference (the card tests may
+    not import the JAX package); it equals the oracle to 1e-9 with the oracle's
     NaN frames, partial blocks and empty payloads."""
     rng = np.random.default_rng(19)
-    x = chip_smoke.speech_signal(6 * 1024 + 300, rng, silent=(1024, 3072))
+    x = speech_signal(6 * 1024 + 300, rng, silent=(1024, 3072))
     M, D = port_omfcc.mfcc_tables()
     assert np.array_equal(M, tf.mel_matrix()) and np.allclose(D, tf.dct_lifter_matrix(), rtol=1e-14)
     for n in (0, 100, 1024, len(x)):
@@ -543,9 +538,9 @@ def test_chip_smoke_mfcc_reference_matches_oracle(skip_first):
 
 
 @pytest.mark.parametrize("method", [1, 2, 3])
-def test_chip_smoke_pitch_reference_matches_oracle(method):
+def test_port_pitch_reference_matches_oracle(method):
     rng = np.random.default_rng(20)
-    x = chip_smoke.speech_signal(512 * 10 + 77, rng, silent=(1024, 2048))
+    x = speech_signal(512 * 10 + 77, rng, silent=(1024, 2048))
     for n in (0, 300, len(x)):
         want = opitch.run(x[:n], method)
         lag, val, f0 = port_opitch.reference_pitch(x[:n], method)
@@ -556,15 +551,15 @@ def test_chip_smoke_pitch_reference_matches_oracle(method):
             assert [float(v) for v in val] == [w[1] for w in want]
 
 
-def test_chip_smoke_score_reference_and_class_models():
-    """The script's scorer equals oracle.gmm.score_file; its class models,
+def test_port_score_reference_and_class_models():
+    """The port's reference scorer equals oracle.gmm.score_file; its class models,
     scored by the port and by the reference, pick every utterance's class."""
     rng = np.random.default_rng(21)
     C = 4
-    feats = [port_omfcc.reference_mfcc(chip_smoke.class_signal(c, 16 * 1024, rng), False)
+    feats = [port_omfcc.reference_mfcc(class_signal(c, 16 * 1024, rng), False)
              for c in range(C)]
-    model = chip_smoke.class_models(feats)
-    utt = [chip_smoke.class_signal(c, 8 * 1024, rng) for c in range(C)]
+    model = class_models(feats)
+    utt = [class_signal(c, 8 * 1024, rng) for c in range(C)]
     tmodel = TG.model_to_port(*model, "cpu")
     for c in range(C):
         f = port_omfcc.reference_mfcc(utt[c], False)
@@ -576,4 +571,4 @@ def test_chip_smoke_score_reference_and_class_models():
         got = speech_classify(torch.from_numpy(utt[c].reshape(-1, 1024)), *tmodel,
                               fft_engine="mxu3").numpy()
         assert int(np.argmax(ref)) == int(np.argmax(got)) == c
-        assert np.max(np.abs(got - ref) / np.abs(ref)) <= chip_smoke.SCORE_RTOL
+        assert np.max(np.abs(got - ref) / np.abs(ref)) <= SCORE_RTOL

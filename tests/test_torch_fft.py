@@ -5,8 +5,7 @@ oracle.
 Seeded numpy inputs go through the JAX function and its port; the JAX
 Pallas kernel runs in interpret mode.  On CPU tensors the K12 wrapper runs
 its plain version, so these tests hold the plain version's arithmetic; the
-CUDA kernel is held against it in tests/test_torch_cuda.py and by
-chip_smoke.py.
+CUDA kernel is held against it in tests/test_torch_cuda.py.
 """
 
 import contextlib
@@ -233,9 +232,9 @@ def test_run_stream_needs_a_card_unless_asked_for_the_cpu():
         TF.run_stream(_noise(600, 1))
 
 
-def test_chip_smoke_reference_matches_oracle():
+def test_port_fftprog_reference_matches_oracle():
     """The port's own float64 copy of the FFT program
-    (``jeicyboodsp_tpu_torch.oracle``, which chip_smoke.py holds the port to)
+    (``jeicyboodsp_tpu_torch.oracle``, which the card tests hold the port to)
     equals oracle/fftprog.run byte for byte."""
     from jeicyboodsp_tpu_torch.oracle import fftprog as port_oracle
 

@@ -6,8 +6,7 @@ Seeded numpy inputs (the two 64-block probes of test_torch_enhance.py) go
 through the JAX kernels K2-K5 in interpret mode and through the port's
 wrappers, which run their plain PyTorch versions on CPU tensors.  The back
 kernels K3 and K5 get the same JAX-made inputs on both sides.  The CUDA
-kernels are held against these plain versions in tests/test_torch_cuda.py
-and by chip_smoke.py.
+kernels are held against these plain versions in tests/test_torch_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -381,8 +380,8 @@ def test_enhance_fused_vs_jax_and_oracle(jax_fused, mode):
 def _vad_probe():
     """The 40-block speech probe of test_pallas_kernels.py:198-213, and rows
     at the energy and ZCR thresholds for the port's f32 window and for the
-    f64-built w2 (chip_smoke.vad_threshold_rows)."""
-    import chip_smoke
+    f64-built w2 (torch_inputs.vad_threshold_rows)."""
+    from torch_inputs import vad_threshold_rows
 
     rng = np.random.default_rng(8)
     n = 512 * 24
@@ -392,8 +391,8 @@ def _vad_probe():
     w32 = TE._vad_window(torch.device("cpu")).numpy()
     w64 = JE._dft_mats_aligned()["w2"]
     zeros = np.zeros((4, 512), np.int16)  # 40 rows: 5 grid steps of the JAX kernel's F = 8
-    return np.concatenate([x, zeros, chip_smoke.vad_threshold_rows(w32),
-                           chip_smoke.vad_threshold_rows(w64)]), w64
+    return np.concatenate([x, zeros, vad_threshold_rows(w32),
+                           vad_threshold_rows(w64)]), w64
 
 
 def test_vad_flags_vs_jax_at_the_thresholds():

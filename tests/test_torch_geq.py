@@ -3,7 +3,7 @@ kernels K6 and K7) with the JAX package and the f64 oracle.
 
 On CPU tensors the kernel wrappers run their plain PyTorch versions, so these
 tests hold the plain versions' arithmetic; the CUDA kernels are held against
-the plain versions in tests/test_torch_cuda.py and by chip_smoke.py.  The JAX
+the plain versions in tests/test_torch_cuda.py.  The JAX
 side runs its Pallas kernels in interpret mode, as its own tests do.
 """
 
@@ -268,9 +268,9 @@ def test_pipeline_geq_file_end_to_end(tmp_path):
     np.testing.assert_array_equal(np.fromfile(out_cli, "<i2"), ogeq.run(x))
 
 
-def test_chip_smoke_geq_references_match_oracle():
-    """chip_smoke.py carries its own float64 GEQ reference (it may not import
-    the JAX package); it must equal the oracle byte for byte, including the
+def test_port_geq_references_match_oracle():
+    """The port carries its own float64 GEQ reference (the card tests may not
+    import the JAX package); it must equal the oracle byte for byte, including the
     wrap stress, partial blocks and an empty payload, its float32 copy must
     equal the port's f32 route, and its linear form must agree with the JAX
     f64 scan."""

@@ -398,7 +398,7 @@ def test_gmm_test_lines_equal_jax_on_one_model(corpus, mismatch):
         assert (~np.isfinite(ws)).any()
 
 
-def test_gmm_test_against_the_smoke_reference(corpus):
+def test_gmm_test_against_the_oracle_score_file(corpus):
     """The port's decisions on the JAX model file equal those of
     the port's oracle's reference_score_file's scores under the reference's argmax
     (the first 9 files: classes 0-6)."""
@@ -508,12 +508,12 @@ def test_speech_train_against_jax(T):
     np.testing.assert_allclose(dots, 1.0, atol=1e-5)
 
 
-# ---- the smoke's reference copies -------------------------------------------------------
+# ---- the port's oracle copies ------------------------------------------------------------
 
 
-def test_smoke_gmm_references_equal_the_oracle():
+def test_port_gmm_references_equal_the_oracle():
     """The port's copies of oracle/gmm.py (``jeicyboodsp_tpu_torch.oracle.gmm``,
-    which chip_smoke.py holds the port to) give the same bytes: kmeans,
+    which the card tests hold the port to) give the same bytes: kmeans,
     em_step, train_class (one and two files), pca_export, score_file."""
     rng = np.random.default_rng(42)
     f1, f2 = _class_data(rng), _class_data(rng, n=80)

@@ -413,9 +413,9 @@ def test_speech_decode_against_jax():
         _same_score(float(gs), float(ws))
 
 
-def test_smoke_hmm_decode_equals_the_oracle():
-    """The port's oracle's reference_hmm_decode (which chip_smoke.py holds the
-    port to) gives oracle/viterbi.hmm_decode's
+def test_port_hmm_decode_equals_the_oracle():
+    """The port's oracle's reference_hmm_decode (which the card tests hold
+    the port to) gives oracle/viterbi.hmm_decode's
     bytes on every probe, and its printed values are JAX's full=True bests
     from t = T-1 down to 1."""
     for obs, model in PROBES.values():

@@ -1,10 +1,7 @@
 """The port's LPC (``jeicyboodsp_tpu_torch.ops.features``: ``hamming``,
 ``lpc_frames``, ``lpc_run``) against ``oracle/lpc.py`` and the JAX op, and
 the port's float64 copy of the oracle (``jeicyboodsp_tpu_torch.oracle.lpc``,
-which chip_smoke.py holds the port to)."""
-
-import os
-import sys
+which the card tests hold the port to)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +13,7 @@ from jeicyboodsp_tpu.ops import features as JF
 from jeicyboodsp_tpu_torch.ops import features as TF
 from jeicyboodsp_tpu_torch.oracle import lpc as port_olpc
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import torch_inputs as TI
 
 
 def _speech(n, seed, f0=123.0):
@@ -105,27 +102,23 @@ def test_hamming_and_empty_frames():
         TF.lpc_frames(torch.zeros(2, 512, dtype=torch.int16), solver="qr")
 
 
-def test_chip_smoke_lpc_reference_equals_oracle():
-    from chip_smoke import reference_lpc
-
+def test_port_lpc_reference_equals_oracle():
     for n in (0, 100, 256 * 9 + 5):
         x = _speech(n, 9)
-        assert reference_lpc(x).tobytes() == olpc.run(x).tobytes()
+        assert port_olpc.reference_lpc(x).tobytes() == olpc.run(x).tobytes()
 
 
-def test_smoke_levinson_f32_limits_follow_jax():
-    """chip_smoke.py holds the card's f32 Levinson over its LPC_T frames to
-    4x JAX's f32 op on the same frames: the median frame error and the
-    count of frames above 1e-2 against reference_lpc.  JAX's reading
-    (jitted, CPU) is taken anew here and the smoke's recorded one must
-    match it, so its limits stay derived from JAX; the port's f32 Levinson
-    on the CPU meets the same limits.  Both readings printed."""
+def test_card_levinson_f32_limits_follow_jax():
+    """tests/test_torch_cuda.py holds the card's f32 Levinson over the
+    LPC_T frames of torch_inputs.lpc_signal() to 4x JAX's f32 op on the same
+    frames: the median frame error and the count of frames above 1e-2
+    against reference_lpc.  JAX's reading (jitted, CPU) is taken anew here
+    and the recorded one (torch_inputs.LPC_F32_JAX) must match it, so the
+    limits stay derived from JAX; the port's f32 Levinson on the CPU meets
+    the same limits.  Both readings printed."""
     import jax
 
-    import chip_smoke as cs
-
-    rng = np.random.default_rng(cs.SEED + 9)
-    x = cs.make_signal(cs.LPC_T * 256, rng)  # drive_lpc's input
+    x = TI.lpc_signal()  # the card test's input
     want = port_olpc.reference_lpc(x)
     scale = np.abs(want).max(1)
     blocks = x.reshape(-1, 256)
@@ -140,7 +133,7 @@ def test_smoke_levinson_f32_limits_follow_jax():
         print(f"levinson f32 over {len(e)} frames: {name} median {readings[name][0]:.3e}, "
               f"{readings[name][1]} frames above 1e-2, worst {e.max():.3e}")
     jm, jn = readings["JAX"]
-    assert abs(cs.LPC_F32_JAX[0] - jm) <= 0.01 * jm and cs.LPC_F32_JAX[1] == jn, readings
-    assert (cs.LPC_F32_MEDIAN, cs.LPC_F32_LOST) == (4 * cs.LPC_F32_JAX[0], 4 * cs.LPC_F32_JAX[1])
+    assert abs(TI.LPC_F32_JAX[0] - jm) <= 0.01 * jm and TI.LPC_F32_JAX[1] == jn, readings
+    assert (TI.LPC_F32_MEDIAN, TI.LPC_F32_LOST) == (4 * TI.LPC_F32_JAX[0], 4 * TI.LPC_F32_JAX[1])
     pm, pn = readings["port"]
-    assert pm <= cs.LPC_F32_MEDIAN and pn <= cs.LPC_F32_LOST, readings
+    assert pm <= TI.LPC_F32_MEDIAN and pn <= TI.LPC_F32_LOST, readings

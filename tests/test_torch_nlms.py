@@ -3,7 +3,7 @@ kernels K8 and K9) with the JAX package and the f64 oracle.
 
 On CPU tensors the kernel wrappers run their plain PyTorch versions, so these
 tests hold the plain versions' arithmetic; the CUDA kernels are held against
-the plain versions in tests/test_torch_cuda.py and by chip_smoke.py.  The JAX
+the plain versions in tests/test_torch_cuda.py.  The JAX
 side runs its Pallas kernels in interpret mode, as its own tests do.
 """
 
@@ -350,9 +350,9 @@ def test_cli_checks_arity_and_engine():
             main(argv)
 
 
-def test_chip_smoke_aec_references_match_oracle():
-    """chip_smoke.py's own float64 NLMS / BNLMS references (it may not import
-    the JAX package) equal the oracle: est, err and the BNLMS gates, with a
+def test_port_aec_references_match_oracle():
+    """The port's own float64 NLMS / BNLMS references (the card tests may not
+    import the JAX package) equal the oracle: est, err and the BNLMS gates, with a
     partial block, unequal lengths, a shut gate and an empty payload."""
     from jeicyboodsp_tpu_torch.oracle import nlms as port_oracle
 

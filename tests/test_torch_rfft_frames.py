@@ -9,7 +9,7 @@ the chain's signal with a digital-silence stretch and a quiet row beside a
 loud one -- go through the model, the port's plain versions and the JAX
 package's Pallas kernels in interpret mode.  A sign or split error shows
 here without a card; the CUDA kernels are held against the plain versions
-in tests/test_torch_cuda.py and by chip_smoke.py.
+in tests/test_torch_cuda.py.
 """
 
 import jax.numpy as jnp

@@ -3,10 +3,10 @@
 ``models.serialization``) with the JAX package and the f64 oracles.
 
 Sessions run with ``device="cpu"``, so the kernels (K6, K8, K9, K14) run
-their plain versions; tests/test_torch_cuda.py and chip_smoke.py hold the
-sessions on the card.  The JAX sessions run in this process with x64 on
-(tests/conftest.py), the GEQ and AEC ones through the JAX package's native
-kernels.
+their plain versions; tests/test_torch_cuda.py and
+tests/test_torch_enhance_chunk64.py hold the sessions on the card.  The JAX
+sessions run in this process with x64 on (tests/conftest.py), the GEQ and AEC
+ones through the JAX package's native kernels.
 """
 
 import jax.numpy as jnp
