@@ -15,17 +15,21 @@ package's npz keys and layouts, so it moves between the two packages:
 
 The JAX package's GEQ and AEC sessions call its native C++ kernels; these run
 the port's bit-exact kernels on one stream (B = 1): the GEQ through K6 in
-f64 (``ops.geq.geq_apply``), NLMS through K8 (``ops.nlms.nlms_apply``),
-BNLMS through its f64 FFT gate and K9 (``ops.nlms.bnlms_apply``).  Sessions
-run on ``device``, a CUDA card unless the caller asks for the CPU.
+f64 (``ops.geq.geq_apply``), NLMS through K8 (``ops.nlms.nlms_apply``; on a
+card, K8 itself on the state the session keeps there), BNLMS through its f64
+FFT gate and K9 (``ops.nlms.bnlms_apply``).  Sessions run on ``device``, a
+CUDA card unless the caller asks for the CPU.
 
 While spans are recorded (``utils.metrics``), each chunk of an AEC or
 enhancement session is a ``session.process`` span with the request id
 (session serial, chunk number), holding ``session.chunk_in`` (copy; a
-``stage`` on an enhancement session's card route, whose copy from pinned
-memory does not block), the op's spans, ``session.drain`` (wait: the queued
-work, so that the copy after it is the transfer alone; not after
-``nlms_apply``, which leaves nothing queued) and ``session.out`` (copy).
+``stage`` on a card route that stages the chunk, whose copy from pinned
+memory does not block), the op's spans (``nlms.kernel`` alone on an NLMS
+session's card route), ``session.drain`` (wait: the queued work, so that the
+copy after it is the transfer alone; not after ``nlms_apply``, which leaves
+nothing queued) and ``session.out`` (copy).  An NLMS card session's state
+crosses the bus in a ``session.state`` copy span of the same request id,
+outside ``session.process`` where it is read or assigned between chunks.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import math
 import numpy as np
 import torch
 
+from jeicyboodsp_tpu_torch.kernels import _build
+from jeicyboodsp_tpu_torch.kernels import nlms as K8
 from jeicyboodsp_tpu_torch.models.serialization import load_pytree, save_pytree
 from jeicyboodsp_tpu_torch.ops import enhance as E
 from jeicyboodsp_tpu_torch.ops import geq as G
@@ -89,15 +95,53 @@ class GEQSession:
 
 
 class AECSession:
-    """Streaming compat NLMS (K8) / BNLMS (K9), bit-exact, with resume."""
+    """Streaming compat NLMS (K8) / BNLMS (K9), bit-exact, with resume.
+
+    ``state`` is the JAX op's dict on the CPU (NLMS: ``hist`` (255,) int32
+    and ``coeff`` (256,) float64; BNLMS: ``keep_in``, ``keep_ref``,
+    ``coeff``); the getter hands back copies the caller may keep or change,
+    and an assignment takes a copy (None releases the state).  ``coeff``,
+    ``keep``, ``checkpoint`` and ``restore`` go through them.
+
+    An ``nlms`` session on a CUDA card keeps its state on the card instead,
+    in K8's layout (:class:`_K8State`): a chunk is one copy in from pinned
+    memory (x and ref as the two rows of one buffer, :class:`_Staging`), K8
+    and one copy of est and err into pinned memory, which syncs; each such
+    chunk counted as ``session.staged`` in ``REGISTRY``.  Its ``state``
+    getter reads the card at most once a chunk served, counted as
+    ``session.state_reads``.  Every other session runs ``nlms_apply`` /
+    ``bnlms_apply`` on its state on the host.
+    """
 
     def __init__(self, variant: str = "nlms", device="cuda"):
         if variant not in ("nlms", "bnlms"):
             raise ValueError(f"variant must be 'nlms' or 'bnlms', got {variant!r}")
         self.variant = variant
         self._dev = entry_device(device)
-        self.state = N.nlms_init_state() if variant == "nlms" else N.bnlms_init_state()
         self._serial, self._chunks = next(_SERIALS), 0
+        resident = variant == "nlms" and self._dev.type == "cuda"
+        self._card = _K8State(self._dev) if resident else None
+        self._staging = _Staging(self._dev, card_out=True) if resident else None
+        self._host = None  # the state on the host; None while only the card holds it
+        self.state = N.nlms_init_state() if variant == "nlms" else N.bnlms_init_state()
+
+    @property
+    def state(self) -> dict | None:
+        if self._host is None and self._card is not None:
+            REGISTRY.count("session.state_reads")
+            with REGISTRY.span("session.state", "copy", self._serial, self._chunks):
+                self._host = self._card.read()
+        return None if self._host is None else {k: v.clone() for k, v in self._host.items()}
+
+    @state.setter
+    def state(self, state: dict | None) -> None:
+        if state is None:  # released, with the card's buffers: the session serves no more
+            self._card = self._staging = self._host = None
+        elif self._card is None:
+            self._host = {k: torch.as_tensor(v).clone() for k, v in state.items()}
+        else:
+            with REGISTRY.span("session.state", "copy", self._serial, self._chunks):
+                self._host = self._card.write(state)
 
     @property
     def coeff(self) -> np.ndarray:
@@ -124,16 +168,34 @@ class AECSession:
             return x.copy(), ref.copy()
         self._chunks += 1
         with REGISTRY.span("session.process", "stage", self._serial, self._chunks):
+            if self._card is not None:
+                return self._process_on_card(x, ref)
             with REGISTRY.span("session.chunk_in", "copy"):
                 xt, rt = (torch.from_numpy(v).to(self._dev) for v in (x, ref))
             if self.variant == "nlms":  # drains its own queue before its state's copy
-                est, err, self.state = N.nlms_apply(xt, rt, self.state)
+                est, err, self._host = N.nlms_apply(xt, rt, self._host)
             else:
-                est, err, self.state = N.bnlms_apply(xt.view(-1, AEC_BLOCK),
-                                                     rt.view(-1, AEC_BLOCK), self.state)
+                est, err, self._host = N.bnlms_apply(xt.view(-1, AEC_BLOCK),
+                                                     rt.view(-1, AEC_BLOCK), self._host)
                 REGISTRY.drain("session.drain", self._dev)
             with REGISTRY.span("session.out", "copy"):
                 return est.reshape(-1).cpu().numpy(), err.reshape(-1).cpu().numpy()
+
+    def _process_on_card(self, x, ref):
+        """The card route's chunk: x and ref staged as the rows of one pinned
+        buffer, K8 on the resident state, est and err back as the two rows
+        of another; the arrays returned are the caller's own."""
+        staging = self._staging
+        with REGISTRY.span("session.chunk_in", "stage"):
+            rows = staging.copy_in(x, ref)
+        with REGISTRY.span("nlms.kernel"):
+            self._card.step(rows, staging.card_out)
+        self._host = None
+        REGISTRY.drain("session.drain", self._dev)
+        with REGISTRY.span("session.out", "copy"):
+            REGISTRY.count("session.staged")
+            y = staging.copy_out(staging.card_out, 0)
+        return y[:len(x)], y[len(x):]
 
     def checkpoint(self, path: str) -> None:
         state = {"coeff": self.coeff, "keep": self.keep}
@@ -150,6 +212,58 @@ class AECSession:
         else:
             self.state = {"keep_in": keep, "coeff": coeff,
                           "keep_ref": torch.from_numpy(d["keep_ref"].astype(np.int32))}
+
+
+class _K8State:
+    """One NLMS stream's state resident on a CUDA card, in K8's layout: two
+    slots that the chunks use in turn (K8 reads one and writes the other
+    through its separate in and out pointers, so a chunk allocates
+    nothing), each ``coef`` (256,) float64 and after it ``hist`` (255,)
+    int16; and one pinned slot through which the state crosses the bus in
+    one copy.  Each copy blocks, so the pinned slot is free after it."""
+
+    HIST = K8.TAPS * 8  # hist's byte offset in a slot
+    SLOT = HIST + 2 * K8.KEEP + 2  # padded to keep the next slot's coef 8-byte aligned
+
+    def __init__(self, device):
+        self._dev, self._cur = device, 0
+        self._slots = torch.empty(2, self.SLOT, dtype=torch.uint8, device=device)
+        self._pinned = torch.empty(self.SLOT, dtype=torch.uint8, pin_memory=True)
+        self._coef = self._pinned[:self.HIST].view(torch.float64)
+        self._hist = self._pinned[self.HIST:self.HIST + 2 * K8.KEEP].view(torch.int16)
+        base = self._slots.data_ptr()
+        self._ptrs = [(base + i * self.SLOT, base + i * self.SLOT + self.HIST) for i in (0, 1)]
+
+    def _as_jax(self) -> dict:
+        return {"hist": self._hist.to(torch.int32), "coeff": self._coef.clone()}
+
+    def read(self) -> dict:
+        """The current slot as the JAX op's dict on the CPU."""
+        self._pinned.copy_(self._slots[self._cur])
+        return self._as_jax()
+
+    def write(self, state: dict) -> dict:
+        """Put a JAX-layout dict into the current slot; what the slot now
+        holds, as :meth:`read` would give it."""
+        coeff = torch.as_tensor(state["coeff"])
+        if coeff.dtype != torch.float64:
+            raise ValueError(f"the state's coefficients are {coeff.dtype}, the session's float64")
+        self._coef.copy_(coeff.reshape(K8.TAPS))
+        self._hist.copy_(torch.as_tensor(state["hist"]).reshape(K8.KEEP))
+        self._slots[self._cur].copy_(self._pinned)
+        return self._as_jax()
+
+    def step(self, rows: torch.Tensor, out: torch.Tensor) -> None:
+        """Enqueue K8 over one chunk: x and ref the two rows of ``rows``,
+        est and err into the two rows of ``out`` (each (2, n) int16 on the
+        card), from the current slot into the other, which becomes current.
+        Counted in ``K8.nlms.launches``."""
+        n, xr, yr = rows.shape[1], rows.data_ptr(), out.data_ptr()
+        cur = self._cur
+        _build.launch("jb_nlms", self._dev, xr, xr + 2 * n, *self._ptrs[cur], yr, yr + 2 * n,
+                      *self._ptrs[1 - cur], 1, n, 1)
+        K8.nlms.launches += 1
+        self._cur = 1 - cur
 
 
 class EnhanceSession:
@@ -225,31 +339,38 @@ class EnhanceSession:
 
 class _Staging:
     """A CUDA session's int16 buffers: the chunk in pinned memory and on the
-    card, and its output rows in pinned memory.  They grow to the largest
-    chunk served; their views for the last chunk's shape are kept, so that a
-    chunk of that shape makes no tensor op but its two copies.  Every chunk
-    ends with the stream's sync, so the next may overwrite them."""
+    card, and its output in pinned memory (and, with ``card_out``, a card
+    buffer of the chunk's shape for the session's kernel to write it into).
+    They grow to the largest chunk served; their views for the last chunk's
+    shape are kept, so that a chunk of that shape makes no tensor op but
+    its two copies.  Every chunk ends with the stream's sync, so the next
+    may overwrite them."""
 
-    def __init__(self, device):
-        self._dev, self._size, self.shape = device, 0, None
+    def __init__(self, device, card_out: bool = False):
+        self._dev, self._size, self.shape, self._card_out = device, 0, None, card_out
 
     def _fit(self, shape):
         n = math.prod(shape)
         if self.shape is None or n > self._size:
             self._size = n
-            self._bufs = (torch.empty(n, dtype=torch.int16, pin_memory=True),
-                          torch.empty(n, dtype=torch.int16, device=self._dev),
-                          torch.empty(n, dtype=torch.int16, pin_memory=True))
+            pinned = lambda: torch.empty(n, dtype=torch.int16, pin_memory=True)  # noqa: E731
+            card = lambda: torch.empty(n, dtype=torch.int16, device=self._dev)  # noqa: E731
+            self._bufs = (pinned(), card(), pinned()) + ((card(),) if self._card_out else ())
         self.shape = shape
-        self.host_in, self.card_in, self.host_out = (b[:n].view(shape) for b in self._bufs)
+        views = [b[:n].view(shape) for b in self._bufs]
+        self.host_in, self.card_in, self.host_out = views[:3]
+        self.card_out = views[3] if self._card_out else None
         self.in_np, self.out_np = self.host_in.numpy(), self.host_out.numpy()
 
-    def copy_in(self, blocks: np.ndarray) -> torch.Tensor:
-        """``blocks`` on the card: copied into pinned memory, and from there
-        by a copy the stream runs in its turn."""
-        if blocks.shape != self.shape:
-            self._fit(blocks.shape)
-        np.copyto(self.in_np, blocks)
+    def copy_in(self, *rows: np.ndarray) -> torch.Tensor:
+        """The chunk on the card: one array, or arrays of one shape as the
+        rows of one, copied into pinned memory, and from there by a copy the
+        stream runs in its turn."""
+        shape = rows[0].shape if len(rows) == 1 else (len(rows), *rows[0].shape)
+        if shape != self.shape:
+            self._fit(shape)
+        for dst, src in zip((self.in_np,) if len(rows) == 1 else self.in_np, rows):
+            np.copyto(dst, src)
         return self.card_in.copy_(self.host_in, non_blocking=True)
 
     def copy_out(self, out: torch.Tensor, first: int) -> np.ndarray:

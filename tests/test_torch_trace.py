@@ -8,7 +8,9 @@ neither jax nor the JAX package, so it runs on a card's host too:
 Off, a site records nothing and reads no clock; on, each call's spans form
 the trees below (on a card a Wiener chunk runs as one kernel, K15, so its
 ``enhance.chunk`` holds ``enhance.kernel`` alone, and its copy in from
-pinned memory is a ``stage``), children inside their
+pinned memory is a ``stage``; an NLMS chunk there is K8 on the state the
+session keeps on the card, with no ``nlms.apply``, and a read of that state
+a ``session.state`` copy of its own), children inside their
 parents, one request id a chunk, copies and waits apart, the outputs
 bit-equal to an unrecorded run.  The
 card tests (skipped without CUDA) hold every synchronising call that torch
@@ -69,6 +71,10 @@ AEC_TREE = ([("session.process", "stage", None), ("session.chunk_in", "copy", "s
             + [(n, k, p or "session.process") for n, k, p in APPLY_TREE]
             + ENHANCE_TREE[-1:])  # nlms_apply leaves nothing queued: no session.drain
 CARD_ONLY = ("session.drain", "nlms.drain")
+# an NLMS session on a card keeps its state there (io.stream._K8State): a chunk is its copy
+# in from pinned memory, K8 and its copy out, and the state read after it is a root of its own
+AEC_CARD_TREE = (ENHANCE_CARD_TREE[:2] + [("nlms.kernel", "stage", "session.process")]
+                 + ENHANCE_TREE[-2:] + [("session.state", "copy", None)])
 
 
 def _signal(n, seed):
@@ -121,8 +127,8 @@ class Case:
 
     def expected(self):
         card = self.dev.type == "cuda"
-        if card and self.name == "enhance":
-            return ENHANCE_CARD_TREE
+        if card and self.name != "apply":
+            return ENHANCE_CARD_TREE if self.name == "enhance" else AEC_CARD_TREE
         return [t for t in self.tree if card or t[0] not in CARD_ONLY]
 
 
@@ -150,7 +156,7 @@ def _shape(spans, a, b):
 
 
 def _check_tree(spans, want, chunks):
-    roots = [i for i, s in enumerate(spans) if s.parent < 0]
+    roots = [i for i, s in enumerate(spans) if s.parent < 0 and s.name == want[0][0]]
     assert len(roots) == chunks
     for a, b in zip(roots, roots[1:] + [len(spans)]):
         assert _shape(spans, a, b) == [(n, k, p) for n, k, p in want]
@@ -339,9 +345,10 @@ def test_card_every_flagged_sync_lies_in_a_copy_or_wait_span(case, cuda):
         warnings.simplefilter("always")
         warnings.showwarning = hook
         torch.cuda.set_sync_debug_mode("warn")
+        runs = range(1, 21 if case != "apply" else 2)
         try:
             with REGISTRY.recording():
-                for k in range(1, 21 if case != "apply" else 2):
+                for k in runs:
                     c.run(k % 16)
         finally:
             torch.cuda.set_sync_debug_mode(0)
@@ -351,7 +358,7 @@ def test_card_every_flagged_sync_lies_in_a_copy_or_wait_span(case, cuda):
     inside = [t for t in flagged if any(a <= t <= b for a, b in blocking)]
     in_roots = [t for t in flagged if any(r.start_ns <= t <= r.end_ns for r in roots)]
     assert in_roots and len(inside) == len(in_roots), (len(inside), len(in_roots))
-    _check_tree(spans, c.expected(), chunks=len(roots))
+    _check_tree(spans, c.expected(), chunks=len(runs))
 
 
 SITES = 200_000
